@@ -9,8 +9,9 @@ non-zero exit and no result line:
 1. device: a CUDA device is required (there is no CPU path); prints
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` and
    turns TF32 off;
-2. build: compiles ``optimization_tpu_torch/csrc/streamed_cg.cu`` with nvcc
-   from this checkout and prints the build seconds;
+2. build: compiles ``optimization_tpu_torch/csrc/streamed_cg.cu`` and
+   ``csrc/fused.cu`` with nvcc from this checkout, both at once, and prints
+   each build's seconds;
 3. kernel parity: ``stpcg_flat_streamed`` on the card against its plain
    PyTorch version on the same inputs, at n = 2^20 and a ragged n, over
    storage dtype x body x init x Delta x fixture, plus a bitwise repeat;
@@ -18,7 +19,18 @@ non-zero exit and no result line:
    at n = 2^24 in both tiers, the f32 tier through the kernel (its launch
    count checked against the subproblems solved), then the f32 tier again
    with the plain version in the kernel's place;
-5. the kernel table as one JSON line, then the result line
+5. fused kernel parity: ``cg_dots``, ``axpy_selfdot``,
+   ``diag_stencil_matvec`` and ``affine_stencil_matvec`` against their
+   plain versions (and the reductions against a float64 sum) at
+   n = 2^24, 999,999 and 100 in f32 and bf16, plus bitwise repeats;
+6. the stencil path: ``euclidean_tnt(fused_dots=True)`` on the SPD
+   quadratic 1/2 <x, A x> - <c, x>, A = diag(d) + 2I - S - S', at
+   n = 2^24 in f32, with A from ``diag_stencil_matvec``, then from
+   ``affine_stencil_matvec``, then the plain route (generic STPCG dots,
+   the stencil's plain version); launch counts, the gradient reached and
+   the agreement of f checked; then each fused kernel timed against its
+   plain version at n = 2^24 f32;
+7. the kernel table as one JSON line, then the result line
    ``{"ok": true, "device": {...}}``.
 
 Every time printed is labelled with the card's name and power limit.
@@ -31,12 +43,15 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 N_PARITY = (1 << 20, 999_999)       # the second is not a multiple of 1024
 N_MAIN = 1 << 24
 SHORT = 10                          # CG iterations: see check_parity
+SOURCES = ("streamed_cg", "fused")
+N_FUSED = (1 << 24, 999_999, 100)   # fused kernel parity sizes
 
 
 def card_label(torch):
@@ -173,15 +188,32 @@ def parity_phase(torch, dev):
 
 
 def time_ms(torch, fn, reps):
-    """Mean milliseconds per call by CUDA events (after one warm call)."""
+    """Mean milliseconds per call by CUDA events (after one warm call).
+
+    A spin kernel (``torch.cuda._sleep``) holds the card while the host
+    enqueues all the calls, so the events time the device's work, not the
+    host's launch overhead: a fused kernel's wrapper spends about as long
+    on the host as its kernel on the card.  If the card reached the start
+    event before the host had enqueued the last call, the spin is doubled
+    and the timing repeated (at most three times; a function that reads
+    back to the host, like the streamed kernel's plain version, is timed
+    as it runs)."""
     fn()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
+    cycles = 20_000_000
+    for _ in range(3):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        stop.record()
+        queued_in_time = not start.query()
+        torch.cuda.synchronize()
+        if queued_in_time:
+            break
+        cycles *= 2
     return start.elapsed_time(stop) / reps
 
 
@@ -281,6 +313,262 @@ def main_path_phase(torch, dev, label):
             "plain_ms": plain_ms}
 
 
+FUSED_TOLERANCES = """\
+  tolerances, kernel against plain version (and the reductions against a
+  float64 sum of the same inputs on the card):
+    cg_dots, and the norm of axpy_selfdot: 1e-5 sum|terms| -- f32 sums in
+      other orders (the kernel runs <= 64 terms per thread then adds in
+      double, the plain version takes torch's reduction tree); in bf16
+      also 2^-7 |sum|: both round the result to bf16, maybe to neighbours;
+      the bf16 norm 2^-5 sum(|a x| + |y|)^2, as the vectors differ (next);
+    axpy_selfdot out: f32 2^-22 (|a x| + |y|) -- the same two roundings in
+      the same order; bf16 2^-7 (|a x| + |y|) -- the plain version rounds
+      a x to bf16 before the add (the JAX contract), the kernel rounds
+      once on store;
+    stencils: f32 2^-22 (|(d+2) v| + |v[i+1]| + |v[i-1]|) |scale| -- the
+      same roundings in the same order; bf16 2^-5 of the same -- the plain
+      version rounds after each of its five bf16 operations, the kernel
+      once on store.
+"""
+
+
+def check_close(torch, label, got, ref, tol):
+    """Elementwise |got - ref| <= tol (f64), all finite; prints and raises
+    on failure; returns max |got - ref|."""
+    err = (got.double() - ref.double()).abs()
+    ok = bool(torch.isfinite(got.double()).all()) and bool((err <= tol).all())
+    ratio = float((err / tol.clamp_min(1e-300)).max())
+    print(f"  {'ok  ' if ok else 'FAIL'} {label}: max|err| "
+          f"{float(err.max()):.3e}, max err/tol {ratio:.3f}", flush=True)
+    if not ok:
+        raise AssertionError(f"fused kernel disagrees: {label}")
+    return float(err.max())
+
+
+def fused_parity_phase(torch, dev):
+    """Each fused kernel against its plain version on the same card inputs;
+    returns {kernel name: max |err| at the path's shape (first size, f32)}."""
+    from optimization_tpu_torch.kernels import fused as F
+    from optimization_tpu_torch.kernels.streamed_cg import AffineDiagonal
+
+    print("phase 5: fused kernels vs plain versions on the card", flush=True)
+    print(FUSED_TOLERANCES, end="", flush=True)
+    errs = {}
+    cases = 0
+    for n, dtype in itertools.product(N_FUSED,
+                                      (torch.float32, torch.bfloat16)):
+        bf16 = dtype == torch.bfloat16
+        tag = f"n={n} {str(dtype)[6:]}"
+        gen = torch.Generator(device=dev).manual_seed(n % 997)
+        p, hp, r = (torch.randn(n, generator=gen, device=dev).to(dtype)
+                    for _ in range(3))
+        d = (1.0 + 999.0 * torch.rand(n, generator=gen, device=dev)).to(dtype)
+        P, HP, R = p.double(), hp.double(), r.double()
+        e = {}
+
+        got = torch.stack(F.cg_dots(p, hp, r))
+        ref = torch.stack(F.cg_dots_reference(p, hp, r))
+        pairs = ((P, HP), (HP, HP), (P, P), (P, R))
+        exact = torch.stack([torch.sum(u * v) for u, v in pairs])
+        tol = 1e-5 * torch.stack([torch.sum((u * v).abs()) for u, v in pairs])
+        if bf16:
+            tol = tol + 2.0 ** -7 * exact.abs()
+        e["cg_dots"] = check_close(torch, f"cg_dots {tag}", got, ref, tol)
+        check_close(torch, f"cg_dots {tag} vs f64 sum", got, exact, tol)
+
+        alpha = torch.tensor(0.37, device=dev)     # 0-d on the card
+        out, dot = F.axpy_selfdot(alpha, hp, r)
+        out_ref, dot_ref = F.axpy_selfdot_reference(alpha, hp, r)
+        terms = (alpha.to(dtype).double() * HP).abs() + R.abs()
+        e["axpy_selfdot"] = check_close(
+            torch, f"axpy_selfdot out {tag}", out, out_ref,
+            (2.0 ** -7 if bf16 else 2.0 ** -22) * terms)
+        O2 = torch.sum(out.double() ** 2)
+        tol = 1e-5 * O2 + (2.0 ** -5 * torch.sum(terms ** 2) if bf16 else 0)
+        check_close(torch, f"axpy_selfdot norm {tag}", dot, dot_ref, tol)
+        check_close(torch, f"axpy_selfdot norm {tag} vs f64 sum", dot, O2,
+                    1e-5 * O2 + (2.0 ** -7 * O2 if bf16 else 0))
+
+        b = 999.0 / (n - 1)
+        z = P.new_zeros(1)
+        near = torch.cat([P[1:], z]).abs() + torch.cat([z, P[:-1]]).abs()
+        for name, got, ref, dd in (
+                ("diag_stencil_matvec", F.diag_stencil_matvec(d, p, scale=0.5),
+                 F.diag_stencil_matvec_reference(d, p, scale=0.5), d.double()),
+                ("affine_stencil_matvec",
+                 F.affine_stencil_matvec(p, a=1.0, b=b, scale=0.5),
+                 F.affine_stencil_matvec_reference(p, a=1.0, b=b, scale=0.5),
+                 AffineDiagonal(1.0, b).values(n, dev).double())):
+            terms = (((dd + 2.0) * P).abs() + near) * 0.5
+            e[name] = check_close(torch, f"{name} {tag}", got, ref,
+                                  (2.0 ** -5 if bf16 else 2.0 ** -22) * terms)
+        cases += 1
+        if not errs:
+            errs = e
+
+    # bitwise repeats: fixed reduction order, no float atomics
+    gen = torch.Generator(device=dev).manual_seed(1)
+    p, hp, r = (torch.randn(N_FUSED[0], generator=gen, device=dev)
+                for _ in range(3))
+    alpha = torch.tensor(0.37, device=dev)
+    same_dots = torch.equal(torch.stack(F.cg_dots(p, hp, r)),
+                            torch.stack(F.cg_dots(p, hp, r)))
+    (o1, d1), (o2, d2) = (F.axpy_selfdot(alpha, hp, r),
+                          F.axpy_selfdot(alpha, hp, r))
+    same_axpy = torch.equal(o1, o2) and torch.equal(d1, d2)
+    for name, same in (("cg_dots", same_dots), ("axpy_selfdot", same_axpy)):
+        print(f"  {'ok  ' if same else 'FAIL'} bitwise repeat {name} "
+              f"n={N_FUSED[0]}", flush=True)
+        if not same:
+            raise AssertionError(f"two runs of {name} differ")
+    print(f"phase 5: {cases} size x dtype cases of 4 kernels + 2 bitwise "
+          f"repeats passed", flush=True)
+    return errs
+
+
+FUSED_REPLACES = {"cg_dots": 86, "axpy_selfdot": 130,
+                  "diag_stencil_matvec": 279, "affine_stencil_matvec": 370}
+
+
+def stencil_path_phase(torch, dev, label, errs):
+    """``euclidean_tnt(fused_dots=True)`` on the stencil quadratic at full
+    width, through the stored and the affine stencil kernels, then the
+    plain route; then the fused kernels timed at the path's shape.  Returns
+    the kernels' JSON entries."""
+    from optimization_tpu_torch import euclidean_tnt
+    from optimization_tpu_torch.core.types import TNTStatus
+    from optimization_tpu_torch.kernels import fused as F
+    from optimization_tpu_torch.kernels.streamed_cg import AffineDiagonal
+    from optimization_tpu_torch.solvers.tnt import TNTParams
+
+    n = N_MAIN
+    print(f"phase 6: euclidean_tnt(fused_dots=True), 1/2 <x, A x> - <c, x>, "
+          f"n = {n} f32 [{label}]", flush=True)
+    b = 999.0 / (n - 1)
+    d = AffineDiagonal(1.0, b).values(n, dev)     # 1 + 999 i/(n-1) in f32
+    gen = torch.Generator(device=dev).manual_seed(11)
+    c = torch.randn(n, generator=gen, device=dev)
+    c_norm = float(torch.linalg.vector_norm(c))   # = |grad f(x0)|, x0 = 0
+    x0 = torch.zeros(n, device=dev)
+    routes = (
+        ("kernels, stored d", True, lambda v: F.diag_stencil_matvec(d, v)),
+        ("kernels, affine d", True,
+         lambda v: F.affine_stencil_matvec(v, a=1.0, b=b)),
+        ("plain", False, lambda v: F.diag_stencil_matvec_reference(d, v)),
+    )
+
+    def solve(fused, A, max_iterations=30):
+        params = TNTParams(max_iterations=max_iterations,
+                           max_TPCG_iterations=100, fused_dots=fused,
+                           gradient_tolerance=0.0,
+                           preconditioned_gradient_tolerance=0.0,
+                           relative_decrease_tolerance=0.0,
+                           stepsize_tolerance=0.0)
+        return euclidean_tnt(
+            lambda x, _: 0.5 * torch.dot(x, A(x)) - torch.dot(c, x), x0,
+            params, grad=lambda x, _: A(x) - c,
+            hess_vec=lambda x, v, _: A(v))
+
+    def run(name, fused, A):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        res = solve(fused, A)
+        torch.cuda.synchronize(dev)
+        secs = time.perf_counter() - t0
+        outer = int(res.num_iterations)
+        inner = int(res.inner_iterations[:outer].sum())
+        out = dict(name=name, outer=outer, inner=inner, secs=secs,
+                   rate=inner / secs, f=float(res.f),
+                   grad_rel=float(res.gradfx_norm) / c_norm,
+                   status=TNTStatus(int(res.status)).name,
+                   finite=bool(torch.isfinite(res.x).all()),
+                   shape=tuple(res.x.shape))
+        print(f"  {name}: {outer} outer / {inner} CG in {secs:.3f} s = "
+              f"{out['rate']:.0f} CG it/s, f = {out['f']:.7g}, "
+              f"|grad f|/|c| = {out['grad_rel']:.3e}, {out['status']} "
+              f"[{label}]", flush=True)
+        return out
+
+    for _, fused, A in routes:      # warm-up: first launches, allocator
+        solve(fused, A, max_iterations=1)
+
+    kernels = (F.cg_dots, F.axpy_selfdot, F.diag_stencil_matvec,
+               F.affine_stencil_matvec)
+    # ---- the path's kernel runs: counts start at 0 here ----
+    for fn in kernels:
+        fn.launches = 0
+    runs = [run(*routes[0])]
+    after_stored = {fn.__name__: fn.launches for fn in kernels}
+    runs.append(run(*routes[1]))
+    counts = {fn.__name__: fn.launches for fn in kernels}
+    # ---- end of the path's kernel runs ----
+    runs.append(run(*routes[2]))
+    after_plain = {fn.__name__: fn.launches for fn in kernels}
+    print(f"  launches: stored-d run {after_stored}, both kernel runs "
+          f"{counts}, after the plain run {after_plain}", flush=True)
+
+    dots = [after_stored["cg_dots"],
+            counts["cg_dots"] - after_stored["cg_dots"]]
+    axpys = [after_stored["axpy_selfdot"],
+             counts["axpy_selfdot"] - after_stored["axpy_selfdot"]]
+    stencils = [after_stored["diag_stencil_matvec"],
+                counts["affine_stencil_matvec"]]
+    for i in range(2):
+        if not (dots[i] == axpys[i] > 0 and dots[i] >= runs[i]["inner"]
+                and stencils[i] > dots[i]):
+            raise AssertionError(
+                f"{runs[i]['name']}: cg_dots {dots[i]}, axpy_selfdot "
+                f"{axpys[i]}, stencil {stencils[i]} launches for "
+                f"{runs[i]['inner']} CG iterations")
+    if (after_stored["affine_stencil_matvec"] != 0
+            or counts["diag_stencil_matvec"] != stencils[0]
+            or after_plain != counts):
+        raise AssertionError("a route launched another route's kernel")
+    for r in runs:
+        if not (r["finite"] and r["shape"] == (n,)
+                and math.isfinite(r["f"]) and r["grad_rel"] <= 1e-2):
+            raise AssertionError(f"{r['name']}: |grad f|/|c| = "
+                                 f"{r['grad_rel']}, f = {r['f']}")
+        if abs(r["f"] - runs[0]["f"]) > 1e-4 * abs(runs[0]["f"]):
+            raise AssertionError(f"{r['name']}: f = {r['f']} disagrees with "
+                                 f"{runs[0]['f']}")
+    print("  checks passed: launch counts, |grad f|/|c| <= 1e-2, f within "
+          "1e-4 across the three runs", flush=True)
+
+    # each kernel against its plain version at the path's shape
+    gen = torch.Generator(device=dev).manual_seed(2)
+    p, hp, r = (torch.randn(n, generator=gen, device=dev) for _ in range(3))
+    alpha = torch.tensor(0.37, device=dev)
+    timing = {
+        "cg_dots": (lambda: F.cg_dots(p, hp, r),
+                    lambda: F.cg_dots_reference(p, hp, r), 3),
+        "axpy_selfdot": (lambda: F.axpy_selfdot(alpha, hp, r),
+                         lambda: F.axpy_selfdot_reference(alpha, hp, r), 3),
+        "diag_stencil_matvec": (lambda: F.diag_stencil_matvec(d, p),
+                                lambda: F.diag_stencil_matvec_reference(d, p),
+                                3),
+        "affine_stencil_matvec": (
+            lambda: F.affine_stencil_matvec(p, a=1.0, b=b),
+            lambda: F.affine_stencil_matvec_reference(p, a=1.0, b=b), 2),
+    }
+    entries = []
+    for name, (kern, plain, words) in timing.items():
+        ms = time_ms(torch, kern, 50)
+        plain_ms = time_ms(torch, plain, 20)
+        gbs = words * 4 * n / ms / 1e6
+        print(f"  {name}: kernel {ms:.4f} ms (~{gbs:.0f} GB/s at {words}n "
+              f"words), plain {plain_ms:.4f} ms, n = {n} f32 [{label}]",
+              flush=True)
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "optimization_tpu_torch/csrc/fused.cu",
+            "replaces": f"optimization_tpu/kernels/fused.py:"
+                        f"{FUSED_REPLACES[name]}",
+            "launches": counts[name], "max_abs_err": errs[name],
+            "ms": ms, "plain_ms": plain_ms})
+    return entries
+
+
 def main():
     import torch
 
@@ -300,16 +588,25 @@ def main():
     sys.path.insert(0, ROOT)
     from optimization_tpu_torch.csrc.build import build
 
-    print("phase 2: build", flush=True)
-    t0 = time.perf_counter()
-    path = build("streamed_cg", verbose=True)
-    print(f"  built {os.path.relpath(path, ROOT)} in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    print("phase 2: build (one nvcc per source, started together)",
+          flush=True)
+
+    def timed_build(name):
+        t0 = time.perf_counter()
+        return build(name, verbose=True), time.perf_counter() - t0
+
+    with ThreadPoolExecutor(max_workers=len(SOURCES)) as pool:
+        builds = list(pool.map(timed_build, SOURCES))
+    for path, secs in builds:
+        print(f"  built {os.path.relpath(path, ROOT)} in {secs:.1f} s",
+              flush=True)
 
     parity_phase(torch, dev)
     kernel = main_path_phase(torch, dev, label)
+    errs = fused_parity_phase(torch, dev)
+    fused_kernels = stencil_path_phase(torch, dev, label, errs)
 
-    print(json.dumps({"kernels": [kernel]}))
+    print(json.dumps({"kernels": [kernel] + fused_kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -12,12 +12,16 @@ The port so far covers the headline path (``headline.py``): Riemannian TNT
 minimizing the Rayleigh quotient on the sphere, with the trust-region
 subproblem in the hand-written CUDA kernel ``csrc/streamed_cg.cu`` (f32
 tier, through ``RiemannianProblem.flat_solve``) or the flat pair engine
-(bf16 tier, through ``flat_qm``).
+(bf16 tier, through ``flat_qm``); and the Euclidean entry points
+``euclidean_tnt`` (generic STPCG, with ``fused_dots=True`` on the fused
+reduction kernels of ``csrc/fused.cu``) and ``euclidean_gradient_descent``.
 """
 
 from . import core, kernels, linalg, manifolds, solvers
 from .core.problem import RiemannianProblem
 from .core.types import (ADMMStatus, GradientDescentStatus,
                          ProximalGradientStatus, TNLSStatus, TNTStatus)
+from .solvers.euclidean import (euclidean_gradient_descent, euclidean_tnls,
+                                euclidean_tnt)
 
 __version__ = "0.1.0"

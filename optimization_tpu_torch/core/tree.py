@@ -34,6 +34,10 @@ def tree_add(a: PyTree, b: PyTree) -> PyTree:
     return tree_map(torch.add, a, b)
 
 
+def tree_scale(alpha, a: PyTree) -> PyTree:
+    return tree_map(lambda x: alpha * x, a)
+
+
 def tree_axpy(alpha, x: PyTree, y: PyTree) -> PyTree:
     """alpha * x + y."""
     return tree_map(lambda xi, yi: alpha * xi + yi, x, y)

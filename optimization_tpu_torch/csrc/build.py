@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` has a plain C interface and compiles, for the H100
 (``sm_90a``), into ``optimization_tpu_torch/_build/lib<name>-<hash>.so`` at
 first use, from the sources in this checkout only.  The hash covers the
-source and the flags, so an edited source builds anew.  Nothing here runs
+source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source or header builds anew.  Nothing here runs
 at import: a machine without the CUDA toolkit can import the package and
 use the plain PyTorch versions of the kernels.
 """
@@ -41,8 +42,11 @@ def build(name: str, verbose: bool = False) -> Path:
     return the library's path.  ``verbose`` adds ``-Xptxas -v`` and prints
     the compiler's report (registers, shared memory, spills)."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     out = BUILD_DIR / f"lib{name}-{digest}.so"
     if out.exists() and not verbose:
         return out

@@ -43,6 +43,8 @@
 #include <float.h>
 #include <stdint.h>
 
+#include "storage.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -71,64 +73,6 @@ struct Params {
   float epsilon;
   int pair;
   int with_init;
-};
-
-// ---- storage: W elements per 16-byte vector, f32 compute ----
-template <typename T> struct Store;
-
-template <> struct Store<float> {
-  static constexpr int W = 4;
-  __device__ static void load(const float* p, long long i, long long n,
-                              float (&v)[W]) {
-    if (i + W <= n) {
-      const float4 t = *reinterpret_cast<const float4*>(p + i);
-      v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
-    } else {
-#pragma unroll
-      for (int e = 0; e < W; ++e) v[e] = (i + e < n) ? p[i + e] : 0.f;
-    }
-  }
-  __device__ static void store(float* p, long long i, long long n,
-                               const float (&v)[W]) {
-    if (i + W <= n) {
-      *reinterpret_cast<float4*>(p + i) = make_float4(v[0], v[1], v[2], v[3]);
-    } else {
-#pragma unroll
-      for (int e = 0; e < W; ++e)
-        if (i + e < n) p[i + e] = v[e];
-    }
-  }
-};
-
-template <> struct Store<__nv_bfloat16> {
-  static constexpr int W = 8;
-  __device__ static void load(const __nv_bfloat16* p, long long i, long long n,
-                              float (&v)[W]) {
-    if (i + W <= n) {
-      const uint4 t = *reinterpret_cast<const uint4*>(p + i);
-      const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&t);
-#pragma unroll
-      for (int e = 0; e < W; ++e) v[e] = __bfloat162float(h[e]);
-    } else {
-#pragma unroll
-      for (int e = 0; e < W; ++e)
-        v[e] = (i + e < n) ? __bfloat162float(p[i + e]) : 0.f;
-    }
-  }
-  __device__ static void store(__nv_bfloat16* p, long long i, long long n,
-                               const float (&v)[W]) {
-    if (i + W <= n) {
-      uint4 t;
-      __nv_bfloat16* h = reinterpret_cast<__nv_bfloat16*>(&t);
-#pragma unroll
-      for (int e = 0; e < W; ++e) h[e] = __float2bfloat16(v[e]);
-      *reinterpret_cast<uint4*>(p + i) = t;
-    } else {
-#pragma unroll
-      for (int e = 0; e < W; ++e)
-        if (i + e < n) p[i + e] = __float2bfloat16(v[e]);
-    }
-  }
 };
 
 // The diagonal a(i) for W consecutive indices, exactly as f32 evaluates

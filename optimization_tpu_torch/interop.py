@@ -1,7 +1,8 @@
 """Carry the JAX package's state across to the port, and results back.
 
-The headline problem has no learned weights: its state is the params, the
-initial point and the diagonal.  These functions carry them without
+The ported problems have no learned weights: their state is the params
+(``TNTParams``, ``GradientDescentParams`` and their bases), the initial
+point and the data.  These functions carry them without
 importing JAX (arrays arrive through numpy's array protocol).
 """
 
@@ -14,12 +15,14 @@ import torch
 
 from .core.tree import tree_map
 from .core.types import OptimizerParams, SmoothOptimizerParams
+from .solvers.gradient_descent import GradientDescentParams
 from .solvers.tnt import TNTParams
 
 __all__ = ["params_from_jax", "tensor_from_numpy", "result_to_numpy"]
 
 _PARAMS = {cls.__name__: cls
-           for cls in (OptimizerParams, SmoothOptimizerParams, TNTParams)}
+           for cls in (OptimizerParams, SmoothOptimizerParams,
+                       GradientDescentParams, TNTParams)}
 
 
 def params_from_jax(p):

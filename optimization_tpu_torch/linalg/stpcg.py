@@ -82,15 +82,23 @@ def stpcg(
     - ``At(lambda)``: optional constraint-transpose operator.
     - ``user_function(k, s, r, v, p, alpha) -> bool``: optional stopping
       predicate evaluated each iteration before the update is applied.
-    - ``fused_dots``: the JAX package's fused reduction kernels
-      (``kernels.cg_dots`` / ``kernels.axpy_selfdot``) are not ported yet,
-      so ``True`` raises ``NotImplementedError``.
+    - ``fused_dots``: take the per-iteration reductions from the fused
+      kernels (``kernels.cg_dots`` for <p,Hp>, <Hp,Hp>, <p,p>, <p,r>;
+      ``kernels.axpy_selfdot`` for the residual update and its norm): one
+      pass over (p, Hp, r) and one over (Hp, r), in place of a product
+      pass and a sum pass per inner product.  Valid
+      only for one flat tensor tangent with the plain Euclidean ``inner``
+      and no preconditioner.  As in the JAX package the fused dots are
+      summed in f32 whatever the vectors' dtype.
     """
     _validate(max_iterations, kappa_fgr, theta, epsilon)
+    if fused_dots and (precon is not None
+                       or not isinstance(g, torch.Tensor) or g.dim() != 1):
+        raise ValueError(
+            "fused_dots requires a flat single-array tangent space with no "
+            "preconditioner")
     if fused_dots:
-        raise NotImplementedError(
-            "stpcg(fused_dots=True) needs the cg_dots and axpy_selfdot "
-            "kernels, which are not ported yet")
+        from ..kernels.fused import axpy_selfdot, cg_dots
 
     def apply_P(r):
         if precon is None:
@@ -139,14 +147,17 @@ def stpcg(
         pk_M_2 = rv + beta * beta * p_M_2_prev
 
         Hp = Hv(p)
-        kappa = inner(p, Hp)
-        Hp_norm2 = inner(Hp, Hp)
-        p_norm2 = inner(p, p)
+        if fused_dots:
+            kappa, Hp_norm2, p_norm2, pr = cg_dots(p, Hp, r)
+        else:
+            kappa = inner(p, Hp)
+            Hp_norm2 = inner(Hp, Hp)
+            p_norm2 = inner(p, p)
+            pr = inner(p, r)
         in_kernel = torch.sqrt(Hp_norm2) < epsilon * torch.sqrt(p_norm2)
 
         # descent alignment of a kernel direction: walk +p only if
         # <p, r> < 0 (see module docstring)
-        pr = inner(p, r)
         sign = torch.where(in_kernel & (pr > 0), -one, one)
         sk_M_pk_eff = sign * sk_M_pk
 
@@ -163,9 +174,15 @@ def stpcg(
 
         s_boundary = tree_axpy_like(sigma * sign, p, s)
         s_int = tree_axpy_like(alpha, p, s)
-        r_int = tree_axpy_like(alpha, Hp, r)
-        v_int, r_int = apply_P(r_int)
-        rv_int = inner(r_int, v_int)
+        if fused_dots:
+            # identity preconditioner: v = r and <r, v> = |r|^2, fused with
+            # the residual update in one pass
+            r_int, rv_int = axpy_selfdot(alpha, Hp, r)
+            v_int = r_int
+        else:
+            r_int = tree_axpy_like(alpha, Hp, r)
+            v_int, r_int = apply_P(r_int)
+            rv_int = inner(r_int, v_int)
         beta_next = rv_int / (alpha * kappa)
 
         if user_function is not None:

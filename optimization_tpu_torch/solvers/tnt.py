@@ -7,7 +7,9 @@ outer loop is an eager Python loop that reads its status back to the host
 once per outer iteration.  Everything else stays on the iterate's device.
 The trust-region subproblem runs in one of three engines, as in the JAX
 package: a problem-supplied ``flat_solve`` (the streamed CUDA kernel), the
-flat pair engine (``flat_qm``), or generic STPCG.
+flat pair engine (``flat_qm``), or generic STPCG (with
+``params.fused_dots``, on the fused reduction kernels of
+``kernels/fused.py``).
 
 Functional contract (the reference's, as in the JAX package):
 
@@ -43,9 +45,10 @@ __all__ = ["TNTParams", "TNTResult", "solve", "step_decision"]
 class TNTParams(SmoothOptimizerParams):
     """Mirrors ``TNTParams`` (reference ``TNT.h:76-130``), with the JAX
     package's extensions (same names, defaults and meanings):
-    ``fused_dots`` (generic STPCG on fused reduction kernels — not ported
-    yet, ``True`` raises), ``flat_s_steps`` (s-step flat engine — values
-    above 1 raise, not ported yet), ``flat_kernel_check`` and
+    ``fused_dots`` (generic STPCG on the fused reduction kernels
+    ``cg_dots``/``axpy_selfdot``; flat tensor tangents, no
+    preconditioner), ``flat_s_steps`` (s-step flat engine — values above 1
+    raise, not ported yet), ``flat_kernel_check`` and
     ``floor_acceptance`` (accept a step whose predicted decrease is below
     the objective's resolution when the objective did not measurably
     increase; the radius is then held)."""

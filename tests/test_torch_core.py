@@ -123,7 +123,7 @@ def _assert_tree_close(t, j):
 
 
 TREE_OPS = ["tree_add", "tree_axpy", "tree_axpy_like", "tree_neg",
-            "tree_zeros_like", "tree_where"]
+            "tree_scale", "tree_zeros_like", "tree_where"]
 
 
 @pytest.mark.parametrize("op", TREE_OPS)
@@ -133,6 +133,7 @@ def test_tree_ops_match(op):
             "tree_axpy": lambda m, a, b: (-1.5, a, b),
             "tree_axpy_like": lambda m, a, b: (2.25, a, b),
             "tree_neg": lambda m, a, b: (a,),
+            "tree_scale": lambda m, a, b: (-0.75, a),
             "tree_zeros_like": lambda m, a, b: (a,),
             "tree_where": lambda m, a, b: (m.asarray(False), a, b)}[op]
     out_t = getattr(ttree, op)(*args(torch, ta, tb))

@@ -1,21 +1,23 @@
-"""The port's CUDA kernel on the card, against its plain PyTorch version.
+"""The port's CUDA kernels on the card, against their plain PyTorch versions.
 
 Every test here needs a CUDA device (``cuda`` marker) and skips without
-one; the kernel has no CPU mode.  The file imports neither JAX nor the JAX
+one; the kernels have no CPU mode.  The file imports neither JAX nor the JAX
 package, so it runs on a machine that has only PyTorch:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -m cuda
 
-Tolerances (those of ``chip_smoke.check_parity`` and
+Tolerances of the streamed kernel (those of ``chip_smoke.check_parity`` and
 ``tests/test_streamed_cg.py``): f32 iteration counts within 1 and s within
 2e-3 |s| (the kernel sums in another order than ``torch.sum``, so CG may
 stop one step apart at the truncation threshold; equal counts give ~1e-6);
-bf16 storage iterations within 3 and s within 3e-2 |s|.
+bf16 storage iterations within 3 and s within 3e-2 |s|.  Tolerances of the
+fused kernels: those of ``chip_smoke.FUSED_TOLERANCES``, reasons there.
 """
 
 import pytest
 import torch
 
+from optimization_tpu_torch.kernels import fused as F
 from optimization_tpu_torch.kernels import streamed_cg as T
 
 pytestmark = pytest.mark.cuda
@@ -96,3 +98,128 @@ def test_zero_gradient_and_outputs_stay_on_card(dev):
     assert not res.s.any()
     for t in res[1:]:
         assert t.device.type == "cuda"
+
+
+# ---- the fused kernels (kernels/fused.py, csrc/fused.cu) ----
+
+
+def _fused_inputs(n, dtype, dev, seed=5):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    p, hp, r = (torch.randn(n, generator=gen, device=dev).to(dtype)
+                for _ in range(3))
+    d = (1.0 + 999.0 * torch.rand(n, generator=gen, device=dev)).to(dtype)
+    return p, hp, r, d
+
+
+def _assert_within(got, ref, tol):
+    err = (got.double() - ref.double()).abs()
+    assert bool(torch.isfinite(got.double()).all())
+    assert bool((err <= tol).all()), float((err / tol).max())
+
+
+FUSED_DTYPES = [torch.float32, torch.bfloat16]
+FUSED_N = [100, 4099, 999_999, 1 << 20]
+
+
+@pytest.mark.parametrize("dtype", FUSED_DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("n", FUSED_N)
+def test_cg_dots_matches_plain_version(dev, dtype, n):
+    p, hp, r, _ = _fused_inputs(n, dtype, dev)
+    before = F.cg_dots.launches
+    got = torch.stack(F.cg_dots(p, hp, r))
+    assert F.cg_dots.launches == before + 1
+    assert got.dtype == dtype and got.device == p.device
+    ref = torch.stack(F.cg_dots_reference(p, hp, r))
+    P, HP, R = p.double(), hp.double(), r.double()
+    pairs = ((P, HP), (HP, HP), (P, P), (P, R))
+    exact = torch.stack([torch.sum(u * v) for u, v in pairs])
+    tol = 1e-5 * torch.stack([torch.sum((u * v).abs()) for u, v in pairs])
+    if dtype == torch.bfloat16:
+        tol = tol + 2.0 ** -7 * exact.abs()
+    _assert_within(got, ref, tol)
+    _assert_within(got, exact, tol)
+
+
+@pytest.mark.parametrize("dtype", FUSED_DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("n", FUSED_N)
+def test_axpy_selfdot_matches_plain_version(dev, dtype, n):
+    _, x, y, _ = _fused_inputs(n, dtype, dev)
+    alpha = torch.tensor(-0.61, device=dev)
+    before = F.axpy_selfdot.launches
+    out, dot = F.axpy_selfdot(alpha, x, y)
+    assert F.axpy_selfdot.launches == before + 1
+    assert out.dtype == dot.dtype == dtype and dot.dim() == 0
+    out_ref, dot_ref = F.axpy_selfdot_reference(alpha, x, y)
+    bf16 = dtype == torch.bfloat16
+    terms = (alpha.to(dtype).double() * x.double()).abs() + y.double().abs()
+    _assert_within(out, out_ref, (2.0 ** -7 if bf16 else 2.0 ** -22) * terms)
+    O2 = torch.sum(out.double() ** 2)
+    _assert_within(dot, dot_ref, 1e-5 * O2 + (2.0 ** -5 * torch.sum(
+        terms ** 2) if bf16 else 0))
+    _assert_within(dot, O2, 1e-5 * O2 + (2.0 ** -7 * O2 if bf16 else 0))
+
+
+@pytest.mark.parametrize("affine", [False, True], ids=["stored", "affine"])
+@pytest.mark.parametrize("dtype", FUSED_DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("n", FUSED_N)
+def test_stencil_matches_plain_version(dev, dtype, n, affine):
+    v, _, _, d = _fused_inputs(n, dtype, dev)
+    b = 999.0 / (n - 1)
+    fn = F.affine_stencil_matvec if affine else F.diag_stencil_matvec
+    before = fn.launches
+    if affine:
+        got = F.affine_stencil_matvec(v, a=1.0, b=b, scale=0.5)
+        ref = F.affine_stencil_matvec_reference(v, a=1.0, b=b, scale=0.5)
+        dd = T.AffineDiagonal(1.0, b).values(n, dev).double()
+    else:
+        got = F.diag_stencil_matvec(d, v, scale=0.5)
+        ref = F.diag_stencil_matvec_reference(d, v, scale=0.5)
+        dd = d.double()
+    assert fn.launches == before + 1
+    assert got.dtype == dtype and got.shape == (n,)
+    V = v.double()
+    z = V.new_zeros(1)
+    terms = (((dd + 2.0) * V).abs() + torch.cat([V[1:], z]).abs()
+             + torch.cat([z, V[:-1]]).abs()) * 0.5
+    bf16 = dtype == torch.bfloat16
+    _assert_within(got, ref, (2.0 ** -5 if bf16 else 2.0 ** -22) * terms)
+    if not bf16:
+        # the same f32 roundings in the same order
+        assert torch.equal(got, ref)
+
+
+def test_fused_reductions_are_bitwise_repeatable(dev):
+    p, hp, r, _ = _fused_inputs(1 << 20, torch.float32, dev)
+    assert torch.equal(torch.stack(F.cg_dots(p, hp, r)),
+                       torch.stack(F.cg_dots(p, hp, r)))
+    alpha = torch.tensor(0.37, device=dev)
+    (o1, d1), (o2, d2) = F.axpy_selfdot(alpha, hp, r), F.axpy_selfdot(
+        alpha, hp, r)
+    assert torch.equal(o1, o2) and torch.equal(d1, d2)
+
+
+def test_fused_kernels_reject_other_dtypes(dev):
+    x = torch.ones(16, dtype=torch.float64, device=dev)
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        F.cg_dots(x, x, x)
+    with pytest.raises(ValueError, match="one dtype"):
+        F.diag_stencil_matvec(x.float(), x.to(torch.bfloat16))
+
+
+def test_fused_stpcg_on_card_matches_generic(dev):
+    """stpcg(fused_dots=True) on the card: the kernels inside the CG loop,
+    the same iterates as the generic route (f32 dots in other orders:
+    the tolerances of tests/test_stpcg.py::test_fused_dots_matches_generic)."""
+    from optimization_tpu_torch.linalg import stpcg
+
+    n = 1 << 16
+    d = torch.linspace(1.0, 50.0, n, device=dev)
+    g = torch.randn(n, generator=torch.Generator(device=dev).manual_seed(5),
+                    device=dev)
+    kw = dict(max_iterations=50, kappa_fgr=1e-6, theta=0.9)
+    before = F.cg_dots.launches
+    fused = stpcg(g, lambda v: d * v, torch.dot, 100.0, fused_dots=True, **kw)
+    ref = stpcg(g, lambda v: d * v, torch.dot, 100.0, **kw)
+    assert F.cg_dots.launches - before >= int(fused.num_iterations) > 5
+    assert int(fused.num_iterations) == int(ref.num_iterations)
+    torch.testing.assert_close(fused.s, ref.s, rtol=2e-4, atol=2e-5)

@@ -6,7 +6,9 @@ zero gradient: the same float64 inputs from a numpy seed go through both,
 and the iteration counts must be EQUAL, the steps and scalars within rtol
 1e-9 (the same recurrences; only the reduction order differs, and the
 longest runs here take ~100 iterations, over which CG amplifies ulp-level
-differences to ~1e-11).
+differences to ~1e-11).  The unpreconditioned regimes also run with
+``fused_dots=True`` (the fused reduction kernels, f32 dots; looser
+tolerances, stated there).
 """
 
 import jax.numpy as jnp
@@ -158,9 +160,61 @@ def test_pytree_vectors():
     np.testing.assert_allclose(s, np.asarray(jr.s), rtol=RTOL)
 
 
-def test_fused_dots_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="cg_dots.*axpy_selfdot"):
-        tstpcg(torch.ones(3), lambda v: v, torch.dot, 1.0, fused_dots=True)
+FUSED_CASES = [c for c, v in CASES.items() if v[3] is None and v[4] is None]
+
+
+@pytest.mark.parametrize("case", FUSED_CASES)
+def test_fused_dots_matches_jax(case):
+    """``fused_dots=True`` in both packages: the dots come from the fused
+    kernels (the port's plain versions, JAX's Pallas kernels in interpret
+    mode), summed in f32 even for these f64 vectors, in other orders.  Equal
+    iteration counts; s within the fused-vs-generic tolerances of
+    tests/test_stpcg.py:241-255 (rtol 2e-4, atol 2e-5); the scalar
+    recurrences within rtol 1e-5 (f32 dots)."""
+    g, P, Delta, _, _, kw = CASES[case]
+    jr, tr = _run_both(g, P, Delta, fused_dots=True, **kw)
+    assert int(tr.num_iterations) == int(jr.num_iterations)
+    np.testing.assert_allclose(tr.s.numpy(), np.asarray(jr.s), rtol=2e-4,
+                               atol=2e-5)
+    for name in ("update_step_M_norm", "predicted_decrease"):
+        np.testing.assert_allclose(float(getattr(tr, name)),
+                                   float(getattr(jr, name)), rtol=1e-5)
+
+
+def test_fused_dots_matches_generic():
+    """The port's own fused path visits the generic path's iterates
+    (tests/test_stpcg.py::test_fused_dots_matches_generic, with its f32
+    fixture made by numpy)."""
+    n = 1000
+    d = torch.linspace(1.0, 50.0, n, dtype=torch.float32)
+    g = torch.from_numpy(np.random.default_rng(5).normal(size=n)
+                         .astype(np.float32))
+    kw = dict(max_iterations=50, kappa_fgr=1e-6, theta=0.9)
+    ref = tstpcg(g, lambda v: d * v, torch.dot, 100.0, **kw)
+    fused = tstpcg(g, lambda v: d * v, torch.dot, 100.0, fused_dots=True,
+                   **kw)
+    assert int(fused.num_iterations) == int(ref.num_iterations) > 5
+    np.testing.assert_allclose(fused.s.numpy(), ref.s.numpy(), rtol=2e-4,
+                               atol=2e-5)
+
+
+@pytest.mark.parametrize("kind", ["pytree", "matrix", "precon"])
+def test_fused_dots_rejects_unsupported_tangents(kind):
+    """Fused dots need one flat tensor and no preconditioner: the same
+    ValueError, same message, as the JAX package."""
+    jg, tg = {"pytree": ({"a": jnp.ones(3)}, {"a": torch.ones(3)}),
+              "matrix": (jnp.ones((2, 3)), torch.ones(2, 3)),
+              "precon": (jnp.ones(3), torch.ones(3))}[kind]
+    jkw, tkw = {}, {}
+    if kind == "precon":
+        jkw["precon"] = tkw["precon"] = lambda v: (v, None)
+    with pytest.raises(ValueError) as je:
+        jstpcg(jg, lambda v: v, lambda u, v: 0.0, 1.0, fused_dots=True,
+               **jkw)
+    with pytest.raises(ValueError) as te:
+        tstpcg(tg, lambda v: v, lambda u, v: 0.0, 1.0, fused_dots=True,
+               **tkw)
+    assert str(te.value) == str(je.value)
 
 
 @pytest.mark.parametrize("kw", [dict(max_iterations=-1), dict(kappa_fgr=1.0),

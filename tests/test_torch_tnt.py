@@ -229,7 +229,8 @@ def test_rayleigh_branches_match_jax(engine):
 
 
 def test_unported_options_raise():
-    jp, tp = _sphere_problems()
-    with pytest.raises(NotImplementedError, match="cg_dots"):
-        ttnt.solve(tp, torch.from_numpy(X0),
-                   ttnt.TNTParams(fused_dots=True), data=torch.from_numpy(P))
+    """The s-step flat engine is not ported: TNT on a flat_qm problem with
+    flat_s_steps=2 raises rather than run another engine."""
+    _, tp, _, tx0 = _rayleigh(engine="flat_qm")
+    with pytest.raises(NotImplementedError, match="s-step"):
+        ttnt.solve(tp, tx0, ttnt.TNTParams(flat_s_steps=2))

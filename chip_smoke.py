@@ -30,12 +30,27 @@ non-zero exit and no result line:
    the stencil's plain version); launch counts, the gradient reached and
    the agreement of f checked; then each fused kernel timed against its
    plain version at n = 2^24 f32;
-7. the kernel table as one JSON line, then the result line
+7. ``gram_pair`` against its plain version (and a float64 product) at
+   100,000 x 48, 999 x 30, 16 x 10,000 x 48 and 5,000 x 96 (the k cap),
+   ``stream3_probe`` at n = 2^24, 999,999 and 100, f32 and bf16, bitwise
+   repeats, both timed against their plain versions; stream3_probe's GB/s
+   at n = 2^24 f32 is the measured bandwidth ceiling;
+8. the eigensolver path: ``lobpcg`` on config3 (m = 1e5, nx = 16, nev = 5,
+   A = diag(linspace(1, m)), the exact inverse preconditioner; a converged
+   f32 solve with ``rr_method`` "eigh" then "chol", gated at
+   max|theta - (1..5)| < 5e-2, nev converged, pencil consistent; the f64
+   matmul route as the reference), ``lobpcg_fleet`` on config10 (16 x
+   m = 1e4, "chol"; every instance converged and consistent); the
+   gram_pair launches checked against 1 + iterations per solve; block it/s
+   of fixed-iteration runs; host syncs per iteration;
+9. each streaming kernel's GB/s as a fraction of the measured ceiling, the
+   kernel table as one JSON line, then the result line
    ``{"ok": true, "device": {...}}``.
 
 Every time printed is labelled with the card's name and power limit.
 """
 
+import collections
 import itertools
 import json
 import math
@@ -310,7 +325,7 @@ def main_path_phase(torch, dev, label):
             "source": "optimization_tpu_torch/csrc/streamed_cg.cu",
             "replaces": "optimization_tpu/kernels/streamed_cg.py:95",
             "launches": launches, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms}
+            "plain_ms": plain_ms}, gbytes / ms * 1e3
 
 
 FUSED_TOLERANCES = """\
@@ -426,15 +441,16 @@ def fused_parity_phase(torch, dev):
     return errs
 
 
-FUSED_REPLACES = {"cg_dots": 86, "axpy_selfdot": 130,
-                  "diag_stencil_matvec": 279, "affine_stencil_matvec": 370}
+FUSED_REPLACES = {"cg_dots": 86, "axpy_selfdot": 130, "gram_pair": 185,
+                  "diag_stencil_matvec": 279, "stream3_probe": 325,
+                  "affine_stencil_matvec": 370}
 
 
 def stencil_path_phase(torch, dev, label, errs):
     """``euclidean_tnt(fused_dots=True)`` on the stencil quadratic at full
     width, through the stored and the affine stencil kernels, then the
     plain route; then the fused kernels timed at the path's shape.  Returns
-    the kernels' JSON entries."""
+    the kernels' JSON entries and their GB/s."""
     from optimization_tpu_torch import euclidean_tnt
     from optimization_tpu_torch.core.types import TNTStatus
     from optimization_tpu_torch.kernels import fused as F
@@ -551,11 +567,12 @@ def stencil_path_phase(torch, dev, label, errs):
             lambda: F.affine_stencil_matvec(p, a=1.0, b=b),
             lambda: F.affine_stencil_matvec_reference(p, a=1.0, b=b), 2),
     }
-    entries = []
+    entries, rates = [], {}
     for name, (kern, plain, words) in timing.items():
         ms = time_ms(torch, kern, 50)
         plain_ms = time_ms(torch, plain, 20)
         gbs = words * 4 * n / ms / 1e6
+        rates[name] = gbs
         print(f"  {name}: kernel {ms:.4f} ms (~{gbs:.0f} GB/s at {words}n "
               f"words), plain {plain_ms:.4f} ms, n = {n} f32 [{label}]",
               flush=True)
@@ -566,7 +583,283 @@ def stencil_path_phase(torch, dev, label, errs):
                         f"{FUSED_REPLACES[name]}",
             "launches": counts[name], "max_abs_err": errs[name],
             "ms": ms, "plain_ms": plain_ms})
-    return entries
+    return entries, rates
+
+
+GRAM_TOLERANCES = """\
+  tolerances, kernel against plain version (and against a float64 product
+  of the same inputs on the card):
+    gram_pair: 1e-5 sum_r |S[r,i] X[r,j]| per entry -- both take f32
+      products of the same f32 values (bf16 casts exactly) and sum them in
+      f32 in other orders (the kernel per thread over a block's rows, then
+      the blocks in double; cuBLAS in its own split), no TF32 on either;
+    stream3_probe: f32 bit for bit (the same three roundings in the same
+      order); bf16 2^-6 |(d+2) v scale| -- the plain version rounds after
+      each bf16 operation, the kernel once on store.
+"""
+GRAM_SHAPES = ((100_000, 48), (999, 30), (16, 10_000, 48), (5_000, 96))
+N_STREAM3 = (1 << 24, 999_999, 100)
+
+
+def gram_stream3_phase(torch, dev, label):
+    """Phase 7: gram_pair and stream3_probe against their plain versions on
+    the card, bitwise repeats, times; then stream3_probe's GB/s at n = 2^24
+    f32, the measured ceiling.  Returns ({name: max |err| at the path's
+    shape}, {name: (ms, plain_ms)}, ceiling GB/s, stream3 launches)."""
+    from optimization_tpu_torch.kernels import fused as F
+
+    print("phase 7: gram_pair and stream3_probe vs plain versions on the "
+          "card", flush=True)
+    print(GRAM_TOLERANCES, end="", flush=True)
+    errs, cases = {}, 0
+    for shape, dtype in itertools.product(GRAM_SHAPES,
+                                          (torch.float32, torch.bfloat16)):
+        gen = torch.Generator(device=dev).manual_seed(sum(shape))
+        S, AS, BS = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                     for _ in range(3))
+        ga, gb = F.gram_pair(S, AS, BS)
+        ra, rb = F.gram_pair_reference(S, AS, BS)
+        ga2, gb2 = F.gram_pair(S, AS, BS)
+        tag = f"{'x'.join(map(str, shape))} {str(dtype)[6:]}"
+        err = 0.0
+        for name, got, ref, X in (("S'AS", ga, ra, AS), ("S'BS", gb, rb, BS)):
+            Sd, Xd = S.double(), X.double()
+            tol = 1e-5 * (Sd.abs().mT @ Xd.abs())
+            err = max(err, check_close(torch, f"gram_pair {name} {tag}", got,
+                                       ref, tol))
+            check_close(torch, f"gram_pair {name} {tag} vs f64", got,
+                        Sd.mT @ Xd, tol)
+        same = torch.equal(ga, ga2) and torch.equal(gb, gb2)
+        print(f"  {'ok  ' if same else 'FAIL'} bitwise repeat gram_pair "
+              f"{tag}", flush=True)
+        if not same:
+            raise AssertionError(f"two runs of gram_pair differ: {tag}")
+        errs.setdefault("gram_pair", err)
+        cases += 1
+    # B = None in LOBPCG passes S as BS
+    ga, gb = F.gram_pair(S, AS, S)
+    check_close(torch, "gram_pair BS = S", gb, S.double().mT @ S.double(),
+                1e-5 * (S.double().abs().mT @ S.double().abs()))
+
+    for n, dtype in itertools.product(N_STREAM3,
+                                      (torch.float32, torch.bfloat16)):
+        gen = torch.Generator(device=dev).manual_seed(n % 991)
+        v = torch.randn(n, generator=gen, device=dev).to(dtype)
+        d = (1.0 + 999.0 * torch.rand(n, generator=gen, device=dev)).to(dtype)
+        got = F.stream3_probe(d, v, scale=0.5)
+        ref = F.stream3_probe_reference(d, v, scale=0.5)
+        tag = f"n={n} {str(dtype)[6:]}"
+        if dtype == torch.float32:
+            same = torch.equal(got, ref)
+            print(f"  {'ok  ' if same else 'FAIL'} stream3_probe {tag}: "
+                  f"bit for bit", flush=True)
+            if not same:
+                raise AssertionError(f"stream3_probe differs: {tag}")
+            err = 0.0
+        else:
+            terms = ((d.double() + 2.0) * v.double()).abs() * 0.5
+            err = check_close(torch, f"stream3_probe {tag}", got, ref,
+                              2.0 ** -6 * terms)
+        if not torch.equal(got, F.stream3_probe(d, v, scale=0.5)):
+            raise AssertionError(f"two runs of stream3_probe differ: {tag}")
+        errs.setdefault("stream3_probe", err)
+        cases += 1
+    print(f"phase 7: {cases} shape x dtype cases of 2 kernels + bitwise "
+          f"repeats passed", flush=True)
+
+    times = {}
+    for shape in (GRAM_SHAPES[0], GRAM_SHAPES[2]):
+        gen = torch.Generator(device=dev).manual_seed(4)
+        S, AS, BS = (torch.randn(shape, generator=gen, device=dev)
+                     for _ in range(3))
+        ms = time_ms(torch, lambda: F.gram_pair(S, AS, BS), 50)
+        plain_ms = time_ms(torch, lambda: F.gram_pair_reference(S, AS, BS),
+                           50)
+        rows, k = S.numel() // shape[-1], shape[-1]
+        gbs = 3 * rows * k * 4 / ms / 1e6
+        gflops = 4 * rows * k * k / ms / 1e6
+        print(f"  gram_pair {'x'.join(map(str, shape))} f32: kernel "
+              f"{ms:.4f} ms (~{gbs:.0f} GB/s at 3mk words, ~{gflops:.0f} "
+              f"GFLOP/s), plain {plain_ms:.4f} ms [{label}]", flush=True)
+        times.setdefault("gram_pair", (ms, plain_ms))
+
+    n = 1 << 24
+    gen = torch.Generator(device=dev).manual_seed(8)
+    v = torch.randn(n, generator=gen, device=dev)
+    d = 1.0 + 999.0 * torch.rand(n, generator=gen, device=dev)
+    # ---- the ceiling's run: stream3_probe's count starts at 0 here ----
+    F.stream3_probe.launches = 0
+    ms = time_ms(torch, lambda: F.stream3_probe(d, v), 100)
+    launches = F.stream3_probe.launches
+    # ---- end of the ceiling's run ----
+    plain_ms = time_ms(torch, lambda: F.stream3_probe_reference(d, v), 20)
+    ceiling = 3 * 4 * n / ms / 1e6
+    times["stream3_probe"] = (ms, plain_ms)
+    print(f"  stream3_probe n = 2^24 f32: kernel {ms:.4f} ms = {ceiling:.0f} "
+          f"GB/s at 3n words (the measured ceiling; "
+          f"{ceiling / 3350:.3f} of the 3.35 TB/s data sheet), plain "
+          f"{plain_ms:.4f} ms [{label}]", flush=True)
+    return errs, times, ceiling, launches
+
+
+def lobpcg_phase(torch, dev, label):
+    """Phase 8: the eigensolver path at full size (config3: m = 1e5, nx = 16,
+    nev = 5; config10: a fleet of 16 at m = 1e4), the Gram stage through
+    gram_pair; gates, launch counts, block it/s, host syncs per iteration.
+    Returns gram_pair's launches on the path."""
+    import warnings
+
+    from optimization_tpu_torch.kernels import fused as F
+    from optimization_tpu_torch.linalg import lobpcg, lobpcg_fleet
+
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"):
+        raise AssertionError("f32 matmuls must run in full f32 (no TF32) "
+                             "for the LOBPCG pencils")
+    m, nx, nev = 100_000, 16, 5
+    print(f"phase 8: LOBPCG config3 (m = {m}, nx = {nx}, nev = {nev}, "
+          f"A = diag(linspace(1, m)), exact-inverse preconditioner) and "
+          f"config10 (16 x m = 1e4) [{label}]", flush=True)
+    truth = torch.arange(1.0, nev + 1.0, dtype=torch.float64)
+
+    def config3(dtype, rr, max_iterations, tau):
+        # one X0 for both dtypes: drawn in f32, then cast
+        d = torch.linspace(1.0, float(m), m, dtype=dtype, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(3)
+        X0 = torch.randn((m, nx), generator=gen, device=dev).to(dtype)
+        return lobpcg(lambda S: d[:, None] * S, T=lambda S: S / d[:, None],
+                      X0=X0, nev=nev, max_iterations=max_iterations,
+                      tau=tau, generator=gen, rr_method=rr)
+
+    def timed(fn):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize(dev)
+        return res, time.perf_counter() - t0
+
+    fleet, mf = 16, 10_000
+    ds = (torch.arange(1.0, fleet + 1.0, device=dev)[:, None]
+          * torch.linspace(1.0, mf / 10.0, mf, device=dev)[None, :])
+
+    def config10(max_iterations, tau):
+        gen = torch.Generator(device=dev).manual_seed(5)
+        return lobpcg_fleet(lambda S, d: d[:, None] * S, ds,
+                            T=lambda S, d: S / d[:, None], m=mf, nx=nx,
+                            nev=nev, max_iterations=max_iterations, tau=tau,
+                            generator=gen, rr_method="chol")
+
+    for rr in ("eigh", "chol", "chol_warm"):      # warm-up: handles, builds
+        config3(torch.float32, rr, 2, 1e-30)
+    config3(torch.float64, "eigh", 2, 1e-30)
+    config10(2, 1e-30)
+
+    # ---- the path's gram_pair runs: the count starts at 0 here ----
+    F.gram_pair.launches = 0
+    runs, expected = {}, 0
+    for rr in ("eigh", "chol"):
+        res, secs = timed(lambda: config3(torch.float32, rr, 100, 1e-4))
+        expected += 1 + int(res.num_iterations)
+        runs[rr] = res
+        err = float((res.theta.double().cpu() - truth).abs().max())
+        print(f"  f32 {rr}: {int(res.num_iterations)} it, nc "
+              f"{int(res.num_converged)}, max|theta - (1..5)| {err:.3e}, "
+              f"consistent {bool(res.pencil_consistent)}, {secs:.3f} s "
+              f"[{label}]", flush=True)
+        if not (err < 5e-2 and int(res.num_converged) >= nev
+                and bool(res.pencil_consistent)
+                and bool(torch.isfinite(res.X).all())
+                and res.X.shape == (m, nev)):
+            raise AssertionError(f"config3 f32 {rr}: the gate failed")
+    if F.gram_pair.launches != expected:
+        raise AssertionError(f"gram_pair launches {F.gram_pair.launches} != "
+                             f"{expected} (1 + iterations per solve)")
+    f64, secs = timed(lambda: config3(torch.float64, "eigh", 100, 1e-4))
+    if F.gram_pair.launches != expected:
+        raise AssertionError("the f64 route launched gram_pair")
+    gap = float((runs["eigh"].theta.double() - f64.theta).abs().max())
+    print(f"  f64 eigh (matmul route): {int(f64.num_iterations)} it, nc "
+          f"{int(f64.num_converged)}, max|theta - (1..5)| "
+          f"{float((f64.theta.cpu() - truth).abs().max()):.3e}, f32 vs f64 "
+          f"{gap:.3e}, {secs:.3f} s [{label}]", flush=True)
+    if not (gap < 5e-2 and int(f64.num_converged) >= nev):
+        raise AssertionError("config3: the f32 route disagrees with f64")
+
+    before = F.gram_pair.launches
+    fl, secs = timed(lambda: config10(100, 1e-4))
+    fleet_launches = F.gram_pair.launches - before
+    launches = F.gram_pair.launches
+    # ---- end of the path's gram_pair runs ----
+    if launches != expected + fleet_launches:
+        raise AssertionError(f"gram_pair launches {launches} != "
+                             f"{expected} + {fleet_launches}")
+    rel = float(((fl.theta.double() - ds[:, :nev].double()).abs()
+                 / ds[:, :nev].double()).max())
+    print(f"  config10 fleet f32 chol: iterations "
+          f"{fl.num_iterations.tolist()}, nc {fl.num_converged.tolist()}, "
+          f"max rel err {rel:.3e}, all consistent "
+          f"{bool(fl.pencil_consistent.all())}, {secs:.3f} s [{label}]",
+          flush=True)
+    if not (bool((fl.num_converged >= nev).all())
+            and bool(fl.pencil_consistent.all()) and rel < 1e-3
+            and bool(torch.isfinite(fl.X).all())):
+        raise AssertionError("config10 fleet: the gate failed")
+    if fleet_launches != 1 + int(fl.num_iterations.max()):
+        raise AssertionError(f"fleet gram_pair launches {fleet_launches} != "
+                             f"1 + max iterations")
+    print(f"  gram_pair launches on the path: {launches} (1 + iterations "
+          f"per solve, 0 on f64)", flush=True)
+
+    # sustained block it/s, convergence test disarmed
+    K = 50
+    for rr, k in (("eigh", K), ("chol", K), ("chol_warm", 10)):
+        res, secs = timed(lambda: config3(torch.float32, rr, k, 1e-30))
+        if int(res.num_iterations) != k:
+            raise AssertionError(f"config3 {rr}: {int(res.num_iterations)} "
+                                 f"of {k} fixed iterations")
+        print(f"  config3 f32 {rr}: {k} fixed iterations in {secs:.3f} s = "
+              f"{k / secs:.1f} block it/s [{label}]", flush=True)
+    res, secs = timed(lambda: config10(K, 1e-30))
+    print(f"  config10 fleet f32 chol: {K} lockstep iterations in "
+          f"{secs:.3f} s = {K / secs:.1f} lockstep it/s = "
+          f"{fleet * K / secs:.1f} aggregate block it/s [{label}]",
+          flush=True)
+
+    # host syncs per iteration (the sync debug mode's warnings, by the line
+    # that raised them): the difference of a 20- and a 10-iteration run
+    def syncs(fn):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return collections.Counter(
+            f"{os.path.basename(w.filename)}:{w.lineno}" for w in caught
+            if "synchroniz" in str(w.message))
+
+    for name, run in (
+            ("config3 f32 eigh", lambda k: config3(torch.float32, "eigh", k,
+                                                   1e-30)),
+            ("config3 f32 chol", lambda k: config3(torch.float32, "chol", k,
+                                                   1e-30)),
+            ("config10 fleet chol", lambda k: config10(k, 1e-30))):
+        per = syncs(lambda: run(20))
+        per.subtract(syncs(lambda: run(10)))
+        sites = ", ".join(f"{site} x{n / 10:g}"
+                          for site, n in per.most_common() if n)
+        print(f"  host syncs per iteration, {name}: "
+              f"{sum(per.values()) / 10:g} ({sites})", flush=True)
+    return launches
+
+
+def ceiling_summary(ceiling, rates, label):
+    print(f"bandwidth ceiling: stream3_probe {ceiling:.0f} GB/s at n = 2^24 "
+          f"f32 [{label}]", flush=True)
+    for name, gbs in rates.items():
+        print(f"  {name}: {gbs:.0f} GB/s = {gbs / ceiling:.3f} of the "
+              f"measured ceiling", flush=True)
 
 
 def main():
@@ -602,11 +895,24 @@ def main():
               flush=True)
 
     parity_phase(torch, dev)
-    kernel = main_path_phase(torch, dev, label)
+    kernel, streamed_gbs = main_path_phase(torch, dev, label)
     errs = fused_parity_phase(torch, dev)
-    fused_kernels = stencil_path_phase(torch, dev, label, errs)
+    fused_kernels, rates = stencil_path_phase(torch, dev, label, errs)
+    errs7, times7, ceiling, stream3_launches = gram_stream3_phase(
+        torch, dev, label)
+    gram_launches = lobpcg_phase(torch, dev, label)
+    ceiling_summary(ceiling, {"stpcg_flat_streamed": streamed_gbs, **rates},
+                    label)
 
-    print(json.dumps({"kernels": [kernel] + fused_kernels}))
+    launches = {"gram_pair": gram_launches, "stream3_probe": stream3_launches}
+    new_kernels = [{
+        "name": name, "route": "cuda",
+        "source": "optimization_tpu_torch/csrc/fused.cu",
+        "replaces": f"optimization_tpu/kernels/fused.py:{FUSED_REPLACES[name]}",
+        "launches": launches[name], "max_abs_err": errs7[name],
+        "ms": times7[name][0], "plain_ms": times7[name][1]}
+        for name in ("gram_pair", "stream3_probe")]
+    print(json.dumps({"kernels": [kernel] + fused_kernels + new_kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

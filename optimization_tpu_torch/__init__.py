@@ -12,9 +12,13 @@ The port so far covers the headline path (``headline.py``): Riemannian TNT
 minimizing the Rayleigh quotient on the sphere, with the trust-region
 subproblem in the hand-written CUDA kernel ``csrc/streamed_cg.cu`` (f32
 tier, through ``RiemannianProblem.flat_solve``) or the flat pair engine
-(bf16 tier, through ``flat_qm``); and the Euclidean entry points
+(bf16 tier, through ``flat_qm``); the Euclidean entry points
 ``euclidean_tnt`` (generic STPCG, with ``fused_dots=True`` on the fused
-reduction kernels of ``csrc/fused.cu``) and ``euclidean_gradient_descent``.
+reduction kernels of ``csrc/fused.cu``) and ``euclidean_gradient_descent``;
+and the eigensolvers ``linalg.lobpcg`` / ``linalg.lobpcg_fleet`` (their Gram
+stage in the ``gram_pair`` kernel of ``csrc/fused.cu``), ``linalg.jacobi_eigh``
+and the host-chunked drivers ``core.driver.drive_lobpcg`` /
+``drive_lobpcg_fleet``.
 """
 
 from . import core, kernels, linalg, manifolds, solvers

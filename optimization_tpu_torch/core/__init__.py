@@ -1,1 +1,1 @@
-from . import debug, problem, tree, types
+from . import checkpoint, debug, driver, problem, tree, types

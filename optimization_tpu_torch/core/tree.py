@@ -3,14 +3,15 @@
 Counterpart of ``optimization_tpu/core/tree.py`` (the ops the ported
 solvers use): solvers treat variables and tangents as pytrees of tensors
 (a flat tensor, a tuple, a dict, ...) and do their vector algebra through
-these helpers.
+these helpers.  :func:`tree_flatten` orders leaves as ``jax.tree_util``
+does, for state shared with the JAX package (``core/checkpoint.py``).
 """
 
 from __future__ import annotations
 
 import functools
 import operator
-from typing import Any
+from typing import Any, Callable, List, Tuple
 
 import torch
 from torch.utils import _pytree as pytree
@@ -24,6 +25,48 @@ def tree_map(fn, tree: PyTree, *rests: PyTree) -> PyTree:
     return pytree.tree_map(
         lambda leaf, *others: None if leaf is None else fn(leaf, *others),
         tree, *rests)
+
+
+def _is_namedtuple(x) -> bool:
+    return isinstance(x, tuple) and hasattr(x, "_fields")
+
+
+def tree_flatten(tree: PyTree
+                 ) -> Tuple[List[Any], Callable[[List[Any]], PyTree]]:
+    """``(leaves, unflatten)`` in ``jax.tree_util``'s order: tuples, lists
+    and NamedTuples in order, dicts by sorted key, ``None`` and empty
+    containers without leaves; ``unflatten(new_leaves)`` rebuilds the tree
+    with the leaves replaced in that order.  (``torch.utils._pytree`` keeps
+    a dict's insertion order; checkpoints shared with the JAX package need
+    the sorted one.)"""
+    if tree is None:
+        return [], lambda leaves: None
+    if isinstance(tree, dict):
+        keys = sorted(tree)
+        parts = [tree_flatten(tree[k]) for k in keys]
+        counts = [len(p[0]) for p in parts]
+
+        def rebuild(leaves):
+            out, pos = {}, 0
+            for k, (_, fn), c in zip(keys, parts, counts):
+                out[k] = fn(leaves[pos:pos + c])
+                pos += c
+            return out
+        return [leaf for p in parts for leaf in p[0]], rebuild
+    if isinstance(tree, (tuple, list)):
+        parts = [tree_flatten(x) for x in tree]
+        counts = [len(p[0]) for p in parts]
+
+        def rebuild(leaves):
+            items, pos = [], 0
+            for (_, fn), c in zip(parts, counts):
+                items.append(fn(leaves[pos:pos + c]))
+                pos += c
+            if _is_namedtuple(tree):
+                return type(tree)(*items)
+            return type(tree)(items)
+        return [leaf for p in parts for leaf in p[0]], rebuild
+    return [tree], lambda leaves: leaves[0]
 
 
 def tree_leaves(tree: PyTree):

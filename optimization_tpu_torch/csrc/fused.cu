@@ -10,25 +10,33 @@
 //   stencil_kernel       <- diag_stencil_matvec (fused.py:279, :309) and
 //                           affine_stencil_matvec (fused.py:370, :395):
 //                           scale ((d + 2) v - v[i+1] - v[i-1]), zeros
-//                           outside [0, n), d stored or d = a + b i.
+//                           outside [0, n), d stored or d = a + b i;
+//   stream3_kernel       <- stream3_probe (fused.py:325, :345):
+//                           (d + 2) v scale, the read-read-write stream the
+//                           stencil moves with no stencil work: the measured
+//                           bandwidth ceiling of the others;
+//   gram_pair_kernel     <- gram_pair (fused.py:185, kernel :164, call
+//                           :209): (S'AS, S'BS) from (m, k) blocks with one
+//                           read of S, the LOBPCG Gram stage (below).
 //
-// What bounds them: device-memory bytes.  Per element cg_dots reads 3
-// words for 8 flops, axpy_selfdot moves 3 words (2 reads, 1 write) for 4
-// flops, the stencil 3 words with a stored diagonal and 2 with the affine
-// one for 6 flops: all far below the H100's ~20 flops per byte of f32
-// balance.  The design answers that by touching each vector once: 16-byte
-// vector loads and stores in a grid-stride loop, a masked tail (any n, no
-// padding), the affine diagonal regenerated in registers, and the stencil's
-// neighbours v[i-1], v[i+W] read as scalars that hit the lines the
-// neighbouring threads' vector loads bring into L1/L2 (no halo pass, no
-// side arrays).
+// What bounds the vector kernels: device-memory bytes.  Per element cg_dots
+// reads 3 words for 8 flops, axpy_selfdot moves 3 words (2 reads, 1 write)
+// for 4 flops, the stencil 3 words with a stored diagonal and 2 with the
+// affine one for 6 flops, stream3 3 words for 3 flops: all far below the
+// H100's ~20 flops per byte of f32 balance.  The design answers that by
+// touching each vector once: 16-byte vector loads and stores in a
+// grid-stride loop, a masked tail (any n, no padding), the affine diagonal
+// regenerated in registers, and the stencil's neighbours v[i-1], v[i+W]
+// read as scalars that hit the lines the neighbouring threads' vector loads
+// bring into L1/L2 (no halo pass, no side arrays).
 //
 // The Pallas kernels carry their sums across a sequential grid in SMEM.
-// Blocks on Hopper run in any order, so the reductions take two passes:
-// each thread accumulates f32 partials, warp shuffles and one shared-memory
-// step combine them per block in double, the block sums go to a scratch
-// buffer, and a one-block second pass adds them in a fixed order.  No float
-// atomics: two runs on the same card and the same n are bitwise equal.
+// Blocks on Hopper run in any order, so the reductions take two passes
+// (gram_pair's its own way, below): each thread accumulates f32 partials,
+// warp shuffles and one shared-memory step combine them per block in
+// double, the block sums go to a scratch buffer, and a one-block second
+// pass adds them in a fixed order.  No float atomics: two runs on the same
+// card and the same n are bitwise equal.
 //
 // Arithmetic is f32 for f32 and bf16 storage, rounded once on store.  The
 // elementwise results use __fmul_rn/__fadd_rn/__fsub_rn in the order of the
@@ -38,6 +46,25 @@
 // to the nearest f32, as torch.arange(n, dtype=float32) does in the plain
 // version, so d = a + b fl32(i) there (still a diagonal, so the operator
 // stays symmetric).
+//
+// gram_pair.  At LOBPCG's shape (m = 10^5 rows, k = 3 nx = 48 columns, f32)
+// it reads 3 m k words (57.6 MB, ~17 us at 3.35 TB/s) for 2 m k^2 FMAs
+// (0.92 GFLOP, ~14 us on the FP32 cores): balanced between bytes and FMA
+// throughput, and small.  The simple design: an (F, grid) grid, one fleet
+// instance per blockIdx.y; each block walks a contiguous row range in tiles
+// of kTileRows rows, staging S, AS and BS in shared memory (coalesced
+// scalar loads of the tile's contiguous k-wide rows, so any k and any
+// alignment work); its 256 threads form a 16 x 16 grid and thread (ty, tx)
+// owns the entries (ty + 16 a, tx + 16 b) of both Grams, a, b < KT =
+// ceil(k / 16), accumulating in f32 registers with fmaf.  Every entry
+// belongs to one thread, so a block's f32 accumulators are its partial
+// Grams, written as they are; a finishing kernel adds the blocks' partials
+// of each entry in block order in double (eight fixed interleaved slices
+// per entry, then the slices in order) and rounds once to f32.  No float
+// atomics: runs repeat bitwise.  No TF32 and no wgmma: f32 products and
+// f32 accumulation are the JAX contract (gram_pair casts to f32 and the
+// LOBPCG Gram GEMMs run at HIGHEST precision, lobpcg.py:46-50).  k is at
+// most kGramMaxK = 96 (nx = 32); the wrapper raises above it.
 //
 // Plain C interface for ctypes; see optimization_tpu_torch/kernels/fused.py
 // for the wrappers and the plain versions.
@@ -192,6 +219,211 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    stream3_kernel(const T* d, const T* v, T* out, long long n, float scale) {
+  constexpr int W = Store<T>::W;
+  const long long ngroups = (n + W - 1) / W;
+  const long long stride = (long long)gridDim.x * kThreads;
+  for (long long gi = (long long)blockIdx.x * kThreads + threadIdx.x;
+       gi < ngroups; gi += stride) {
+    const long long i = gi * W;
+    float dd[W], vv[W], o[W];
+    Store<T>::load(d, i, n, dd);
+    Store<T>::load(v, i, n, vv);
+#pragma unroll
+    for (int e = 0; e < W; ++e)
+      o[e] = __fmul_rn(__fmul_rn(__fadd_rn(dd[e], 2.f), vv[e]), scale);
+    Store<T>::store(out, i, n, o);
+  }
+}
+
+// ---- gram_pair ----
+
+constexpr int kGramMaxK = 96;
+constexpr int kTileRows = 32;
+constexpr int kFinishSlices = 8;
+
+template <typename T>
+__device__ __forceinline__ float load_f32(const T* p);
+template <>
+__device__ __forceinline__ float load_f32<float>(const float* p) {
+  return *p;
+}
+template <>
+__device__ __forceinline__ float load_f32<__nv_bfloat16>(
+    const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+
+// S, AS, BS: (F, m, k) row-major; block (x, f) takes rows
+// [x rows_per_block, (x + 1) rows_per_block) of instance f and writes its
+// partial Grams to part[f][x][2][k][k] (S'AS first, then S'BS).
+template <typename T, int KT>
+__global__ void __launch_bounds__(kThreads)
+    gram_pair_kernel(const T* S, const T* AS, const T* BS, long long m, int k,
+                     long long rows_per_block, float* part) {
+  constexpr int KP = KT * 16;
+  __shared__ float sS[kTileRows][KP];
+  __shared__ float sA[kTileRows][KP];
+  __shared__ float sB[kTileRows][KP];
+  const size_t inst = (size_t)blockIdx.y * (size_t)m * (size_t)k;
+  S += inst;
+  AS += inst;
+  BS += inst;
+  const long long r_begin = (long long)blockIdx.x * rows_per_block;
+  const long long r_end =
+      r_begin + rows_per_block < m ? r_begin + rows_per_block : m;
+  const int tx = threadIdx.x & 15;
+  const int ty = threadIdx.x >> 4;
+
+  // columns k..KP-1 stay zero: the padded entries sum zeros
+  for (int e = threadIdx.x; e < kTileRows * KP; e += kThreads) {
+    (&sS[0][0])[e] = 0.f;
+    (&sA[0][0])[e] = 0.f;
+    (&sB[0][0])[e] = 0.f;
+  }
+  __syncthreads();
+
+  float acc_a[KT][KT], acc_b[KT][KT];
+#pragma unroll
+  for (int a = 0; a < KT; ++a)
+#pragma unroll
+    for (int b = 0; b < KT; ++b) acc_a[a][b] = acc_b[a][b] = 0.f;
+
+  for (long long r0 = r_begin; r0 < r_end; r0 += kTileRows) {
+    const long long left = r_end - r0;
+    const int rows = left < kTileRows ? (int)left : kTileRows;
+    const size_t base = (size_t)r0 * (size_t)k;
+    // the tile's rows are one contiguous run of rows * k elements; rows past
+    // the range load as zeros and add nothing
+    for (int e = threadIdx.x; e < kTileRows * k; e += kThreads) {
+      const int row = e / k;
+      const int col = e - row * k;
+      float s = 0.f, va = 0.f, vb = 0.f;
+      if (row < rows) {
+        s = load_f32(S + base + e);
+        va = load_f32(AS + base + e);
+        vb = load_f32(BS + base + e);
+      }
+      sS[row][col] = s;
+      sA[row][col] = va;
+      sB[row][col] = vb;
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int r = 0; r < kTileRows; ++r) {
+      float sv[KT], av[KT], bv[KT];
+#pragma unroll
+      for (int a = 0; a < KT; ++a) sv[a] = sS[r][ty + 16 * a];
+#pragma unroll
+      for (int b = 0; b < KT; ++b) {
+        av[b] = sA[r][tx + 16 * b];
+        bv[b] = sB[r][tx + 16 * b];
+      }
+#pragma unroll
+      for (int a = 0; a < KT; ++a)
+#pragma unroll
+        for (int b = 0; b < KT; ++b) {
+          acc_a[a][b] = fmaf(sv[a], av[b], acc_a[a][b]);
+          acc_b[a][b] = fmaf(sv[a], bv[b], acc_b[a][b]);
+        }
+    }
+    __syncthreads();
+  }
+
+  const size_t kk = (size_t)k * (size_t)k;
+  float* p = part + ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * 2 * kk;
+#pragma unroll
+  for (int a = 0; a < KT; ++a)
+#pragma unroll
+    for (int b = 0; b < KT; ++b) {
+      const int i = ty + 16 * a;
+      const int j = tx + 16 * b;
+      if (i < k && j < k) {
+        p[(size_t)i * k + j] = acc_a[a][b];
+        p[kk + (size_t)i * k + j] = acc_b[a][b];
+      }
+    }
+}
+
+// out[f][e] = sum over blocks x of part[f][x][e], e < nent = 2 k^2: slice y
+// of a (32, kFinishSlices) block adds x = y, y + 8, ... in order in double,
+// then slice 0 adds the slices in order and rounds to f32.
+__global__ void __launch_bounds__(32 * kFinishSlices)
+    gram_finish_kernel(const float* part, int nblk, int nent, float* out) {
+  __shared__ double red[kFinishSlices][32];
+  const int e = blockIdx.x * 32 + threadIdx.x;
+  double v = 0.0;
+  if (e < nent) {
+    const float* p = part + (size_t)blockIdx.y * nblk * nent + e;
+    for (int x = threadIdx.y; x < nblk; x += kFinishSlices)
+      v += (double)p[(size_t)x * nent];
+  }
+  red[threadIdx.y][threadIdx.x] = v;
+  __syncthreads();
+  if (threadIdx.y == 0 && e < nent) {
+    double s = 0.0;
+#pragma unroll
+    for (int y = 0; y < kFinishSlices; ++y) s += red[y][threadIdx.x];
+    out[(size_t)blockIdx.y * nent + e] = (float)s;
+  }
+}
+
+template <typename T>
+using GramKernel = void (*)(const T*, const T*, const T*, long long, int,
+                            long long, float*);
+
+// The kernel instance for k columns, KT = ceil(k / 16) <= kGramMaxK / 16.
+// The wrapper (GRAM_MAX_K) keeps k in range.
+template <typename T>
+GramKernel<T> gram_kernel_for(int k) {
+  static const GramKernel<T> kernels[kGramMaxK / 16] = {
+      gram_pair_kernel<T, 1>, gram_pair_kernel<T, 2>, gram_pair_kernel<T, 3>,
+      gram_pair_kernel<T, 4>, gram_pair_kernel<T, 5>, gram_pair_kernel<T, 6>};
+  return kernels[(k + 15) / 16 - 1];
+}
+
+template <typename T>
+cudaError_t gram_geometry(int fleet, long long m, int k, int* grid,
+                          long long* rows_per_block) {
+  const GramKernel<T> kernel = gram_kernel_for<T>(k);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                    kThreads, 0);
+  if (e != cudaSuccess) return e;
+  if (per_sm < 1) per_sm = 1;
+  // one wave over the whole fleet, each block at least one tile of rows
+  const long long tiles = (m + kTileRows - 1) / kTileRows;
+  long long want = ((long long)sms * per_sm + fleet - 1) / fleet;
+  if (want > tiles) want = tiles;
+  if (want < 1) want = 1;
+  const long long tiles_per_block = (tiles + want - 1) / want;
+  *rows_per_block = tiles_per_block * kTileRows;
+  *grid = (int)((m + *rows_per_block - 1) / *rows_per_block);
+  return cudaSuccess;
+}
+
+template <typename T>
+int gram_pair_launch(const void* s, const void* as, const void* bs, int fleet,
+                     long long m, int k, int grid, long long rows_per_block,
+                     float* part, float* out, cudaStream_t st) {
+  const GramKernel<T> kernel = gram_kernel_for<T>(k);
+  kernel<<<dim3(grid, fleet), kThreads, 0, st>>>(
+      static_cast<const T*>(s), static_cast<const T*>(as),
+      static_cast<const T*>(bs), m, k, rows_per_block, part);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const int nent = 2 * k * k;
+  gram_finish_kernel<<<dim3((nent + 31) / 32, fleet), dim3(32, kFinishSlices),
+                       0, st>>>(part, grid, nent, out);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
 cudaError_t grid_for(long long n, int* grid) {
   int dev = 0, sms = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -237,6 +469,15 @@ int stencil_launch(const void* d, const void* v, void* out, long long n,
   stencil_kernel<T><<<grid, kThreads, 0, st>>>(
       static_cast<const T*>(d), static_cast<const T*>(v), static_cast<T*>(out),
       n, a, b, scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int stream3_launch(const void* d, const void* v, void* out, long long n,
+                   float scale, int grid, cudaStream_t st) {
+  stream3_kernel<T><<<grid, kThreads, 0, st>>>(
+      static_cast<const T*>(d), static_cast<const T*>(v), static_cast<T*>(out),
+      n, scale);
   return (int)cudaGetLastError();
 }
 
@@ -287,6 +528,37 @@ int fused_stencil(int bf16, const void* d, const void* v, void* out,
   return bf16 ? stencil_launch<__nv_bfloat16>(d, v, out, n, a, b, scale, grid,
                                               st)
               : stencil_launch<float>(d, v, out, n, a, b, scale, grid, st);
+}
+
+// out = (d + 2) v scale (d, v and out of one dtype).
+int fused_stream3(int bf16, const void* d, const void* v, void* out,
+                  long long n, float scale, int grid, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  return bf16 ? stream3_launch<__nv_bfloat16>(d, v, out, n, scale, grid, st)
+              : stream3_launch<float>(d, v, out, n, scale, grid, st);
+}
+
+// Blocks per instance and rows per block of a gram_pair launch over a fleet
+// of (m, k) blocks, 1 <= k <= kGramMaxK, m >= 1; the caller sizes the
+// partials as fleet * grid * 2 k^2 floats.
+int fused_gram_geometry(int bf16, int fleet, long long m, int k, int* grid,
+                        long long* rows_per_block) {
+  return bf16 ? (int)gram_geometry<__nv_bfloat16>(fleet, m, k, grid,
+                                                  rows_per_block)
+              : (int)gram_geometry<float>(fleet, m, k, grid, rows_per_block);
+}
+
+// out[f][0] = S_f' AS_f and out[f][1] = S_f' BS_f, (k, k) f32 each, for the
+// fleet's (m, k) row-major blocks (S, AS, BS of one dtype; BS may be S).
+int fused_gram_pair(int bf16, const void* s, const void* as, const void* bs,
+                    int fleet, long long m, int k, int grid,
+                    long long rows_per_block, float* part, float* out,
+                    void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  return bf16 ? gram_pair_launch<__nv_bfloat16>(s, as, bs, fleet, m, k, grid,
+                                                rows_per_block, part, out, st)
+              : gram_pair_launch<float>(s, as, bs, fleet, m, k, grid,
+                                        rows_per_block, part, out, st);
 }
 
 }  // extern "C"

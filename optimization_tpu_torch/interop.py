@@ -2,8 +2,9 @@
 
 The ported problems have no learned weights: their state is the params
 (``TNTParams``, ``GradientDescentParams`` and their bases), the initial
-point and the data.  These functions carry them without
-importing JAX (arrays arrive through numpy's array protocol).
+point, the data, and a LOBPCG solve's ``warm_start`` carry.  These
+functions carry them without importing JAX (arrays arrive through numpy's
+array protocol).
 """
 
 from __future__ import annotations
@@ -18,7 +19,8 @@ from .core.types import OptimizerParams, SmoothOptimizerParams
 from .solvers.gradient_descent import GradientDescentParams
 from .solvers.tnt import TNTParams
 
-__all__ = ["params_from_jax", "tensor_from_numpy", "result_to_numpy"]
+__all__ = ["params_from_jax", "tensor_from_numpy", "result_to_numpy",
+           "lobpcg_warm_start_from_jax"]
 
 _PARAMS = {cls.__name__: cls
            for cls in (OptimizerParams, SmoothOptimizerParams,
@@ -60,3 +62,14 @@ def result_to_numpy(res):
             t = t.to(torch.float32)
         return t.numpy()
     return tree_map(conv, res)
+
+
+def lobpcg_warm_start_from_jax(ws, device="cpu"):
+    """The port's ``warm_start`` from a JAX ``LOBPCGResult.warm_start``
+    ``(k, carry)``: every array leaf a tensor on ``device`` of the same
+    dtype, the carry's keys kept, an empty ``Useed`` ``()`` kept; so a solve
+    started in JAX resumes in the port's ``lobpcg`` or ``lobpcg_fleet``."""
+    k, carry = ws
+    return (tensor_from_numpy(k, device),
+            {key: () if isinstance(v, tuple) else tensor_from_numpy(v, device)
+             for key, v in carry.items()})

@@ -1,8 +1,8 @@
 """Fused reductions and the stencil operator: Hopper kernels and their plain
 versions.
 
-Counterpart of ``optimization_tpu/kernels/fused.py`` for the four kernels
-the generic TNT path runs:
+Counterpart of ``optimization_tpu/kernels/fused.py``, all six of its
+kernels:
 
 - :func:`cg_dots` — ``(<p,Hp>, <Hp,Hp>, <p,p>, <p,r>)`` in one read of
   (p, Hp, r): the STPCG per-iteration reductions (``fused_dots=True``);
@@ -10,7 +10,11 @@ the generic TNT path runs:
   pass: the STPCG residual update and its norm;
 - :func:`diag_stencil_matvec` / :func:`affine_stencil_matvec` —
   ``scale*(diag(d) + 2I - S - S')v`` with S the unit shift, d stored or
-  ``d_i = a + b*i``: the matrix-free SPD operator.
+  ``d_i = a + b*i``: the matrix-free SPD operator;
+- :func:`stream3_probe` — ``(d + 2)*v*scale``: the stencil's read-read-write
+  stream with no stencil work, the measured bandwidth ceiling;
+- :func:`gram_pair` — ``(S'AS, S'BS)`` from (m, k) blocks, or a fleet of
+  them (F, m, k), in one read of S: the LOBPCG Gram stage.
 
 Each wrapper takes a tensor on the CPU to its plain PyTorch version
 (``*_reference``), the function the CPU tests hold against the JAX kernels,
@@ -25,20 +29,24 @@ The plain versions keep the JAX package's contracts:
   the JAX package (``fused.py:76-82, 112``);
 - ``axpy_selfdot`` computes ``out`` in ``x.dtype`` with ``alpha`` cast to
   ``x.dtype``, and the norm in f32 cast to ``x.dtype``;
-- the stencils compute in ``v.dtype``; the affine diagonal is built in f32
-  (``f32(b) * f32(i) + f32(a)``, the kernel's order) whatever ``v.dtype``.
+- the stencils and ``stream3_probe`` compute in ``v.dtype``; the affine
+  diagonal is built in f32 (``f32(b) * f32(i) + f32(a)``, the kernel's
+  order) whatever ``v.dtype``;
+- ``gram_pair`` casts its inputs to f32 and returns f32 Grams with f32
+  products and sums: under float64 they are f32-accurate, as in the JAX
+  package (``fused.py:172-176, 211-212``).
 
-The kernels compute in f32 and round once on store: in f32 that equals the
-plain versions' elementwise results bit for bit, in bf16 the plain versions
+The elementwise kernels compute in f32 and round once on store: in f32 that
+equals the plain versions' results bit for bit, in bf16 the plain versions
 round after every operation (the JAX contract) and differ by a few bf16
-ulps.  The TPU tiling knob ``block_rows`` is accepted and ignored; the
-TPU-only helpers (``on_tpu``, the ``_boundaries`` halo arrays, the (8, 128)
-padding) have no counterpart.
+ulps.  The TPU-only knobs and helpers (``block_rows``, ``on_tpu``, the
+``_boundaries`` halo arrays, the (8, 128) padding) have no counterpart.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -47,9 +55,15 @@ from .streamed_cg import AffineDiagonal, _aligned
 __all__ = ["cg_dots", "cg_dots_reference", "axpy_selfdot",
            "axpy_selfdot_reference", "diag_stencil_matvec",
            "diag_stencil_matvec_reference", "affine_stencil_matvec",
-           "affine_stencil_matvec_reference"]
+           "affine_stencil_matvec_reference", "stream3_probe",
+           "stream3_probe_reference", "gram_pair", "gram_pair_reference",
+           "GRAM_MAX_K"]
 
 _STORAGE = (torch.float32, torch.bfloat16)
+# The largest k the gram_pair kernel takes: the LOBPCG basis width 3 nx up to
+# nx = 32.  csrc/fused.cu instantiates the kernel for KT = ceil(k / 16) up to
+# kGramMaxK / 16 = 6; this is the one range check.
+GRAM_MAX_K = 96
 
 
 # ---------------------------------------------------------------------------
@@ -98,6 +112,19 @@ def affine_stencil_matvec_reference(v: torch.Tensor, *, a: float, b: float,
     return _stencil_reference(d, v, scale)
 
 
+def stream3_probe_reference(d: torch.Tensor, v: torch.Tensor, *,
+                            scale: float = 1.0) -> torch.Tensor:
+    """``((d + 2)*v)*scale`` in ``v.dtype``."""
+    return (d.to(v.dtype) + 2.0) * v * scale
+
+
+def gram_pair_reference(S: torch.Tensor, AS: torch.Tensor, BS: torch.Tensor):
+    """``(S'AS, S'BS)`` in f32 from f32 casts of the inputs: (m, k) blocks
+    give (k, k) Grams, (F, m, k) fleets (F, k, k)."""
+    S32 = S.to(torch.float32).mT
+    return S32 @ AS.to(torch.float32), S32 @ BS.to(torch.float32)
+
+
 # ---------------------------------------------------------------------------
 # the kernels
 # ---------------------------------------------------------------------------
@@ -121,6 +148,15 @@ def _lib() -> ctypes.CDLL:
         lib.fused_axpy_selfdot.restype = i32
         lib.fused_stencil.argtypes = [i32, vp, vp, vp, i64, f, f, f, i32, vp]
         lib.fused_stencil.restype = i32
+        lib.fused_stream3.argtypes = [i32, vp, vp, vp, i64, f, i32, vp]
+        lib.fused_stream3.restype = i32
+        lib.fused_gram_geometry.argtypes = [i32, i32, i64, i32,
+                                            ctypes.POINTER(i32),
+                                            ctypes.POINTER(i64)]
+        lib.fused_gram_geometry.restype = i32
+        lib.fused_gram_pair.argtypes = [i32, vp, vp, vp, i32, i64, i32, i32,
+                                        i64, vp, vp, vp]
+        lib.fused_gram_pair.restype = i32
         lib._argtypes_set = True
     return lib
 
@@ -163,11 +199,10 @@ def _launch_setup(t: torch.Tensor):
     return lib, bf16, grid.value, torch.cuda.current_stream(t.device).cuda_stream
 
 
-def cg_dots(p: torch.Tensor, Hp: torch.Tensor, r: torch.Tensor,
-            block_rows: int = 512):
+def cg_dots(p: torch.Tensor, Hp: torch.Tensor, r: torch.Tensor):
     """``(<p,Hp>, <Hp,Hp>, <p,p>, <p,r>)`` in one pass over (p, Hp, r), as
     four 0-d tensors of ``p.dtype`` on p's device (nothing is read back).
-    Accumulation is f32.  ``block_rows`` (a TPU tiling knob) is ignored."""
+    Accumulation is f32."""
     if not _on_card("cg_dots", p, Hp, r):
         return cg_dots_reference(p, Hp, r)
     p, Hp, r = _aligned(p), _aligned(Hp), _aligned(r)
@@ -183,13 +218,11 @@ def cg_dots(p: torch.Tensor, Hp: torch.Tensor, r: torch.Tensor,
     return o[0], o[1], o[2], o[3]
 
 
-def axpy_selfdot(alpha, x: torch.Tensor, y: torch.Tensor,
-                 block_rows: int = 2048):
+def axpy_selfdot(alpha, x: torch.Tensor, y: torch.Tensor):
     """``out = alpha*x + y`` and ``<out, out>`` in one pass.  ``alpha`` may
     be a 0-d tensor on the card (the kernel reads it there: no host sync)
     or a number.  Returns ``(out, dot)`` with ``out`` in ``x.dtype`` and
-    ``dot`` a 0-d ``x.dtype`` tensor.  ``block_rows`` (a TPU tiling knob)
-    is ignored."""
+    ``dot`` a 0-d ``x.dtype`` tensor."""
     if not _on_card("axpy_selfdot", x, y):
         return axpy_selfdot_reference(alpha, x, y)
     x, y = _aligned(x), _aligned(y)
@@ -223,10 +256,9 @@ def _stencil(d, v, a: float, b: float, scale: float) -> torch.Tensor:
 
 
 def diag_stencil_matvec(d: torch.Tensor, v: torch.Tensor, *,
-                        scale: float = 1.0,
-                        block_rows: int = 2048) -> torch.Tensor:
+                        scale: float = 1.0) -> torch.Tensor:
     """``scale * (diag(d) + 2 I - S - S') v`` in one pass (reads d and v,
-    writes the product: 3n words).  ``block_rows`` is ignored."""
+    writes the product: 3n words)."""
     if not _on_card("diag_stencil_matvec", d, v):
         return diag_stencil_matvec_reference(d, v, scale=scale)
     out = _stencil(d, v, 0.0, 0.0, float(scale))
@@ -235,11 +267,9 @@ def diag_stencil_matvec(d: torch.Tensor, v: torch.Tensor, *,
 
 
 def affine_stencil_matvec(v: torch.Tensor, *, a: float, b: float,
-                          scale: float = 1.0,
-                          block_rows: int = 2048) -> torch.Tensor:
+                          scale: float = 1.0) -> torch.Tensor:
     """``scale * (diag(a + b*i) + 2 I - S - S') v``, the diagonal generated
-    from the index (reads v, writes the product: 2n words).  ``block_rows``
-    is ignored."""
+    from the index (reads v, writes the product: 2n words)."""
     if not _on_card("affine_stencil_matvec", v):
         return affine_stencil_matvec_reference(v, a=a, b=b, scale=scale)
     out = _stencil(None, v, float(a), float(b), float(scale))
@@ -247,8 +277,100 @@ def affine_stencil_matvec(v: torch.Tensor, *, a: float, b: float,
     return out
 
 
+def stream3_probe(d: torch.Tensor, v: torch.Tensor, *,
+                  scale: float = 1.0) -> torch.Tensor:
+    """``(d + 2)*v*scale`` in one pass: reads d and v, writes the product
+    (3n words, the stored stencil's stream with no stencil work), so its
+    bandwidth is the ceiling the streaming kernels are measured against."""
+    if not _on_card("stream3_probe", d, v):
+        return stream3_probe_reference(d, v, scale=scale)
+    d, v = _aligned(d), _aligned(v)
+    with torch.cuda.device(v.device):
+        lib, bf16, grid, stream = _launch_setup(v)
+        out = torch.empty_like(v)
+        _raise_on(lib, lib.fused_stream3(
+            bf16, d.data_ptr(), v.data_ptr(), out.data_ptr(), v.shape[0],
+            float(scale), grid, stream), "stream3_probe launch")
+    stream3_probe.launches += 1
+    return out
+
+
+def _gram_on_card(S: torch.Tensor, AS: torch.Tensor, BS: torch.Tensor) -> bool:
+    """Validate (m, k) or (F, m, k) blocks of one shape on one device; True
+    for CUDA tensors (the kernel), False for CPU tensors (the plain
+    version)."""
+    if S.dim() not in (2, 3) or AS.shape != S.shape or BS.shape != S.shape:
+        raise ValueError(f"gram_pair: S, AS, BS must be (m, k) or (F, m, k) "
+                         f"blocks of one shape (got {tuple(S.shape)}, "
+                         f"{tuple(AS.shape)}, {tuple(BS.shape)})")
+    if AS.device != S.device or BS.device != S.device:
+        raise ValueError("gram_pair: inputs must be on one device")
+    if S.device.type == "cpu":
+        return False
+    if S.device.type != "cuda":
+        raise ValueError(f"gram_pair runs on CUDA tensors (the kernel) or CPU "
+                         f"tensors (the plain version), not {S.device.type}")
+    if S.dtype not in _STORAGE or AS.dtype != S.dtype or BS.dtype != S.dtype:
+        raise ValueError(f"gram_pair: the kernel takes f32 or bf16 storage, "
+                         f"one dtype for all blocks (got {S.dtype}, "
+                         f"{AS.dtype}, {BS.dtype})")
+    m, k = S.shape[-2:]
+    if not 1 <= k <= GRAM_MAX_K or S.numel() == 0:
+        raise ValueError(f"gram_pair: the kernel takes 1 <= k <= "
+                         f"{GRAM_MAX_K} columns and a non-empty block (got "
+                         f"{tuple(S.shape)})")
+    return True
+
+
+@functools.lru_cache(maxsize=None)
+def _gram_geometry(device: int, bf16: int, fleet: int, m: int,
+                   k: int) -> tuple[int, int]:
+    """(blocks per instance, rows per block) of a gram_pair launch: one
+    wave over the fleet, from the card's SM count and the kernel's
+    occupancy, asked once per shape."""
+    lib = _lib()
+    grid, rows = ctypes.c_int(0), ctypes.c_longlong(0)
+    _raise_on(lib, lib.fused_gram_geometry(
+        bf16, fleet, m, k, ctypes.byref(grid), ctypes.byref(rows)),
+        "fused_gram_geometry")
+    return grid.value, rows.value
+
+
+def gram_pair(S: torch.Tensor, AS: torch.Tensor, BS: torch.Tensor):
+    """``(S'AS, S'BS)`` sharing one read of S: (m, k) blocks give two (k, k)
+    f32 Grams, a fleet (F, m, k) two (F, k, k), in one launch.  Products and
+    sums are f32 (no TF32), the blocks' partial sums are added in a fixed
+    order, so a repeat is bitwise.  ``BS`` may be ``S`` itself.  At most
+    ``GRAM_MAX_K`` columns."""
+    if not _gram_on_card(S, AS, BS):
+        return gram_pair_reference(S, AS, BS)
+    single = S.dim() == 2
+    S3, AS3, BS3 = (t.contiguous() if t.dim() == 3 else
+                    t.contiguous().unsqueeze(0) for t in (S, AS, BS))
+    fleet, m, k = S3.shape
+    bf16 = int(S.dtype == torch.bfloat16)
+    with torch.cuda.device(S.device):
+        lib = _lib()
+        grid, rows = _gram_geometry(S.device.index, bf16, fleet, m, k)
+        part = torch.empty(fleet * grid * 2 * k * k, dtype=torch.float32,
+                           device=S.device)
+        out = torch.empty((fleet, 2, k, k), dtype=torch.float32,
+                          device=S.device)
+        stream = torch.cuda.current_stream(S.device).cuda_stream
+        _raise_on(lib, lib.fused_gram_pair(
+            bf16, S3.data_ptr(), AS3.data_ptr(), BS3.data_ptr(), fleet, m, k,
+            grid, rows, part.data_ptr(), out.data_ptr(), stream),
+            "gram_pair launch")
+    gram_pair.launches += 1
+    if single:
+        return out[0, 0], out[0, 1]
+    return out[:, 0], out[:, 1]
+
+
 # Kernel launches made by this process (the plain versions do not count).
 cg_dots.launches = 0
 axpy_selfdot.launches = 0
 diag_stencil_matvec.launches = 0
 affine_stencil_matvec.launches = 0
+stream3_probe.launches = 0
+gram_pair.launches = 0

@@ -11,7 +11,8 @@ Tolerances of the streamed kernel (those of ``chip_smoke.check_parity`` and
 2e-3 |s| (the kernel sums in another order than ``torch.sum``, so CG may
 stop one step apart at the truncation threshold; equal counts give ~1e-6);
 bf16 storage iterations within 3 and s within 3e-2 |s|.  Tolerances of the
-fused kernels: those of ``chip_smoke.FUSED_TOLERANCES``, reasons there.
+fused kernels: those of ``chip_smoke.FUSED_TOLERANCES`` and
+``chip_smoke.GRAM_TOLERANCES``, reasons there.
 """
 
 import pytest
@@ -223,3 +224,82 @@ def test_fused_stpcg_on_card_matches_generic(dev):
     assert F.cg_dots.launches - before >= int(fused.num_iterations) > 5
     assert int(fused.num_iterations) == int(ref.num_iterations)
     torch.testing.assert_close(fused.s, ref.s, rtol=2e-4, atol=2e-5)
+
+
+# ---- stream3_probe and gram_pair (csrc/fused.cu) ----
+
+
+@pytest.mark.parametrize("dtype", FUSED_DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("n", FUSED_N)
+def test_stream3_probe_matches_plain_version(dev, dtype, n):
+    v, _, _, d = _fused_inputs(n, dtype, dev)
+    before = F.stream3_probe.launches
+    got = F.stream3_probe(d, v, scale=0.5)
+    assert F.stream3_probe.launches == before + 1
+    ref = F.stream3_probe_reference(d, v, scale=0.5)
+    assert got.dtype == dtype and got.shape == (n,)
+    if dtype == torch.float32:
+        assert torch.equal(got, ref)        # the same three roundings
+    else:
+        terms = ((d.double() + 2.0) * v.double()).abs() * 0.5
+        _assert_within(got, ref, 2.0 ** -6 * terms)
+
+
+def _gram_inputs(shape, dtype, dev, seed=3):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(shape, generator=gen, device=dev).to(dtype)
+            for _ in range(3)]
+
+
+@pytest.mark.parametrize("dtype", FUSED_DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(1000, 48), (999, 30), (3, 777, 17),
+                                   (200, F.GRAM_MAX_K), (5, 1)])
+def test_gram_pair_matches_plain_version(dev, dtype, shape):
+    S, AS, BS = _gram_inputs(shape, dtype, dev)
+    before = F.gram_pair.launches
+    ga, gb = F.gram_pair(S, AS, BS)
+    assert F.gram_pair.launches == before + 1
+    ra, rb = F.gram_pair_reference(S, AS, BS)
+    k = shape[-1]
+    assert ga.shape == shape[:-2] + (k, k) and ga.dtype == torch.float32
+    Sd = S.double()
+    for got, ref, X in ((ga, ra, AS), (gb, rb, BS)):
+        terms = Sd.abs().mT @ X.double().abs()
+        _assert_within(got, ref, 1e-5 * terms)
+        _assert_within(got, Sd.mT @ X.double(), 1e-5 * terms)
+    # bitwise repeat: fixed summation order, no atomics
+    ga2, gb2 = F.gram_pair(S, AS, BS)
+    assert torch.equal(ga, ga2) and torch.equal(gb, gb2)
+
+
+def test_gram_pair_takes_S_twice_and_rejects(dev):
+    S, AS, _ = _gram_inputs((500, 24), torch.float32, dev)
+    ga, gb = F.gram_pair(S, AS, S)
+    _assert_within(gb, S.double().mT @ S.double(),
+                   1e-5 * (S.double().abs().mT @ S.double().abs()))
+    big = torch.ones(10, F.GRAM_MAX_K + 1, device=dev)
+    with pytest.raises(ValueError, match="k <="):
+        F.gram_pair(big, big, big)
+    x = torch.ones(10, 4, dtype=torch.float64, device=dev)
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        F.gram_pair(x, x, x)
+
+
+def test_lobpcg_f32_on_card_launches_gram_pair(dev):
+    """A small f32 solve on the card: both Gram stages through the kernel,
+    1 + num_iterations launches; the eigenvalues of diag(1..m)."""
+    from optimization_tpu_torch.linalg import lobpcg
+
+    m = 4000
+    d = torch.linspace(1.0, float(m), m, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    before = F.gram_pair.launches
+    res = lobpcg(lambda S: d[:, None] * S, T=lambda S: S / d[:, None],
+                 m=m, nx=8, nev=4, max_iterations=50, tau=1e-4,
+                 generator=gen, rr_method="chol")
+    torch.cuda.synchronize()
+    assert res.X.device.type == "cuda" and res.X.dtype == torch.float32
+    assert F.gram_pair.launches - before == 1 + int(res.num_iterations)
+    assert int(res.num_converged) >= 4 and bool(res.pencil_consistent)
+    torch.testing.assert_close(res.theta.cpu(), torch.arange(1.0, 5.0),
+                               rtol=0, atol=5e-2)

@@ -1,7 +1,8 @@
 """The plain versions of the port's fused kernels == the JAX Pallas kernels.
 
-``cg_dots``, ``axpy_selfdot``, ``diag_stencil_matvec`` and
-``affine_stencil_matvec`` of ``optimization_tpu_torch/kernels/fused.py`` on
+``cg_dots``, ``axpy_selfdot``, ``diag_stencil_matvec``,
+``affine_stencil_matvec``, ``stream3_probe`` and ``gram_pair`` of
+``optimization_tpu_torch/kernels/fused.py`` on
 CPU tensors (their plain PyTorch versions, which the CUDA kernels are held
 against on the card) against the Pallas kernels in interpret mode, at the
 sizes of ``tests/test_kernels.py`` plus ragged ones, in f32 and f64, from
@@ -16,7 +17,14 @@ one numpy seed.  Tolerances, each with its reason:
 - the affine diagonal: the port builds d = a + b*i in f32 (one f32
   definition for kernel and plain version), the JAX kernel in v.dtype as
   (a + 2) + b*row + b*lane, so (d + 2) differs by a few f32 roundings of
-  |d| + 2, times |v|.
+  |d| + 2, times |v|;
+- ``stream3_probe``: the same three roundings in the same order, equal bit
+  for bit;
+- ``gram_pair``: both cast to f32 and sum m products per entry in f32, in
+  other orders (the JAX kernel block by block, torch's matmul in its own
+  blocking): within 2e-6 of sum_r |S[r,i] X[r,j]| (~30 eps32; the rounding
+  of an m-term f32 sum grows like sqrt(m) eps32 in practice);
+  bf16 and f64 inputs become the same f32 values in both.
 """
 
 import jax.numpy as jnp
@@ -155,6 +163,80 @@ def test_stencil_edges_and_tiny_n():
     assert float(T.diag_stencil_matvec(one, one)) == 35.0
 
 
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("n", [64, 1024, 4097])
+def test_stream3_probe_matches_jax(n, dt):
+    npdt, tdt = DTYPES[dt]
+    v, w = _vecs(n, 2, npdt, seed=6)
+    d = (w * w + 1.0).astype(npdt)
+    j = np.asarray(J.stream3_probe(jnp.asarray(d), jnp.asarray(v), scale=0.5))
+    before = T.stream3_probe.launches
+    t = T.stream3_probe(torch.from_numpy(d), torch.from_numpy(v), scale=0.5)
+    assert T.stream3_probe.launches == before
+    assert t.dtype == tdt and t.shape == (n,)
+    np.testing.assert_array_equal(t.numpy(), j)
+
+
+GRAM_SHAPES = [(256, 8), (1000, 24), (513, 30)]
+GRAM_INPUTS = {"f32": np.float32, "bf16": "bfloat16", "f64": np.float64}
+
+
+def _gram_inputs(m, k, kind, seed=0):
+    """(numpy S, AS, BS) of one input dtype; bf16 values made exactly
+    representable (drawn in f32, rounded to bf16)."""
+    rng = np.random.default_rng(seed + m + k)
+    arrs = [rng.normal(size=(m, k)) for _ in range(3)]
+    if kind == "bf16":
+        return [np.asarray(jnp.asarray(a, jnp.bfloat16)) for a in arrs]
+    return [a.astype(GRAM_INPUTS[kind]) for a in arrs]
+
+
+def _to_torch(a):
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+@pytest.mark.parametrize("kind", list(GRAM_INPUTS))
+@pytest.mark.parametrize("m,k", GRAM_SHAPES)
+def test_gram_pair_matches_jax(m, k, kind):
+    S, AS, BS = _gram_inputs(m, k, kind)
+    ja, jb = J.gram_pair(jnp.asarray(S), jnp.asarray(AS), jnp.asarray(BS))
+    before = T.gram_pair.launches
+    ta, tb = T.gram_pair(*(_to_torch(a) for a in (S, AS, BS)))
+    assert T.gram_pair.launches == before      # the plain version ran
+    S64 = np.abs(S.astype(np.float32).astype(np.float64))
+    for t, j, X in ((ta, ja, AS), (tb, jb, BS)):
+        assert t.dtype == torch.float32 and t.shape == (k, k)
+        assert np.asarray(j).dtype == np.float32
+        terms = S64.T @ np.abs(X.astype(np.float32).astype(np.float64))
+        np.testing.assert_array_less(np.abs(t.numpy() - np.asarray(j)),
+                                     2e-6 * terms + 1e-30)
+        exact = (S.astype(np.float32).astype(np.float64).T
+                 @ X.astype(np.float32).astype(np.float64))
+        np.testing.assert_array_less(np.abs(t.numpy() - exact),
+                                     2e-6 * terms + 1e-30)
+
+
+def test_gram_pair_fleet_is_per_instance():
+    """A (F, m, k) fleet gives the per-instance Grams: each (k, k) slice
+    equals the single-instance result (the same f32 products and sums)."""
+    rng = np.random.default_rng(9)
+    S, AS, BS = (torch.from_numpy(rng.normal(size=(3, 300, 12)).astype(
+        np.float32)) for _ in range(3))
+    fa, fb = T.gram_pair(S, AS, BS)
+    assert fa.shape == fb.shape == (3, 12, 12)
+    for i in range(3):
+        a, b = T.gram_pair(S[i], AS[i], BS[i])
+        S64 = S[i].double().abs()
+        for got, want, X in ((fa[i], a, AS[i]), (fb[i], b, BS[i])):
+            tol = 2e-6 * (S64.mT @ X.double().abs())
+            assert bool(((got.double() - want.double()).abs() <= tol).all())
+    # BS may be S itself (B = None in LOBPCG): S'S, symmetric
+    ga, gb = T.gram_pair(S[0], AS[0], S[0])
+    torch.testing.assert_close(gb, S[0].mT @ S[0], rtol=0, atol=1e-4)
+
+
 def test_wrappers_reject_bad_inputs():
     x = torch.ones(8)
     with pytest.raises(ValueError, match="one shape"):
@@ -165,3 +247,12 @@ def test_wrappers_reject_bad_inputs():
     m = torch.empty(8, device="meta")
     with pytest.raises(ValueError, match="CUDA tensors"):
         T.diag_stencil_matvec(m, m)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        T.stream3_probe(m, m)
+    g = torch.empty(16, 4, device="meta")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        T.gram_pair(g, g, g)
+    with pytest.raises(ValueError, match="one shape"):
+        T.gram_pair(torch.ones(16, 4), torch.ones(16, 4), torch.ones(16, 5))
+    with pytest.raises(ValueError, match="one shape"):
+        T.gram_pair(torch.ones(16), torch.ones(16), torch.ones(16))

@@ -32,9 +32,12 @@ non-zero exit and no result line:
    plain version at n = 2^24 f32;
 7. ``gram_pair`` against its plain version (and a float64 product) at
    100,000 x 48, 999 x 30, 16 x 10,000 x 48 and 5,000 x 96 (the k cap),
+   with BS distinct and with BS = S (the route that reads S once),
    ``stream3_probe`` at n = 2^24, 999,999 and 100, f32 and bf16, bitwise
-   repeats, both timed against their plain versions; stream3_probe's GB/s
-   at n = 2^24 f32 is the measured bandwidth ceiling;
+   repeats; gram_pair timed at 100,000 x 48 (BS distinct and BS = S, the
+   LOBPCG call) and 16 x 10,000 x 48 in f32 and bf16 beside its plain
+   version, the one-call library product (``torch.matmul``) and its bound;
+   stream3_probe's GB/s at n = 2^24 f32 is the measured bandwidth ceiling;
 8. the eigensolver path: ``lobpcg`` on config3 (m = 1e5, nx = 16, nev = 5,
    A = diag(linspace(1, m)), the exact inverse preconditioner; a converged
    f32 solve with ``rr_method`` "eigh" then "chol", gated at
@@ -44,10 +47,16 @@ non-zero exit and no result line:
    gram_pair launches checked against 1 + iterations per solve; block it/s
    of fixed-iteration runs; host syncs per iteration;
 9. each streaming kernel's GB/s as a fraction of the measured ceiling, the
-   kernel table as one JSON line, then the result line
-   ``{"ok": true, "device": {...}}``.
+   kernel table as one JSON line (each kernel's launches on its path, its
+   error, its time, its plain version's, its bound and the library call's,
+   null where no single PyTorch call computes the function), then the
+   result line ``{"ok": true, "device": {...}}``.
 
-Every time printed is labelled with the card's name and power limit.
+Every time printed is labelled with the card's name and power limit.  A
+bound is the least time the card could take for the same work: the larger
+of the bytes the function must move (each input read once, each output
+written once) over 3.35 TB/s and its operations over the peak for their
+type (67 TFLOP/s f32, 495 TF32, 989 bf16; NVIDIA's H100 SXM data sheet).
 """
 
 import collections
@@ -67,6 +76,16 @@ N_MAIN = 1 << 24
 SHORT = 10                          # CG iterations: see check_parity
 SOURCES = ("streamed_cg", "fused")
 N_FUSED = (1 << 24, 999_999, 100)   # fused kernel parity sizes
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"f32": 67e12, "tf32": 495e12, "bf16": 989e12}
+
+
+def bound(nbytes, flops, peak="f32"):
+    """(ms, "bytes" or "operations"): the least time for nbytes of device
+    memory traffic and flops at the data sheet's peak for their type."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[peak]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
 
 
 def card_label(torch):
@@ -321,11 +340,17 @@ def main_path_phase(torch, dev, label):
             or abs(ref_run.fstar - f32.fstar) > 1e-3 * abs(ref_run.fstar)):
         raise AssertionError("f32 tier: kernel and plain version disagree")
 
+    # 6n words an iteration; ~20 f32 FLOP an element an iteration (the
+    # operator, the dots, the three updates)
+    bound_ms, bound_by = bound(gbytes * 1e9, 20.0 * n * its)
+    print(f"  subproblem bound {bound_ms:.4f} ms ({bound_by}), "
+          f"{bound_ms / ms:.3f} of it [{label}]", flush=True)
     return {"name": "stpcg_flat_streamed", "route": "cuda",
             "source": "optimization_tpu_torch/csrc/streamed_cg.cu",
             "replaces": "optimization_tpu/kernels/streamed_cg.py:95",
             "launches": launches, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms}, gbytes / ms * 1e3
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}, gbytes / ms * 1e3
 
 
 FUSED_TOLERANCES = """\
@@ -555,57 +580,86 @@ def stencil_path_phase(torch, dev, label, errs):
     gen = torch.Generator(device=dev).manual_seed(2)
     p, hp, r = (torch.randn(n, generator=gen, device=dev) for _ in range(3))
     alpha = torch.tensor(0.37, device=dev)
+    # (kernel, plain version, words an element, f32 FLOP an element); no
+    # single PyTorch call computes any of these four functions
     timing = {
         "cg_dots": (lambda: F.cg_dots(p, hp, r),
-                    lambda: F.cg_dots_reference(p, hp, r), 3),
+                    lambda: F.cg_dots_reference(p, hp, r), 3, 8),
         "axpy_selfdot": (lambda: F.axpy_selfdot(alpha, hp, r),
-                         lambda: F.axpy_selfdot_reference(alpha, hp, r), 3),
+                         lambda: F.axpy_selfdot_reference(alpha, hp, r), 3,
+                         4),
         "diag_stencil_matvec": (lambda: F.diag_stencil_matvec(d, p),
                                 lambda: F.diag_stencil_matvec_reference(d, p),
-                                3),
+                                3, 6),
         "affine_stencil_matvec": (
             lambda: F.affine_stencil_matvec(p, a=1.0, b=b),
-            lambda: F.affine_stencil_matvec_reference(p, a=1.0, b=b), 2),
+            lambda: F.affine_stencil_matvec_reference(p, a=1.0, b=b), 2, 8),
     }
     entries, rates = [], {}
-    for name, (kern, plain, words) in timing.items():
+    for name, (kern, plain, words, flops) in timing.items():
         ms = time_ms(torch, kern, 50)
         plain_ms = time_ms(torch, plain, 20)
         gbs = words * 4 * n / ms / 1e6
+        bound_ms, bound_by = bound(words * 4 * n, flops * n)
         rates[name] = gbs
         print(f"  {name}: kernel {ms:.4f} ms (~{gbs:.0f} GB/s at {words}n "
-              f"words), plain {plain_ms:.4f} ms, n = {n} f32 [{label}]",
-              flush=True)
+              f"words), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}; {bound_ms / ms:.3f} of it), n = {n} f32 "
+              f"[{label}]", flush=True)
         entries.append({
             "name": name, "route": "cuda",
             "source": "optimization_tpu_torch/csrc/fused.cu",
             "replaces": f"optimization_tpu/kernels/fused.py:"
                         f"{FUSED_REPLACES[name]}",
             "launches": counts[name], "max_abs_err": errs[name],
-            "ms": ms, "plain_ms": plain_ms})
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None})
     return entries, rates
 
 
 GRAM_TOLERANCES = """\
   tolerances, kernel against plain version (and against a float64 product
   of the same inputs on the card):
-    gram_pair: 1e-5 sum_r |S[r,i] X[r,j]| per entry -- both take f32
-      products of the same f32 values (bf16 casts exactly) and sum them in
-      f32 in other orders (the kernel per thread over a block's rows, then
-      the blocks in double; cuBLAS in its own split), no TF32 on either;
+    gram_pair: 1e-5 sum_r |S[r,i] X[r,j]| per entry -- f32 storage: the
+      kernel's 3xTF32 tensor-core products (hi*hi + hi*lo + lo*hi) are
+      within 3 2^-22 |S X| of the f32 products cuBLAS takes (no TF32 on
+      its side); bf16 storage: bf16 x bf16 products, exact in f32 on both;
+      both sum in f32 in other orders (the kernel per mma accumulator over
+      a block's row tiles, then the blocks in double; cuBLAS in its own
+      split);
     stream3_probe: f32 bit for bit (the same three roundings in the same
       order); bf16 2^-6 |(d+2) v scale| -- the plain version rounds after
       each bf16 operation, the kernel once on store.
 """
 GRAM_SHAPES = ((100_000, 48), (999, 30), (16, 10_000, 48), (5_000, 96))
+# the timed shapes: config3's Gram stage with BS distinct and BS = S (the
+# LOBPCG call without B, the path's; its entry in the kernels line), and
+# config10's fleet
+GRAM_TIMED = (((100_000, 48), False), ((100_000, 48), True),
+              ((16, 10_000, 48), False))
 N_STREAM3 = (1 << 24, 999_999, 100)
+
+
+def gram_bound(shape, same, dtype, torch):
+    """(ms, bound_by) of one gram_pair call: 3mk words read (2mk when BS is
+    S), 2 k^2 F written; 2 m k (2k) multiply-adds, three times over on the
+    TF32 tensor cores for f32 storage (the 3xTF32 split), once in bf16."""
+    rows, k = math.prod(shape[:-1]), shape[-1]
+    fleet = math.prod(shape[:-2]) if len(shape) > 2 else 1
+    size = 2 if dtype == torch.bfloat16 else 4
+    nbytes = (2 if same else 3) * rows * k * size + fleet * 2 * k * k * 4
+    flops = 2 * rows * k * 2 * k
+    if dtype == torch.bfloat16:
+        return bound(nbytes, flops, "bf16")
+    return bound(nbytes, 3 * flops, "tf32")
 
 
 def gram_stream3_phase(torch, dev, label):
     """Phase 7: gram_pair and stream3_probe against their plain versions on
-    the card, bitwise repeats, times; then stream3_probe's GB/s at n = 2^24
-    f32, the measured ceiling.  Returns ({name: max |err| at the path's
-    shape}, {name: (ms, plain_ms)}, ceiling GB/s, stream3 launches)."""
+    the card, bitwise repeats, times beside bounds and the library call;
+    then stream3_probe's GB/s at n = 2^24 f32, the measured ceiling.
+    Returns ({name: max |err| at the path's shape}, {name: times of the
+    kernels line}, ceiling GB/s, stream3 launches)."""
     from optimization_tpu_torch.kernels import fused as F
 
     print("phase 7: gram_pair and stream3_probe vs plain versions on the "
@@ -636,10 +690,22 @@ def gram_stream3_phase(torch, dev, label):
             raise AssertionError(f"two runs of gram_pair differ: {tag}")
         errs.setdefault("gram_pair", err)
         cases += 1
-    # B = None in LOBPCG passes S as BS
-    ga, gb = F.gram_pair(S, AS, S)
-    check_close(torch, "gram_pair BS = S", gb, S.double().mT @ S.double(),
-                1e-5 * (S.double().abs().mT @ S.double().abs()))
+        # B = None in LOBPCG passes S as BS: S is read once
+        ga, gb = F.gram_pair(S, AS, S)
+        ra, rb = F.gram_pair_reference(S, AS, S.clone())
+        Sd = S.double()
+        for name, got, ref, X in (("S'AS", ga, ra, AS), ("S'S", gb, rb, S)):
+            tol = 1e-5 * (Sd.abs().mT @ X.double().abs())
+            check_close(torch, f"gram_pair BS = S {name} {tag}", got, ref, tol)
+            check_close(torch, f"gram_pair BS = S {name} {tag} vs f64", got,
+                        Sd.mT @ X.double(), tol)
+        ga2, gb2 = F.gram_pair(S, AS, S)
+        same = torch.equal(ga, ga2) and torch.equal(gb, gb2)
+        print(f"  {'ok  ' if same else 'FAIL'} bitwise repeat gram_pair "
+              f"BS = S {tag}", flush=True)
+        if not same:
+            raise AssertionError(f"two runs of gram_pair differ: BS = S {tag}")
+        cases += 1
 
     for n, dtype in itertools.product(N_STREAM3,
                                       (torch.float32, torch.bfloat16)):
@@ -667,21 +733,34 @@ def gram_stream3_phase(torch, dev, label):
     print(f"phase 7: {cases} shape x dtype cases of 2 kernels + bitwise "
           f"repeats passed", flush=True)
 
+    # kernel, plain version and the library call (one cuBLAS product of S'
+    # and [AS | BS], built outside the timed region; full f32, TF32 off)
     times = {}
-    for shape in (GRAM_SHAPES[0], GRAM_SHAPES[2]):
+    for (shape, same), dtype in itertools.product(
+            GRAM_TIMED, (torch.float32, torch.bfloat16)):
         gen = torch.Generator(device=dev).manual_seed(4)
-        S, AS, BS = (torch.randn(shape, generator=gen, device=dev)
+        S, AS, BS = (torch.randn(shape, generator=gen, device=dev).to(dtype)
                      for _ in range(3))
-        ms = time_ms(torch, lambda: F.gram_pair(S, AS, BS), 50)
-        plain_ms = time_ms(torch, lambda: F.gram_pair_reference(S, AS, BS),
+        X = S if same else BS
+        SX = torch.cat((AS, X), -1)
+        ms = time_ms(torch, lambda: F.gram_pair(S, AS, X), 50)
+        plain_ms = time_ms(torch, lambda: F.gram_pair_reference(S, AS, X),
                            50)
+        lib_ms = time_ms(torch, lambda: torch.matmul(S.mT, SX), 50)
+        bound_ms, bound_by = gram_bound(shape, same, dtype, torch)
         rows, k = S.numel() // shape[-1], shape[-1]
-        gbs = 3 * rows * k * 4 / ms / 1e6
-        gflops = 4 * rows * k * k / ms / 1e6
-        print(f"  gram_pair {'x'.join(map(str, shape))} f32: kernel "
-              f"{ms:.4f} ms (~{gbs:.0f} GB/s at 3mk words, ~{gflops:.0f} "
-              f"GFLOP/s), plain {plain_ms:.4f} ms [{label}]", flush=True)
-        times.setdefault("gram_pair", (ms, plain_ms))
+        words = 2 if same else 3
+        gbs = words * rows * k * S.element_size() / ms / 1e6
+        print(f"  gram_pair {'x'.join(map(str, shape))} "
+              f"{'BS = S' if same else 'BS distinct'} {str(dtype)[6:]}: "
+              f"kernel {ms:.4f} ms (~{gbs:.0f} GB/s at {words}mk words), "
+              f"plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.3f} of the "
+              f"bound [{label}]", flush=True)
+        if same and dtype == torch.float32:
+            times["gram_pair"] = dict(ms=ms, plain_ms=plain_ms,
+                                      bound_ms=bound_ms, bound_by=bound_by,
+                                      library_ms=lib_ms)
 
     n = 1 << 24
     gen = torch.Generator(device=dev).manual_seed(8)
@@ -694,11 +773,14 @@ def gram_stream3_phase(torch, dev, label):
     # ---- end of the ceiling's run ----
     plain_ms = time_ms(torch, lambda: F.stream3_probe_reference(d, v), 20)
     ceiling = 3 * 4 * n / ms / 1e6
-    times["stream3_probe"] = (ms, plain_ms)
+    bound_ms, bound_by = bound(3 * 4 * n, 3 * n)
+    times["stream3_probe"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                  bound_by=bound_by, library_ms=None)
     print(f"  stream3_probe n = 2^24 f32: kernel {ms:.4f} ms = {ceiling:.0f} "
           f"GB/s at 3n words (the measured ceiling; "
           f"{ceiling / 3350:.3f} of the 3.35 TB/s data sheet), plain "
-          f"{plain_ms:.4f} ms [{label}]", flush=True)
+          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) "
+          f"[{label}]", flush=True)
     return errs, times, ceiling, launches
 
 
@@ -910,7 +992,7 @@ def main():
         "source": "optimization_tpu_torch/csrc/fused.cu",
         "replaces": f"optimization_tpu/kernels/fused.py:{FUSED_REPLACES[name]}",
         "launches": launches[name], "max_abs_err": errs7[name],
-        "ms": times7[name][0], "plain_ms": times7[name][1]}
+        **times7[name]}
         for name in ("gram_pair", "stream3_probe")]
     print(json.dumps({"kernels": [kernel] + fused_kernels + new_kernels}))
     print(json.dumps({"ok": True, "device": {

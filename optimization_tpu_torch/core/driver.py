@@ -9,8 +9,9 @@ chunked run visits the same iterates as a monolithic one.  The verbose lines
 and the final report are the JAX package's, character for character.
 
 Each chunk draws the default X0 and the norm-estimate block from the same
-generator state (a copy of ``generator``'s state at the call), as the JAX
-driver hands every chunk the same ``key``: that is what makes chunked equal
+generator state (a copy of ``generator``'s state at the call, or the
+solver's default generator, seeded 0 on the card), as the JAX driver hands
+every chunk the same ``key``: that is what makes chunked equal
 monolithic.  ``jax.block_until_ready`` is a synchronize on the result's
 device.  ``drive``, ``drive_admm`` and the solver status tables are not
 ported yet (ROADMAP Queue 1 item 14).
@@ -63,9 +64,11 @@ def _synchronize(t: torch.Tensor) -> None:
 
 def _chunk_generators(generator: Optional[torch.Generator]):
     """A function giving, per chunk, a new generator in ``generator``'s
-    state at this call (default: a CPU generator seeded 0)."""
+    state at this call.  Without one, every chunk gets ``None``: the
+    solver's default, a generator seeded 0 on the card (or on X0's or the
+    fleet data's device), the same draws in every chunk."""
     if generator is None:
-        generator = torch.Generator().manual_seed(0)
+        return lambda: None
     device, state = generator.device, generator.get_state()
 
     def fresh():

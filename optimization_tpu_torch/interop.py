@@ -40,9 +40,10 @@ def params_from_jax(p):
     return cls(**values)
 
 
-def tensor_from_numpy(a, device="cpu", dtype=None) -> torch.Tensor:
-    """A tensor from a numpy (or JAX) array.  bf16 arrays go through f32,
-    which holds every bf16 value exactly, since torch takes no numpy bf16."""
+def tensor_from_numpy(a, device="cuda", dtype=None) -> torch.Tensor:
+    """A tensor from a numpy (or JAX) array, on the card unless ``device``
+    says otherwise (``device="cpu"``).  bf16 arrays go through f32, which
+    holds every bf16 value exactly, since torch takes no numpy bf16."""
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
@@ -64,9 +65,10 @@ def result_to_numpy(res):
     return tree_map(conv, res)
 
 
-def lobpcg_warm_start_from_jax(ws, device="cpu"):
+def lobpcg_warm_start_from_jax(ws, device="cuda"):
     """The port's ``warm_start`` from a JAX ``LOBPCGResult.warm_start``
-    ``(k, carry)``: every array leaf a tensor on ``device`` of the same
+    ``(k, carry)``: every array leaf a tensor on ``device`` (the card
+    unless told ``device="cpu"``) of the same
     dtype, the carry's keys kept, an empty ``Useed`` ``()`` kept; so a solve
     started in JAX resumes in the port's ``lobpcg`` or ``lobpcg_fleet``."""
     k, carry = ws

@@ -14,7 +14,8 @@ kernels:
 - :func:`stream3_probe` — ``(d + 2)*v*scale``: the stencil's read-read-write
   stream with no stencil work, the measured bandwidth ceiling;
 - :func:`gram_pair` — ``(S'AS, S'BS)`` from (m, k) blocks, or a fleet of
-  them (F, m, k), in one read of S: the LOBPCG Gram stage.
+  them (F, m, k), on the tensor cores (S read once when ``BS`` is ``S``):
+  the LOBPCG Gram stage.
 
 Each wrapper takes a tensor on the CPU to its plain PyTorch version
 (``*_reference``), the function the CPU tests hold against the JAX kernels,
@@ -150,12 +151,11 @@ def _lib() -> ctypes.CDLL:
         lib.fused_stencil.restype = i32
         lib.fused_stream3.argtypes = [i32, vp, vp, vp, i64, f, i32, vp]
         lib.fused_stream3.restype = i32
-        lib.fused_gram_geometry.argtypes = [i32, i32, i64, i32,
-                                            ctypes.POINTER(i32),
-                                            ctypes.POINTER(i64)]
+        lib.fused_gram_geometry.argtypes = [i32, i32, i64, i32, i32,
+                                            ctypes.POINTER(i32)]
         lib.fused_gram_geometry.restype = i32
         lib.fused_gram_pair.argtypes = [i32, vp, vp, vp, i32, i64, i32, i32,
-                                        i64, vp, vp, vp]
+                                        i32, vp, vp, vp]
         lib.fused_gram_pair.restype = i32
         lib._argtypes_set = True
     return lib
@@ -323,27 +323,29 @@ def _gram_on_card(S: torch.Tensor, AS: torch.Tensor, BS: torch.Tensor) -> bool:
 
 
 @functools.lru_cache(maxsize=None)
-def _gram_geometry(device: int, bf16: int, fleet: int, m: int,
-                   k: int) -> tuple[int, int]:
-    """(blocks per instance, rows per block) of a gram_pair launch: one
-    wave over the fleet, from the card's SM count and the kernel's
-    occupancy, asked once per shape."""
+def _gram_geometry(device: int, bf16: int, fleet: int, m: int, k: int,
+                   same: int) -> int:
+    """Blocks per instance of a gram_pair launch: one wave over the fleet,
+    from the card's SM count and the kernel's occupancy, asked once per
+    shape (which also opts the kernel in to its shared memory)."""
     lib = _lib()
-    grid, rows = ctypes.c_int(0), ctypes.c_longlong(0)
+    grid = ctypes.c_int(0)
     _raise_on(lib, lib.fused_gram_geometry(
-        bf16, fleet, m, k, ctypes.byref(grid), ctypes.byref(rows)),
-        "fused_gram_geometry")
-    return grid.value, rows.value
+        bf16, fleet, m, k, same, ctypes.byref(grid)), "fused_gram_geometry")
+    return grid.value
 
 
 def gram_pair(S: torch.Tensor, AS: torch.Tensor, BS: torch.Tensor):
-    """``(S'AS, S'BS)`` sharing one read of S: (m, k) blocks give two (k, k)
-    f32 Grams, a fleet (F, m, k) two (F, k, k), in one launch.  Products and
-    sums are f32 (no TF32), the blocks' partial sums are added in a fixed
-    order, so a repeat is bitwise.  ``BS`` may be ``S`` itself.  At most
-    ``GRAM_MAX_K`` columns."""
+    """``(S'AS, S'BS)``: (m, k) blocks give two (k, k) f32 Grams, a fleet
+    (F, m, k) two (F, k, k), in one launch sequence.  On the card, f32
+    storage takes 3xTF32 tensor-core products (f32-accurate) and bf16
+    storage exact bf16 products, both summed in f32; the blocks' partial
+    sums are added in a fixed order, so a repeat is bitwise.  ``BS`` may be
+    ``S`` itself, and S is then read once.  At most ``GRAM_MAX_K``
+    columns."""
     if not _gram_on_card(S, AS, BS):
         return gram_pair_reference(S, AS, BS)
+    same = int(BS.data_ptr() == S.data_ptr() and BS.stride() == S.stride())
     single = S.dim() == 2
     S3, AS3, BS3 = (t.contiguous() if t.dim() == 3 else
                     t.contiguous().unsqueeze(0) for t in (S, AS, BS))
@@ -351,7 +353,7 @@ def gram_pair(S: torch.Tensor, AS: torch.Tensor, BS: torch.Tensor):
     bf16 = int(S.dtype == torch.bfloat16)
     with torch.cuda.device(S.device):
         lib = _lib()
-        grid, rows = _gram_geometry(S.device.index, bf16, fleet, m, k)
+        grid = _gram_geometry(S.device.index, bf16, fleet, m, k, same)
         part = torch.empty(fleet * grid * 2 * k * k, dtype=torch.float32,
                            device=S.device)
         out = torch.empty((fleet, 2, k, k), dtype=torch.float32,
@@ -359,7 +361,7 @@ def gram_pair(S: torch.Tensor, AS: torch.Tensor, BS: torch.Tensor):
         stream = torch.cuda.current_stream(S.device).cuda_stream
         _raise_on(lib, lib.fused_gram_pair(
             bf16, S3.data_ptr(), AS3.data_ptr(), BS3.data_ptr(), fleet, m, k,
-            grid, rows, part.data_ptr(), out.data_ptr(), stream),
+            same, grid, part.data_ptr(), out.data_ptr(), stream),
             "gram_pair launch")
     gram_pair.launches += 1
     if single:

@@ -30,10 +30,12 @@ What differs from the JAX module, and why:
   factor, and the default eigh never sees a non-finite matrix (an instance
   whose pencil is not finite gets NaN eigenpairs without a LAPACK call),
   so a broken pencil freezes the run as in JAX instead of raising.
-- **Random numbers.**  ``key=`` is ``generator: torch.Generator | None``
-  (default: a CPU generator seeded 0), which draws the default X0 and the
-  norm-estimate block omega on its own device.  torch and JAX draw
-  different numbers.
+- **Random numbers.**  ``key=`` is ``generator: torch.Generator | None``,
+  which draws the default X0 and the norm-estimate block omega.  The
+  default is a generator seeded 0 on the card: on ``X0``'s device when
+  ``X0`` is given, on ``data``'s device for a fleet, else on the current
+  CUDA device (and no card then raises).  A CPU solve is asked for with
+  CPU inputs or a CPU generator.  torch and JAX draw different numbers.
 - **Matmul precision.**  Nothing here changes
   ``torch.backends.cuda.matmul.allow_tf32`` or the float32 matmul
   precision: the port relies on PyTorch's full-f32 defaults, which
@@ -448,9 +450,17 @@ def _check(rr_method: str, m: int, nx: int, nev: int) -> None:
                          "the dimension m of the problem")
 
 
-def _default_generator(generator):
-    return generator if generator is not None else \
-        torch.Generator().manual_seed(0)
+def _default_generator(generator, like: Optional[torch.Tensor]):
+    """``generator``, or one seeded 0 on ``like``'s device, or on the card
+    when there is no ``like``: the CPU is what a caller asks for."""
+    if generator is not None:
+        return generator
+    if like is None and not torch.cuda.is_available():
+        raise RuntimeError(
+            "LOBPCG draws its default X0 on the card and there is no CUDA "
+            "device: pass X0, or a generator (a CPU one for a CPU solve)")
+    device = like.device if like is not None else torch.device("cuda")
+    return torch.Generator(device=device).manual_seed(0)
 
 
 def lobpcg(
@@ -477,10 +487,12 @@ def lobpcg(
     - ``B``: optional SPD block operator (absent => standard eigenproblem).
     - ``T``: optional SPD preconditioner approximating A^{-1}.
     - ``X0``: (m, nx) initial block; if omitted, a Gaussian block of shape
-      (m, nx) in the default dtype is drawn from ``generator``.
+      (m, nx) in the default dtype is drawn from ``generator``, on its
+      device.
     - ``tau``: scale-invariant convergence tolerance.
     - ``generator``: draws the default X0 and the norm-estimate block
-      (default: a CPU generator seeded 0; draws happen on its device).
+      (default: seeded 0, on X0's device, or on the card when X0 is
+      omitted; a CPU generator asks for a CPU solve).
     - ``user_function(k, nev, theta, X, r, nc) -> bool``: optional stopping
       predicate.
     - ``warm_start``: a ``result.warm_start`` tuple from a previous call with
@@ -497,14 +509,16 @@ def lobpcg(
     f32 and bf16 storage take the Gram stage through the ``gram_pair``
     kernel (its plain version on the CPU); f64 through ``torch.matmul``.
     """
-    generator = _default_generator(generator)
     if X0 is None:
         if m is None or nx is None:
             raise ValueError("Either X0 or (m, nx) must be supplied")
+    else:
+        m, nx = X0.shape
+    _check(rr_method, m, nx, nev)
+    generator = _default_generator(generator, X0)
+    if X0 is None:
         X0 = _randn((m, nx), generator, torch.get_default_dtype(),
                     generator.device)
-    m, nx = X0.shape
-    _check(rr_method, m, nx, nev)
     if eigh_fn is not None:
         user_eigh = eigh_fn
 
@@ -553,7 +567,8 @@ def lobpcg_fleet(
       a leading fleet axis); they are applied to the fleet through
       ``torch.func.vmap``.
     - ``X0``: optional (fleet, m, nx) initial blocks; default Gaussian
-      blocks from ``generator``.
+      blocks from ``generator``, on ``data``'s device.
+    - ``generator``: default seeded 0 on ``data``'s device.
     - ``eigh_fn``: takes the (fleet, n, n) batch (``torch.linalg.eigh`` and
       ``jacobi_eigh`` batch natively).
     - Remaining arguments as :func:`lobpcg`.
@@ -573,8 +588,9 @@ def lobpcg_fleet(
     Returns an :class:`LOBPCGResult` whose fields carry a leading fleet axis
     (``warm_start`` too, which resumes the fleet).
     """
-    fleet = tree_leaves(data)[0].shape[0]
-    generator = _default_generator(generator)
+    leaf = tree_leaves(data)[0]
+    fleet = leaf.shape[0]
+    generator = _default_generator(generator, leaf)
 
     def per_instance(op):
         batched = torch.func.vmap(op)
@@ -594,7 +610,7 @@ def lobpcg_fleet(
             if m is None or nx is None:
                 raise ValueError("Either X0 or (m, nx) must be supplied")
             X0 = _randn((fleet, m, nx), generator, torch.get_default_dtype(),
-                        generator.device)
+                        leaf.device)
         m, nx = X0.shape[-2:]
         dtype, device = X0.dtype, X0.device
     _check(rr_method, m, nx, nev)

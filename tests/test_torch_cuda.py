@@ -251,15 +251,27 @@ def _gram_inputs(shape, dtype, dev, seed=3):
             for _ in range(3)]
 
 
+# k across the kernel's tile boundaries (16-column output tiles, 16-byte
+# rows at k % 4 == 0 in f32 and k % 8 == 0 in bf16), ragged m, and fleets of
+# sizes that do not divide the card's 132 SMs
+GRAM_CASES = [(1000, 48), (999, 30), (3, 777, 17), (200, F.GRAM_MAX_K),
+              (5, 1), (1, 1), (7, 8), (999, 16), (100_001, 17), (7, 48),
+              (100_001, 48), (999, 64), (1, 95), (7, 2000, 48),
+              (5, 999, 95), (13, 1000, 96)]
+
+
+@pytest.mark.parametrize("bs", ["distinct", "S"])
 @pytest.mark.parametrize("dtype", FUSED_DTYPES, ids=["f32", "bf16"])
-@pytest.mark.parametrize("shape", [(1000, 48), (999, 30), (3, 777, 17),
-                                   (200, F.GRAM_MAX_K), (5, 1)])
-def test_gram_pair_matches_plain_version(dev, dtype, shape):
+@pytest.mark.parametrize("shape", GRAM_CASES,
+                         ids=["x".join(map(str, c)) for c in GRAM_CASES])
+def test_gram_pair_matches_plain_version(dev, dtype, shape, bs):
     S, AS, BS = _gram_inputs(shape, dtype, dev)
+    if bs == "S":
+        BS = S          # the kernel reads S once
     before = F.gram_pair.launches
     ga, gb = F.gram_pair(S, AS, BS)
     assert F.gram_pair.launches == before + 1
-    ra, rb = F.gram_pair_reference(S, AS, BS)
+    ra, rb = F.gram_pair_reference(S, AS, BS.clone())
     k = shape[-1]
     assert ga.shape == shape[:-2] + (k, k) and ga.dtype == torch.float32
     Sd = S.double()
@@ -267,6 +279,12 @@ def test_gram_pair_matches_plain_version(dev, dtype, shape):
         terms = Sd.abs().mT @ X.double().abs()
         _assert_within(got, ref, 1e-5 * terms)
         _assert_within(got, Sd.mT @ X.double(), 1e-5 * terms)
+    if bs == "S":
+        # the S-once route against the three-array one on a copy of S
+        ca, cb = F.gram_pair(S, AS, S.clone())
+        terms = Sd.abs().mT @ Sd.abs()
+        _assert_within(gb, cb, 1e-5 * terms)
+        _assert_within(ga, ca, 1e-5 * (Sd.abs().mT @ AS.double().abs()))
     # bitwise repeat: fixed summation order, no atomics
     ga2, gb2 = F.gram_pair(S, AS, BS)
     assert torch.equal(ga, ga2) and torch.equal(gb, gb2)
@@ -283,6 +301,28 @@ def test_gram_pair_takes_S_twice_and_rejects(dev):
     x = torch.ones(10, 4, dtype=torch.float64, device=dev)
     with pytest.raises(ValueError, match="f32 or bf16"):
         F.gram_pair(x, x, x)
+
+
+def test_eigensolver_defaults_are_the_card(dev):
+    """With no X0 and no generator, lobpcg and its driver draw on the card
+    and solve there; the interop helpers put tensors on the card."""
+    import numpy as np
+
+    from optimization_tpu_torch.core.driver import drive_lobpcg
+    from optimization_tpu_torch.interop import tensor_from_numpy
+    from optimization_tpu_torch.linalg import lobpcg
+
+    m = 2000
+    d = torch.linspace(1.0, float(m), m, device=dev)
+    kw = dict(T=lambda S: S / d[:, None], m=m, nx=8, nev=4, tau=1e-4)
+    res = lobpcg(lambda S: d[:, None] * S, max_iterations=30, **kw)
+    assert res.X.device.type == "cuda" and res.X.dtype == torch.float32
+    assert int(res.num_converged) >= 4
+    chunked, _ = drive_lobpcg(lambda S: d[:, None] * S, max_iterations=30,
+                              chunk_iterations=2, **kw)
+    assert chunked.X.device.type == "cuda"
+    torch.testing.assert_close(chunked.theta, res.theta, rtol=1e-6, atol=0)
+    assert tensor_from_numpy(np.ones(3)).device.type == "cuda"
 
 
 def test_lobpcg_f32_on_card_launches_gram_pair(dev):

@@ -227,7 +227,7 @@ def test_jax_warm_start_resumes_in_port():
     kw = dict(nev=NEV, tau=1e-8)
     part = j_lobpcg(Aj, T=Tj, X0=jnp.asarray(X0), max_iterations=5, **kw)
     jmono = j_lobpcg(Aj, T=Tj, X0=jnp.asarray(X0), max_iterations=100, **kw)
-    ws = lobpcg_warm_start_from_jax(part.warm_start)
+    ws = lobpcg_warm_start_from_jax(part.warm_start, device="cpu")
     assert ws[0].dtype == torch.int32 and ws[1]["ok"].dtype == torch.bool
     res = t_lobpcg(At, T=Tt, X0=torch.from_numpy(X0), max_iterations=95,
                    warm_start=ws, **kw)

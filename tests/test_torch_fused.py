@@ -218,6 +218,17 @@ def test_gram_pair_matches_jax(m, k, kind):
                                      2e-6 * terms + 1e-30)
 
 
+@pytest.mark.parametrize("m,k", GRAM_SHAPES)
+def test_gram_pair_with_S_as_BS_is_the_plain_version(m, k):
+    """BS is S itself (LOBPCG without B, which the card's kernel reads once):
+    on a CPU tensor the wrapper gives what the plain version gives on
+    (S, AS, S.clone()), bit for bit."""
+    S, AS, _ = (torch.from_numpy(a) for a in _gram_inputs(m, k, "f32"))
+    ga, gb = T.gram_pair(S, AS, S)
+    ra, rb = T.gram_pair_reference(S, AS, S.clone())
+    assert torch.equal(ga, ra) and torch.equal(gb, rb)
+
+
 def test_gram_pair_fleet_is_per_instance():
     """A (F, m, k) fleet gives the per-instance Grams: each (k, k) slice
     equals the single-instance result (the same f32 products and sums)."""

@@ -343,14 +343,42 @@ def test_rr_breakdown_freezes_like_jax():
 
 def test_validation():
     A = lambda S: S
+    cpu = torch.Generator().manual_seed(0)
     with pytest.raises(ValueError):
-        t_lobpcg(A, m=N, nx=4, nev=5)
+        t_lobpcg(A, m=N, nx=4, nev=5, generator=cpu)
     with pytest.raises(ValueError):
-        t_lobpcg(A, m=3, nx=4, nev=2)
+        t_lobpcg(A, m=3, nx=4, nev=2, generator=cpu)
     with pytest.raises(ValueError):
-        t_lobpcg(A, m=10, nx=4, nev=2, rr_method="qr")
+        t_lobpcg(A, m=10, nx=4, nev=2, rr_method="qr", generator=cpu)
     with pytest.raises(ValueError):
-        t_lobpcg(A, nev=2)
+        t_lobpcg(A, nev=2, generator=cpu)
+
+
+def test_default_draws_are_on_the_card(monkeypatch):
+    """With neither X0 nor a generator the solve draws X0 on the card, so
+    with no CUDA device it raises instead of quietly solving on the CPU
+    (the drivers too).  The CPU is what a caller asks for: a CPU generator,
+    CPU X0, or CPU fleet data."""
+    from optimization_tpu_torch.core.driver import drive_lobpcg
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    d = torch.linspace(1.0, 50.0, 60, dtype=torch.float32)
+    A = lambda S: d[:, None] * S
+    kw = dict(m=60, nx=4, nev=2, max_iterations=3)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        t_lobpcg(A, **kw)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        drive_lobpcg(A, **kw)
+    asked = t_lobpcg(A, generator=torch.Generator().manual_seed(0), **kw)
+    assert asked.X.device.type == "cpu" and asked.X.shape == (60, 2)
+    # X0 on the CPU: the default generator follows it
+    x0 = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (60, 4)).astype(np.float32))
+    assert t_lobpcg(A, X0=x0, nev=2, max_iterations=3).X.device.type == "cpu"
+    # a fleet's default X0 follows its data
+    fl = t_lobpcg_fleet(lambda S, dd: dd[:, None] * S, d[None].expand(2, 60),
+                        **kw)
+    assert fl.X.device.type == "cpu" and fl.X.shape == (2, 60, 2)
 
 
 # ---------------------------------------------------------------------------
@@ -495,6 +523,7 @@ def test_fleet_warm_start_and_batched_gram(monkeypatch):
               generator=None)
     A = lambda S, d: d[:, None] * S
     mono = t_lobpcg_fleet(A, data, max_iterations=40, **kw)
+    assert mono.X.device.type == "cpu"      # the default follows the data
     n_mono = len(calls)
     assert n_mono == 1 + int(mono.num_iterations.max())
     a = t_lobpcg_fleet(A, data, max_iterations=3, **kw)

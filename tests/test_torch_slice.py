@@ -106,7 +106,8 @@ def test_f32_tier_first_steps_match_pallas_streamed():
                       params)
     run = headline.run_tier(headline.make_problem(N, torch.float32, "cpu",
                                                   "streamed"),
-                            tensor_from_numpy(x0), params_from_jax(params))
+                            tensor_from_numpy(x0, device="cpu"),
+                            params_from_jax(params))
     t = result_to_numpy(run.result)
     assert int(t.status) == int(jres.status)
     assert int(t.num_iterations) == int(jres.num_iterations) == 4
@@ -128,7 +129,8 @@ def test_headline_tiers_reach_the_jax_optimum(tier):
                       jnp.asarray(x0).astype(jdt), params)
     run = headline.run_tier(
         headline.make_problem(N, dtype, "cpu", engine),
-        tensor_from_numpy(jnp.asarray(x0).astype(jdt), dtype=dtype),
+        tensor_from_numpy(jnp.asarray(x0).astype(jdt), device="cpu",
+                          dtype=dtype),
         params_from_jax(params))
     assert run.result.x.dtype == dtype and run.result.x.shape == (N,)
     assert run.result.f.dtype == torch.float32
@@ -162,11 +164,12 @@ def test_interop_params_arrays_results():
         params_from_jax(object())
     # bf16 goes through f32 exactly
     vals = jnp.asarray(np.linspace(-3, 3, 101), jnp.bfloat16)
-    t = tensor_from_numpy(vals)
+    t = tensor_from_numpy(vals, device="cpu")
     assert t.dtype == torch.bfloat16
     np.testing.assert_array_equal(t.float().numpy(),
                                   np.asarray(vals, np.float32))
-    t64 = tensor_from_numpy(np.arange(4.0), dtype=torch.float32)
+    t64 = tensor_from_numpy(np.arange(4.0), device="cpu",
+                            dtype=torch.float32)
     assert t64.dtype == torch.float32
     res = ttnt.TNTResult(*([torch.ones(2, dtype=torch.bfloat16)] * 14))
     out = result_to_numpy(res)

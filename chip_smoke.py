@@ -14,7 +14,10 @@ non-zero exit and no result line:
    each build's seconds;
 3. kernel parity: ``stpcg_flat_streamed`` on the card against its plain
    PyTorch version on the same inputs, at n = 2^20 and a ragged n, over
-   storage dtype x body x init x Delta x fixture, plus a bitwise repeat;
+   storage dtype x body x init x Delta x fixture, then its preconditioned
+   variant over P (the shifted-Jacobi powers e = 1/2 and 1/4, a stored P
+   unrelated to the diagonal) x storage dtype x body x Delta, each plus a
+   bitwise repeat;
 4. main path: the headline TNT solve (``optimization_tpu_torch/headline.py``)
    at n = 2^24 in both tiers, the f32 tier through the kernel (its launch
    count checked against the subproblems solved), then the f32 tier again
@@ -46,7 +49,22 @@ non-zero exit and no result line:
    m = 1e4, "chol"; every instance converged and consistent); the
    gram_pair launches checked against 1 + iterations per solve; block it/s
    of fixed-iteration runs; host syncs per iteration;
-9. each streaming kernel's GB/s as a fraction of the measured ceiling, the
+9. config13 at full width (``benchmarks/config13_streamed_prec.py``:
+   n = 2^24, kappa = 1e5, P = (|2a - rq| + 1)^(-1/4), 30 outer / 100 CG):
+   the eager flat engine through ``flat_prec`` and the preconditioned
+   kernel through ``flat_solve``, gated on f*, inner and outer counts and
+   the kernel's launches; the kernel timed on one subproblem beside its
+   plain version and its bound; the kernel arm again through
+   ``drive(tnt, chunk_iterations=10)``;
+10. config12 at full width (``benchmarks/config12_escalation.py``: n = 2^24,
+   kappa = 1000, |grad| <= 1e-3): ``solve_escalated`` (bf16 to its floor,
+   then f32 to 1e-3, the kernel in both stages; its launches checked
+   against both stages' subproblems) beside pure f32 with
+   ``floor_acceptance``;
+11. least squares on the card: ``euclidean_tnls`` on the sinusoid fit of
+   tests/test_tnls.py with m = 2^24 samples in f32, noise from a seeded
+   generator on the card, gated on beta and |F|; host reads counted;
+12. each streaming kernel's GB/s as a fraction of the measured ceiling, the
    kernel table as one JSON line (each kernel's launches on its path, its
    error, its time, its plain version's, its bound and the library call's,
    null where no single PyTorch call computes the function), then the
@@ -60,6 +78,7 @@ type (67 TFLOP/s f32, 495 TF32, 989 bf16; NVIDIA's H100 SXM data sheet).
 """
 
 import collections
+import dataclasses
 import itertools
 import json
 import math
@@ -94,6 +113,50 @@ def card_label(torch):
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     return out, f"{torch.cuda.get_device_name(0)} @ {out.splitlines()[0]}"
+
+
+PREC_FORMS = ("jacobi", "quarter", "stored")
+
+
+def prec_of(torch, form, g, rq, diag):
+    """(prec_chunk, prec) on the fixture's diagonal: the shifted-Jacobi
+    power (|2a - rq| + 1)^(-e), e = 1/2 or 1/4, generated in the kernel, or
+    a stored P unrelated to a, (1 + (i mod 13)/4)^(-1/2) (the P of
+    tests/test_torch_streamed_cg.py): a kernel that generated p in place of
+    reading it would disagree."""
+    from optimization_tpu_torch.kernels.streamed_cg import JacobiPower
+
+    n, dev = g.shape[0], g.device
+    if form == "stored":
+        i = torch.arange(n, device=dev)
+        p = torch.rsqrt(1.0 + 0.25 * (i % 13).float())
+        return p, (lambda v: v * p)
+    desc = JacobiPower(1.0, 0.5 if form == "jacobi" else 0.25)
+    return desc, desc.map(diag, rq, n, dev)
+
+
+def permuted_plain(torch, args, kwargs, diag):
+    """The plain version on the same subproblem with its indices permuted
+    (a stored diagonal and a stored P of the same values): the same
+    mathematics, its sums in another order.  Returns its iteration count
+    and its step, unpermuted."""
+    from optimization_tpu_torch.kernels.streamed_cg import (
+        sphere_rayleigh_streamed, stpcg_flat_streamed_reference)
+
+    g, x, B, Delta, aux = args
+    n, dev = g.shape[0], g.device
+    perm = torch.randperm(n, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(1))
+    a0c, weights, _ = sphere_rayleigh_streamed(
+        diag.values(n, dev)[perm].contiguous())
+    p = kwargs["prec_chunk"][perm].contiguous()
+    res = stpcg_flat_streamed_reference(
+        g[perm].contiguous(), x[perm].contiguous(), B, Delta, aux,
+        **dict(kwargs, a0_chunk=a0c, weights=weights, prec_chunk=p,
+               prec=lambda v: v * p))
+    s = torch.empty_like(res.s)
+    s[perm] = res.s
+    return int(res.num_iterations), s
 
 
 def fixture(torch, kind, n, dtype, dev):
@@ -137,39 +200,42 @@ def init_group(torch, g, x, B, rq, diag):
     return flat_init_dots(g, A0, U, B)
 
 
-def check_parity(torch, res, ref, dtype, label):
-    """Kernel vs plain version, at the tolerances of tests/test_streamed_cg.py.
+def check_parity(torch, res, ref, dtype, label, dit=None):
+    """Kernel vs plain version, at the tolerances of tests/test_streamed_cg.py
+    with the step held norm to norm, |s - s_ref| <= tol |s_ref| (2-norms;
+    the worst case measured on the card is 7.5e-5 in f32, 1.7e-4 in bf16).
     f32, both runs within SHORT iterations (test_matches_flat_engine): equal
-    counts, s within 3e-5 |s|, M-norm rtol 2e-5, predicted decrease rtol
-    2e-3 (Delta = 1e6 assembles it from ~1e12-scale cancellations).  f32,
-    longer runs (test_interior_multi_iteration_parity): the M-norm and the
-    model value are scalar recurrences whose f32 rounding grows with the
-    count, and the two runs sum in other orders, so CG may stop one step
-    apart at the truncation threshold: counts within 1, s within 2e-3 |s|,
+    counts, s within 3e-5, M-norm rtol 2e-5, predicted decrease rtol 2e-3
+    (Delta = 1e6 assembles it from ~1e12-scale cancellations).  f32, longer
+    runs (test_interior_multi_iteration_parity): the M-norm and the model
+    value are scalar recurrences whose f32 rounding grows with the count,
+    and the two runs sum in other orders, so CG may stop one step apart at
+    the truncation threshold: counts within 1 (or ``dit``), s within 2e-3,
     M-norm and predicted decrease rtol 1e-3.  bf16 storage
-    (test_bf16_storage_parity): counts within 3, s within 3e-2 |s|, M-norm
-    rtol 3e-2.  Returns max |s - s_ref|."""
+    (test_bf16_storage_parity): counts within 3, s within 3e-2, M-norm rtol
+    3e-2.  Returns max |s - s_ref|."""
     ki, kr = int(res.num_iterations), int(ref.num_iterations)
     s, s_ref = res.s.float(), ref.s.float()
     scale = max(float(torch.linalg.vector_norm(s_ref)), 1e-9)
     err = float((s - s_ref).abs().max())
+    rel = float(torch.linalg.vector_norm(s - s_ref)) / scale
     mn, mn_ref = float(res.update_step_M_norm), float(ref.update_step_M_norm)
     pd, pd_ref = float(res.predicted_decrease), float(ref.predicted_decrease)
     if dtype == torch.bfloat16:
-        ok = (abs(ki - kr) <= 3 and err <= 3e-2 * scale
+        ok = (abs(ki - kr) <= 3 and rel <= 3e-2
               and abs(mn - mn_ref) <= 3e-2 * abs(mn_ref))
-    elif max(ki, kr) <= SHORT:
-        ok = (ki == kr and err <= 3e-5 * scale
+    elif max(ki, kr) <= SHORT and dit is None:
+        ok = (ki == kr and rel <= 3e-5
               and abs(mn - mn_ref) <= 2e-5 * abs(mn_ref)
               and abs(pd - pd_ref) <= 2e-3 * abs(pd_ref) + 1e-8)
     else:
-        ok = (abs(ki - kr) <= 1 and err <= 2e-3 * scale
+        ok = (abs(ki - kr) <= (dit or 1) and rel <= 2e-3
               and abs(mn - mn_ref) <= 1e-3 * abs(mn_ref)
               and abs(pd - pd_ref) <= 1e-3 * abs(pd_ref))
-    ok = ok and math.isfinite(err)
+    ok = ok and math.isfinite(err) and math.isfinite(rel)
     print(f"  {'ok  ' if ok else 'FAIL'} {label}: it {ki}/{kr} "
-          f"|ds|max/|s| {err / scale:.2e} M-norm {mn:.6g}/{mn_ref:.6g} "
-          f"dm {pd:.6g}/{pd_ref:.6g}", flush=True)
+          f"|ds|/|s| {rel:.2e} (max|ds|/|s| {err / scale:.2e}) M-norm "
+          f"{mn:.6g}/{mn_ref:.6g} dm {pd:.6g}/{pd_ref:.6g}", flush=True)
     if not ok:
         raise AssertionError(f"kernel disagrees with its plain version: "
                              f"{label}")
@@ -218,7 +284,59 @@ def parity_phase(torch, dev):
           f"(it {int(r1.num_iterations)})", flush=True)
     if not same:
         raise AssertionError("two runs of one subproblem differ")
-    print(f"phase 3: {cases} cases + bitwise repeat passed", flush=True)
+
+    # the preconditioned variant: P folded in (ghat = p g, a0hat = p^2 a0,
+    # uhat = p u), same tolerances (the kernel's round-to-nearest rsqrt and
+    # torch.rsqrt may differ in the last bit of p: inside them).  The
+    # stored P, unrelated to a, conditions P H P worse: CG runs ~50
+    # iterations and stops where |r| creeps past the truncation target, so
+    # the order of the sums alone moves the count.  The plain version on the
+    # same problem with its indices permuted shows by how much (2 at
+    # n = 2^20 and 999,999 on the card); the kernel's count is held within
+    # 3, its step and M-norm at the long-run tolerances.
+    for n, dtype, form, body in itertools.product(
+            N_PARITY, (torch.float32, torch.bfloat16), PREC_FORMS,
+            ("pair", "single")):
+        g, x, B, rq, diag, kw = fixture(torch, "pd", n, dtype, dev)
+        a0c, weights, _ = sphere_rayleigh_streamed(diag)
+        pc, pmap = prec_of(torch, form, g, rq, diag)
+        deltas = ((1e6, 0.5, 0.02) if dtype == torch.float32
+                  else (1.0, 0.5, 0.02))
+        for Delta in deltas:
+            args = (g, x, B, Delta, (rq,))
+            kwargs = dict(a0_chunk=a0c, weights=weights, body_kind=body,
+                          prec_chunk=pc, prec=pmap, **kw)
+            res = stpcg_flat_streamed(*args, **kwargs)
+            ref = stpcg_flat_streamed_reference(*args, **kwargs)
+            torch.cuda.synchronize()
+            label = (f"prec {form} n={n} {str(dtype)[6:]} {body} "
+                     f"Delta={Delta:g}")
+            stored = form == "stored"
+            check_parity(torch, res, ref, dtype, label,
+                         dit=3 if stored else None)
+            if stored and dtype == torch.float32 and Delta == 1e6:
+                kp, sp = permuted_plain(torch, args, kwargs, diag)
+                norm = torch.linalg.vector_norm
+                print(f"       the plain version permuted: it {kp}/"
+                      f"{int(ref.num_iterations)}, |ds|/|s| "
+                      f"{float(norm(sp - ref.s) / norm(ref.s)):.2e}",
+                      flush=True)
+            cases += 1
+    g, x, B, rq, diag, kw = fixture(torch, "pd", N_PARITY[0], torch.float32,
+                                    dev)
+    a0c, weights, _ = sphere_rayleigh_streamed(diag)
+    pc, pmap = prec_of(torch, "quarter", g, rq, diag)
+    r1, r2 = (stpcg_flat_streamed(g, x, B, 1e6, (rq,), a0_chunk=a0c,
+                                  weights=weights, prec_chunk=pc, prec=pmap,
+                                  **kw) for _ in range(2))
+    same = (torch.equal(r1.s, r2.s)
+            and all(torch.equal(u, v) for u, v in zip(r1[1:], r2[1:])))
+    print(f"  {'ok  ' if same else 'FAIL'} bitwise repeat, preconditioned "
+          f"(it {int(r1.num_iterations)})", flush=True)
+    if not same:
+        raise AssertionError("two runs of one preconditioned subproblem "
+                             "differ")
+    print(f"phase 3: {cases} cases + 2 bitwise repeats passed", flush=True)
 
 
 def time_ms(torch, fn, reps):
@@ -261,7 +379,7 @@ def main_path_phase(torch, dev, label):
     print(f"phase 4: headline TNT at n = 2^24 [{label}]", flush=True)
     n = N_MAIN
     f32_params = H.tier_params(1e-5)
-    prob = H.make_problem(n, torch.float32, dev, "streamed")
+    prob = H.make_problem(n, dev, "streamed")
 
     # the kernel at the main path's shape: the subproblem the f32 tier
     # solves at its 11th outer iteration (the first ones exit on negative
@@ -293,7 +411,7 @@ def main_path_phase(torch, dev, label):
           f"[{label}]", flush=True)
 
     # warm-up of the bf16 tier (the f32 tier's ran above)
-    H.run_tier(H.make_problem(n, torch.bfloat16, dev, "flat"),
+    H.run_tier(H.make_problem(n, dev, "flat"),
                H.initial_point(n, torch.bfloat16, dev, 2),
                H.tier_params(0.0, max_iterations=1))
 
@@ -301,7 +419,7 @@ def main_path_phase(torch, dev, label):
     stpcg_flat_streamed.launches = 0
     f32 = H.run_tier(prob, x0, f32_params)
     launches = stpcg_flat_streamed.launches
-    bf16 = H.run_tier(H.make_problem(n, torch.bfloat16, dev, "flat"),
+    bf16 = H.run_tier(H.make_problem(n, dev, "flat"),
                       H.initial_point(n, torch.bfloat16, dev, 3),
                       H.tier_params(0.0))
     launches_total = stpcg_flat_streamed.launches
@@ -329,8 +447,7 @@ def main_path_phase(torch, dev, label):
                 and abs(nx - 1.0) < 1e-2):
             raise AssertionError(f"{name} tier: f* = {t.fstar}, |x| = {nx}")
 
-    ref_run = H.run_tier(H.make_problem(n, torch.float32, dev,
-                                        "streamed_reference"),
+    ref_run = H.run_tier(H.make_problem(n, dev, "streamed_reference"),
                          x0, f32_params)
     print(f"  tier f32 (plain version): {ref_run.outer} outer / "
           f"{ref_run.inner} CG in {ref_run.seconds:.3f} s = "
@@ -813,13 +930,6 @@ def lobpcg_phase(torch, dev, label):
                       X0=X0, nev=nev, max_iterations=max_iterations,
                       tau=tau, generator=gen, rr_method=rr)
 
-    def timed(fn):
-        torch.cuda.synchronize(dev)
-        t0 = time.perf_counter()
-        res = fn()
-        torch.cuda.synchronize(dev)
-        return res, time.perf_counter() - t0
-
     fleet, mf = 16, 10_000
     ds = (torch.arange(1.0, fleet + 1.0, device=dev)[:, None]
           * torch.linspace(1.0, mf / 10.0, mf, device=dev)[None, :])
@@ -840,7 +950,8 @@ def lobpcg_phase(torch, dev, label):
     F.gram_pair.launches = 0
     runs, expected = {}, 0
     for rr in ("eigh", "chol"):
-        res, secs = timed(lambda: config3(torch.float32, rr, 100, 1e-4))
+        res, secs = timed_solve(
+            torch, dev, lambda: config3(torch.float32, rr, 100, 1e-4))
         expected += 1 + int(res.num_iterations)
         runs[rr] = res
         err = float((res.theta.double().cpu() - truth).abs().max())
@@ -856,7 +967,8 @@ def lobpcg_phase(torch, dev, label):
     if F.gram_pair.launches != expected:
         raise AssertionError(f"gram_pair launches {F.gram_pair.launches} != "
                              f"{expected} (1 + iterations per solve)")
-    f64, secs = timed(lambda: config3(torch.float64, "eigh", 100, 1e-4))
+    f64, secs = timed_solve(
+        torch, dev, lambda: config3(torch.float64, "eigh", 100, 1e-4))
     if F.gram_pair.launches != expected:
         raise AssertionError("the f64 route launched gram_pair")
     gap = float((runs["eigh"].theta.double() - f64.theta).abs().max())
@@ -868,7 +980,7 @@ def lobpcg_phase(torch, dev, label):
         raise AssertionError("config3: the f32 route disagrees with f64")
 
     before = F.gram_pair.launches
-    fl, secs = timed(lambda: config10(100, 1e-4))
+    fl, secs = timed_solve(torch, dev, lambda: config10(100, 1e-4))
     fleet_launches = F.gram_pair.launches - before
     launches = F.gram_pair.launches
     # ---- end of the path's gram_pair runs ----
@@ -895,13 +1007,14 @@ def lobpcg_phase(torch, dev, label):
     # sustained block it/s, convergence test disarmed
     K = 50
     for rr, k in (("eigh", K), ("chol", K), ("chol_warm", 10)):
-        res, secs = timed(lambda: config3(torch.float32, rr, k, 1e-30))
+        res, secs = timed_solve(
+            torch, dev, lambda: config3(torch.float32, rr, k, 1e-30))
         if int(res.num_iterations) != k:
             raise AssertionError(f"config3 {rr}: {int(res.num_iterations)} "
                                  f"of {k} fixed iterations")
         print(f"  config3 f32 {rr}: {k} fixed iterations in {secs:.3f} s = "
               f"{k / secs:.1f} block it/s [{label}]", flush=True)
-    res, secs = timed(lambda: config10(K, 1e-30))
+    res, secs = timed_solve(torch, dev, lambda: config10(K, 1e-30))
     print(f"  config10 fleet f32 chol: {K} lockstep iterations in "
           f"{secs:.3f} s = {K / secs:.1f} lockstep it/s = "
           f"{fleet * K / secs:.1f} aggregate block it/s [{label}]",
@@ -934,6 +1047,264 @@ def lobpcg_phase(torch, dev, label):
         print(f"  host syncs per iteration, {name}: "
               f"{sum(per.values()) / 10:g} ({sites})", flush=True)
     return launches
+
+
+def timed_solve(torch, dev, fn):
+    """(result, seconds) of fn(), the clock closed after the device."""
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize(dev)
+    return res, time.perf_counter() - t0
+
+
+def counts(res):
+    """(outer, inner) iterations of a TNT result."""
+    outer = int(res.num_iterations)
+    return outer, int(res.inner_iterations[:outer].sum())
+
+
+def config13_phase(torch, dev, label):
+    """Phase 9: the preconditioned solve of config13 at full width, the
+    eager flat engine (arm a) against the preconditioned kernel (arm b),
+    then arm b through the host driver.  Returns the kernel's entry of the
+    kernels line and its GB/s."""
+    from optimization_tpu_torch import headline as H
+    from optimization_tpu_torch.core.driver import drive
+    from optimization_tpu_torch.core.types import TNTStatus
+    from optimization_tpu_torch.kernels.streamed_cg import (
+        AffineDiagonal, JacobiPower, sphere_rayleigh_streamed,
+        stpcg_flat_streamed, stpcg_flat_streamed_reference)
+    from optimization_tpu_torch.solvers import tnt
+    from optimization_tpu_torch.solvers.tnt import TNTParams
+
+    n, kappa, e = N_MAIN, 1e5, 0.25
+    print(f"phase 9: config13, n = 2^24, kappa = {kappa:g}, P = (|2a - rq| "
+          f"+ 1)^(-1/4), 30 outer / 100 CG [{label}]", flush=True)
+    params = TNTParams(max_iterations=30, max_TPCG_iterations=100,
+                       gradient_tolerance=1e-6,
+                       relative_decrease_tolerance=0.0,
+                       stepsize_tolerance=0.0,
+                       preconditioned_gradient_tolerance=0.0)
+    arms = {name: H.make_problem(n, dev, engine, kappa=kappa,
+                                 jacobi_power=e)
+            for name, engine in (("a", "flat"), ("b", "streamed"))}
+    x0 = H.initial_point(n, torch.float32, dev, 3)
+    for prob in arms.values():            # warm-up: first launches
+        tnt.solve(prob, H.initial_point(n, torch.float32, dev, 2),
+                  dataclasses.replace(params, max_iterations=1))
+
+    ra, secs_a = timed_solve(torch, dev,
+                             lambda: tnt.solve(arms["a"], x0, params))
+    # ---- the preconditioned kernel's main-path run: its count starts at
+    # 0 here ----
+    stpcg_flat_streamed.launches = 0
+    rb, secs_b = timed_solve(torch, dev,
+                             lambda: tnt.solve(arms["b"], x0, params))
+    launches = stpcg_flat_streamed.launches
+    # ---- end of the run ----
+    (oa, ia), (ob, ib) = counts(ra), counts(rb)
+    fa, fb = float(ra.f), float(rb.f)
+    for name, res, outer, inner, secs in (
+            ("(a) flat engine, flat_prec", ra, oa, ia, secs_a),
+            ("(b) preconditioned kernel, flat_solve", rb, ob, ib, secs_b)):
+        print(f"  {name}: {outer} outer / {inner} CG in {secs:.3f} s = "
+              f"{inner / secs:.0f} CG it/s, f* = {float(res.f):.7f}, "
+              f"|g| = {float(res.gradfx_norm):.3e}, "
+              f"{TNTStatus(int(res.status)).name} [{label}]", flush=True)
+    subproblems = ob - int(int(rb.status) in (
+        TNTStatus.GRADIENT, TNTStatus.PRECONDITIONED_GRADIENT))
+    # f* = 1 (the least a(i)) and the arms end ~3e-4 above it, so config13's
+    # own 1e-3 relative gate would pass any f* in [0.999, 1.001]: the arms
+    # are held to 1e-2 of their excess over the optimum (~3e-6, ~25 f32
+    # ulps at 1; the card's runs differ by one ulp)
+    if not (fa > 1.0 and abs(fa - fb) <= 1e-2 * (fa - 1.0)
+            and abs(ia - ib) <= 0.1 * max(ia, ib) and oa == ob
+            and launches == subproblems and math.isfinite(fb)
+            and bool(torch.isfinite(rb.x).all())):
+        raise AssertionError(f"config13: f* {fa}/{fb}, CG {ia}/{ib}, outer "
+                             f"{oa}/{ob}, launches {launches} for "
+                             f"{subproblems} subproblems")
+    print(f"  gates passed: |fa - fb| = {abs(fa - fb):.3e} within 1e-2 of "
+          f"f* - 1 = {fa - 1.0:.4e}, CG within 10%, outer equal, kernel "
+          f"launches {launches} = subproblems", flush=True)
+
+    chunked, secs_c = timed_solve(torch, dev, lambda: drive(
+        tnt, arms["b"], x0, params, chunk_iterations=10))
+    oc, ic = counts(chunked)
+    fc = float(chunked.f)
+    same = torch.equal(chunked.x, rb.x)
+    print(f"  (b) through drive(chunk_iterations=10): {oc} outer / {ic} CG "
+          f"in {secs_c:.3f} s, f* = {fc:.7f}, x bitwise equal to the "
+          f"monolithic solve's: {same} [{label}]", flush=True)
+    # the chunks resume through tnt.solve(warm_start=): the same iterates
+    if not (oc == ob and ic == ib and fc == fb and same):
+        raise AssertionError("config13: the chunked drive disagrees with "
+                             "the monolithic solve")
+
+    # the kernel on one subproblem of the path: the longest one of arm (b)
+    k_mid = int(torch.argmax(rb.inner_iterations[:ob]))
+    mid = tnt.solve(arms["b"], x0,
+                    dataclasses.replace(params, max_iterations=k_mid))
+    x, _, g, _, aux = arms["b"].step_eval(mid.x, torch.zeros_like(x0), None)
+    Delta = mid.trust_region_radius[k_mid]
+    diag = AffineDiagonal(1.0, (kappa - 1.0) / (n - 1))
+    a0c, weights, B_fn = sphere_rayleigh_streamed(diag)
+    desc = JacobiPower(1.0, e)
+    kw = dict(a0_chunk=a0c, weights=weights, max_iterations=100,
+              kappa_fgr=0.1, theta=0.5, prec_chunk=desc,
+              prec=desc.map(diag, aux.rq, n, dev))
+    args = (g, x, B_fn(aux.rq), Delta, (aux.rq,))
+    res = stpcg_flat_streamed(*args, **kw)
+    ref = stpcg_flat_streamed_reference(*args, **kw)
+    err = check_parity(torch, res, ref, torch.float32,
+                       f"config13 subproblem n=2^24 f32 (outer {k_mid + 1})")
+    its = int(res.num_iterations)
+    ms = time_ms(torch, lambda: stpcg_flat_streamed(*args, **kw), 10)
+    plain_ms = time_ms(torch,
+                       lambda: stpcg_flat_streamed_reference(*args, **kw), 3)
+    # 6n words a CG iteration, the init pass's read of g and x and the
+    # un-transform's read and write of s; ~30 f32 operations an element an
+    # iteration (the operator, p, the dots, the updates)
+    words = (6 * its + 4) * n
+    bound_ms, bound_by = bound(words * 4, 30.0 * n * its)
+    gbs = words * 4 / ms / 1e6
+    print(f"  preconditioned subproblem ({its} CG it): kernel {ms:.3f} ms "
+          f"= {ms / max(its, 1):.4f} ms a CG iteration ({its / ms * 1e3:.0f} "
+          f"CG it/s, ~{gbs:.0f} GB/s at (6 its + 4) n words), plain "
+          f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+          f"{bound_ms / ms:.3f} of it [{label}]", flush=True)
+    return {"name": "stpcg_flat_streamed[prec]", "route": "cuda",
+            "source": "optimization_tpu_torch/csrc/streamed_cg.cu",
+            "replaces": "optimization_tpu/kernels/streamed_cg.py:125",
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}, gbs
+
+
+ESCALATION_SEED = 2      # profile_escalation.py: why not seed 3
+
+
+def config12_phase(torch, dev, label):
+    """Phase 10: dtype escalation at full width, the kernel in both
+    stages, beside pure f32 with floor acceptance.  From seed 2's start the
+    bf16 stage stops at its floor (trust-region collapse) above the
+    tolerance, so the f32 stage has to finish the solve: the zero-tangent
+    retraction, floor acceptance and the f32 kernel all do work, and the
+    gates check that they did.  (From seed 3's start the bf16 stage reaches
+    the tolerance by itself, and the f32 stage, whose |grad| falls slowly
+    here with every subproblem at its 100-CG cap, cannot finish from any
+    earlier handoff ``profile_escalation.py`` tries.)"""
+    from optimization_tpu_torch import headline as H
+    from optimization_tpu_torch.core.types import TNTStatus
+    from optimization_tpu_torch.kernels.streamed_cg import stpcg_flat_streamed
+    from optimization_tpu_torch.solvers import tnt
+    from optimization_tpu_torch.solvers.tnt import TNTParams
+
+    n, tol = N_MAIN, 1e-3
+    print(f"phase 10: config12, n = 2^24, kappa = 1000, |grad| <= {tol:g}: "
+          f"solve_escalated (bf16 to its floor, then f32, the kernel in both "
+          f"stages) and pure f32, seed {ESCALATION_SEED} [{label}]",
+          flush=True)
+    prob = H.make_problem(n, dev, "streamed")
+    params = TNTParams(max_iterations=400, max_TPCG_iterations=100,
+                       gradient_tolerance=tol,
+                       relative_decrease_tolerance=0.0,
+                       stepsize_tolerance=0.0,
+                       preconditioned_gradient_tolerance=0.0)
+    x0 = H.initial_point(n, torch.float32, dev, ESCALATION_SEED)
+    # ---- the escalation's kernel runs: the count starts at 0 here ----
+    stpcg_flat_streamed.launches = 0
+    esc, secs_e = timed_solve(torch, dev, lambda: tnt.solve_escalated(
+        prob, x0, params))
+    launches = stpcg_flat_streamed.launches
+    # ---- end of the escalation's kernel runs ----
+    pure, secs_p = timed_solve(torch, dev, lambda: tnt.solve(
+        prob, x0, dataclasses.replace(params, floor_acceptance=True)))
+    g_esc = float(torch.linalg.vector_norm(prob.rgrad(esc.x)))
+    g_pure = float(torch.linalg.vector_norm(prob.rgrad(pure.x)))
+    (o1, i1), (o2, i2), (op, ip) = (counts(esc.stage_low),
+                                    counts(esc.stage_high), counts(pure))
+    converged = (TNTStatus.GRADIENT, TNTStatus.PRECONDITIONED_GRADIENT)
+    sub_low = o1 - int(int(esc.stage_low.status) in converged)
+    sub_high = o2 - int(int(esc.stage_high.status) in converged)
+    print(f"  escalated: {secs_e:.3f} s, switch at outer "
+          f"{int(esc.switch_iteration)}; bf16 stage {o1} outer / {i1} CG "
+          f"({TNTStatus(int(esc.stage_low.status)).name}, |grad| "
+          f"{float(esc.stage_low.gradfx_norm):.3e}), f32 stage {o2} outer / "
+          f"{i2} CG; kernel launches {launches} = {sub_low} + {sub_high} "
+          f"subproblems; f* = {float(esc.f):.7f}, |grad| = {g_esc:.3e} "
+          f"(problem.rgrad), {TNTStatus(int(esc.status)).name} [{label}]",
+          flush=True)
+    print(f"  pure f32 (floor_acceptance): {secs_p:.3f} s, {op} outer / {ip} "
+          f"CG, f* = {float(pure.f):.7f}, |grad| = {g_pure:.3e}, "
+          f"{TNTStatus(int(pure.status)).name}; wall ratio pure / escalated "
+          f"{secs_p / secs_e:.3f} [{label}]", flush=True)
+    if not (int(esc.status) == TNTStatus.GRADIENT and g_esc <= tol
+            and int(esc.switch_iteration) > 0
+            and esc.stage_low.x.dtype == torch.bfloat16
+            and esc.x.dtype == torch.float32
+            and float(esc.stage_low.gradfx_norm) > tol
+            and sub_high > 0 and i2 > 0
+            and launches == sub_low + sub_high):
+        raise AssertionError("config12: the escalated solve failed its gate")
+    print("  gates passed: GRADIENT, |grad| <= 1e-3 re-verified, switch > 0, "
+          "the f32 stage took over above the tolerance and launched the "
+          "kernel for each of its subproblems", flush=True)
+
+
+def least_squares_phase(torch, dev, label):
+    """Phase 11: TNLS (LSQR subproblems, Jacobian pair from torch.func) on
+    the sinusoid fit at m = 2^24 samples, f32, on the card."""
+    import warnings
+
+    from optimization_tpu_torch import euclidean_tnls
+    from optimization_tpu_torch.core.types import TNLSStatus
+    from optimization_tpu_torch.solvers.tnls import TNLSParams
+
+    m = 1 << 24
+    omega, phi = math.pi / 2, math.pi / 4
+    print(f"phase 11: euclidean_tnls, sin(w x + p) fit, m = 2^24 f32, noise "
+          f"0.1 U(-1, 1) [{label}]", flush=True)
+    xs = torch.linspace(-math.pi, math.pi, m, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    z = 0.1 * (2.0 * torch.rand(m, generator=gen, device=dev) - 1.0)
+    y = torch.sin(omega * xs + phi) + z
+    residual = lambda b, d: d - torch.sin(b[0] * xs + b[1])
+    params = TNLSParams(max_iterations=30, relative_decrease_tolerance=0.0,
+                        gradient_tolerance=1e-6, stepsize_tolerance=0.0,
+                        Delta_tolerance=1e-10)
+    beta0 = torch.ones(2, device=dev)
+    euclidean_tnls(residual, beta0, dataclasses.replace(
+        params, max_iterations=1), data=y)            # warm-up
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            res, secs = timed_solve(torch, dev, lambda: euclidean_tnls(
+                residual, beta0, params, data=y))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    reads = sum("synchroniz" in str(w.message) for w in caught)
+    outer = int(res.num_iterations)
+    lsqr_its = int(res.inner_iterations[:outer].sum())
+    err = float((res.x.double().cpu()
+                 - torch.tensor([omega, phi], dtype=torch.float64))
+                .abs().max())
+    # the fit beats the planted signal by |z|^2 - |F|^2 ~ 7e-3 (the
+    # noise's part in the two Jacobian columns): ~1.4e-5 of |F| ~ 236, the
+    # size of an f32 norm's rounding, so both norms sum in f64
+    F = float(torch.linalg.vector_norm(residual(res.x, y).double()))
+    z_norm = float(torch.linalg.vector_norm(z.double()))
+    print(f"  {outer} outer / {lsqr_its} LSQR iterations in {secs:.3f} s, "
+          f"{TNLSStatus(int(res.status)).name}, |beta - (pi/2, pi/4)| "
+          f"{err:.3e}, |F| {F:.6f} < |z| {z_norm:.6f}, |gradL| "
+          f"{float(res.gradfx_norm):.3e}; host reads {reads} "
+          f"({reads / max(outer + lsqr_its, 1):.2f} per outer + LSQR "
+          f"iteration) [{label}]", flush=True)
+    if not (err <= 1e-3 and F < z_norm and res.x.device.type == "cuda"):
+        raise AssertionError("least squares: the gate failed")
+    print("  gates passed: |beta - truth| <= 1e-3, |F| < |z|", flush=True)
 
 
 def ceiling_summary(ceiling, rates, label):
@@ -983,8 +1354,12 @@ def main():
     errs7, times7, ceiling, stream3_launches = gram_stream3_phase(
         torch, dev, label)
     gram_launches = lobpcg_phase(torch, dev, label)
-    ceiling_summary(ceiling, {"stpcg_flat_streamed": streamed_gbs, **rates},
-                    label)
+    prec_kernel, prec_gbs = config13_phase(torch, dev, label)
+    config12_phase(torch, dev, label)
+    least_squares_phase(torch, dev, label)
+    ceiling_summary(ceiling, {"stpcg_flat_streamed": streamed_gbs,
+                              "stpcg_flat_streamed[prec]": prec_gbs,
+                              **rates}, label)
 
     launches = {"gram_pair": gram_launches, "stream3_probe": stream3_launches}
     new_kernels = [{
@@ -994,7 +1369,8 @@ def main():
         "launches": launches[name], "max_abs_err": errs7[name],
         **times7[name]}
         for name in ("gram_pair", "stream3_probe")]
-    print(json.dumps({"kernels": [kernel] + fused_kernels + new_kernels}))
+    print(json.dumps({"kernels": [kernel] + fused_kernels + new_kernels
+                      + [prec_kernel]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -11,18 +11,21 @@ NamedTuples with NaN-padded traces, statuses are int enums.
 The port so far covers the headline path (``headline.py``): Riemannian TNT
 minimizing the Rayleigh quotient on the sphere, with the trust-region
 subproblem in the hand-written CUDA kernel ``csrc/streamed_cg.cu`` (f32
-tier, through ``RiemannianProblem.flat_solve``) or the flat pair engine
-(bf16 tier, through ``flat_qm``); the Euclidean entry points
+tier, through ``RiemannianProblem.flat_solve``, optionally with a folded
+elementwise preconditioner) or the flat pair engine (bf16 tier, through
+``flat_qm``; ``flat_prec`` folds a preconditioner), and dtype escalation
+(``solvers.tnt.solve_escalated``); the Euclidean entry points
 ``euclidean_tnt`` (generic STPCG, with ``fused_dots=True`` on the fused
-reduction kernels of ``csrc/fused.cu``) and ``euclidean_gradient_descent``;
-and the eigensolvers ``linalg.lobpcg`` / ``linalg.lobpcg_fleet`` (their Gram
-stage in the ``gram_pair`` kernel of ``csrc/fused.cu``), ``linalg.jacobi_eigh``
-and the host-chunked drivers ``core.driver.drive_lobpcg`` /
-``drive_lobpcg_fleet``.
+reduction kernels of ``csrc/fused.cu``), ``euclidean_gradient_descent`` and
+``euclidean_tnls`` (least squares: ``linalg.lsqr``, ``solvers.tnls``,
+``LeastSquaresProblem``); the eigensolvers ``linalg.lobpcg`` /
+``linalg.lobpcg_fleet`` (their Gram stage in the ``gram_pair`` kernel of
+``csrc/fused.cu``) and ``linalg.jacobi_eigh``; and the host-chunked
+drivers ``core.driver.drive`` / ``drive_lobpcg`` / ``drive_lobpcg_fleet``.
 """
 
 from . import core, kernels, linalg, manifolds, solvers
-from .core.problem import RiemannianProblem
+from .core.problem import LeastSquaresProblem, RiemannianProblem
 from .core.types import (ADMMStatus, GradientDescentStatus,
                          ProximalGradientStatus, TNLSStatus, TNTStatus)
 from .solvers.euclidean import (euclidean_gradient_descent, euclidean_tnls,

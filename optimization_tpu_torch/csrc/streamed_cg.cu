@@ -15,6 +15,18 @@
 // kernel-of-H escape with descent alignment, and the truncation target
 // |r_k| <= |r_0| min(kappa, |r_0|^theta).
 //
+// Optional elementwise preconditioner P = M^(-1/2) (the Pallas kernel's
+// prec_chunk folding, :110-138 and :206-209): the symmetric change of
+// variables s = P shat runs in registers -- ghat = p g in the init pass,
+// A0hat = p^2 a0, Uhat = (p x, p 2a x) in every pass -- so the trust region
+// and the reported step norm are |s|_M and the truncation runs in
+// |r|_(M^-1).  p is either the shifted-Jacobi power
+// (|2a - aux0| + c)^(-1/2) or ^(-1/4), regenerated in registers (no bytes;
+// round-to-nearest __frsqrt_rn / __fsqrt_rn, the quarter power as
+// rsqrt(sqrt(d)) as the JAX package computes it), or a stored f32 vector
+// (one more read per pass).  The kernel un-transforms its own output,
+// s = p shat, in a tail pass over s (2n words, no extra launch).
+//
 // What bounds it: device-memory bytes.  Per CG iteration the pair body
 // moves 5n words on deferring halves (read r, p, x; write r, p) and 7n on
 // applying halves (+ read and write s), 6n on average: about 0.4 GB per
@@ -23,7 +35,9 @@
 // (q = Hp and the U columns are recomputed in registers, the diagonal is
 // regenerated, never read), 16-byte vector loads, and keeping the whole CG
 // loop inside one persistent cooperative launch, so no host round trip or
-// kernel boundary sits between iterations.
+// kernel boundary sits between iterations.  A generated preconditioner adds
+// no bytes (plus 2n for the un-transform tail, once per subproblem); a
+// stored one adds n words per pass.
 //
 // Structure: a persistent cooperative grid (co-resident blocks only) walks
 // the vectors with grid-stride loops.  Each half reduces its per-thread f32
@@ -54,10 +68,18 @@ constexpr int kWarps = kThreads / 32;
 // Widest reduction group: the init pass (rv, ar, nr, m[2], mA[2], UU upper).
 constexpr int kNacc = 10;
 
+// The preconditioner's form (template parameter PK of the kernel).
+constexpr int kPrecNone = 0;
+constexpr int kPrecJacobi = 1;   // p = (|2a - aux0| + c)^(-e), generated
+constexpr int kPrecStored = 2;   // p read from a stored f32 vector
+
 struct Params {
   const void* g;
   const void* x;
   const float* diag;     // stored diagonal a, or nullptr for a_c + a_b * i
+  const float* prec;     // stored p (kPrecStored)
+  float prec_c;          // c of the generated p
+  int prec_quarter;      // e = 1/4 (else e = 1/2)
   void* s;
   void* r;
   void* p;
@@ -88,6 +110,41 @@ __device__ __forceinline__ void diag_group(const Params& P, long long i,
 #pragma unroll
     for (int e = 0; e < W; ++e)
       a[e] = __fadd_rn(P.a_c, __fmul_rn(P.a_b, __ll2float_rn(i + e)));
+  }
+}
+
+// The preconditioner's diagonal p(i) for W consecutive indices, given the
+// group's diagonal a (kPrecJacobi) or read from the stored vector.
+template <int PK, int W>
+__device__ __forceinline__ void prec_group(const Params& P, float aux0,
+                                           long long i, const float (&a)[W],
+                                           float (&p)[W]) {
+  if (PK == kPrecStored) {
+#pragma unroll
+    for (int e = 0; e < W; ++e) p[e] = (i + e < P.n) ? P.prec[i + e] : 0.f;
+  } else {
+#pragma unroll
+    for (int e = 0; e < W; ++e) {
+      const float d = __fadd_rn(fabsf(__fsub_rn(2.f * a[e], aux0)), P.prec_c);
+      p[e] = P.prec_quarter ? __frsqrt_rn(__fsqrt_rn(d)) : __frsqrt_rn(d);
+    }
+  }
+}
+
+// The folded operator for one element: a0 = p^2 (2a - aux0) and
+// u = (p x, (p 2a) x), or the plain a0 = 2a - aux0, u = (x, 2a x) when PK is
+// kPrecNone (in the Pallas kernel's multiplication order).
+template <int PK>
+__device__ __forceinline__ void fold(float a, float x, float p, float aux0,
+                                     float& a0, float& u0, float& u1) {
+  if (PK == kPrecNone) {
+    a0 = 2.f * a - aux0;
+    u0 = x;
+    u1 = (2.f * a) * x;
+  } else {
+    a0 = (p * p) * (2.f * a - aux0);
+    u0 = p * x;
+    u1 = (p * (2.f * a)) * x;
   }
 }
 
@@ -166,7 +223,7 @@ struct Consts {
 // One CG iteration (the Pallas kernel's half(), :354-501).  APPLY folds
 // the pending coefficient `pend` into this half's s update; otherwise the
 // half returns its own s coefficient for the next half.
-template <typename T, bool APPLY>
+template <typename T, int PK, bool APPLY>
 __device__ float half(cg::grid_group& grid, const Params& P, const Consts& K,
                       const Reducer& R, Carry& c, int& par, float pend) {
   constexpr int W = Store<T>::W;
@@ -258,18 +315,23 @@ __device__ float half(cg::grid_group& grid, const Params& P, const Consts& K,
   float acc[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   for (long long gi = t0; gi < ngroups; gi += stride) {
     const long long i = gi * W;
-    float rc[W], pc[W], xc[W], a[W];
+    float rc[W], pc[W], xc[W], a[W], pr[W];
     Store<T>::load(rsrc, i, P.n, rc);
     if (p_ok) Store<T>::load(p, i, P.n, pc);
     else for (int e = 0; e < W; ++e) pc[e] = 0.f;
     Store<T>::load(x, i, P.n, xc);
     diag_group<W>(P, i, a);
+    if (PK != kPrecNone) {
+      prec_group<PK, W>(P, K.aux0, i, a, pr);
+      // r0 is ghat = p g, stored: the Pallas init pass writes it to r
+      if (first)
+        for (int e = 0; e < W; ++e) rc[e] = Store<T>::rounded(pr[e] * rc[e]);
+    }
     float r2v[W], p2v[W];
 #pragma unroll
     for (int e = 0; e < W; ++e) {
-      const float a0 = 2.f * a[e] - K.aux0;
-      const float u0 = xc[e];
-      const float u1 = (2.f * a[e]) * xc[e];
+      float a0, u0, u1;
+      fold<PK>(a[e], xc[e], PK != kPrecNone ? pr[e] : 1.f, K.aux0, a0, u0, u1);
       const float p2 = first ? -rc[e] : -rc[e] + beta * pc[e];
       float q2 = a0 * p2;
       q2 = q2 + Bmpk[0] * u0;
@@ -337,7 +399,7 @@ __device__ float half(cg::grid_group& grid, const Params& P, const Consts& K,
   return APPLY ? 0.f : cs;
 }
 
-template <typename T>
+template <typename T, int PK>
 __global__ void __launch_bounds__(kThreads) streamed_cg_kernel(Params P) {
   constexpr int W = Store<T>::W;
   cg::grid_group grid = cg::this_grid();
@@ -371,20 +433,24 @@ __global__ void __launch_bounds__(kThreads) streamed_cg_kernel(Params P) {
     init[9] = P.scal[16];
   } else {
     // the init pass: one read of g and x; r is not written (the first
-    // iteration reads g in its place)
+    // iteration reads g in its place); with a preconditioner g is ghat = p g
     float acc[kNacc];
     for (int j = 0; j < kNacc; ++j) acc[j] = 0.f;
     for (long long gi = t0; gi < ngroups; gi += stride) {
       const long long i = gi * W;
-      float gc[W], xc[W], a[W];
+      float gc[W], xc[W], a[W], pr[W];
       Store<T>::load(g, i, P.n, gc);
       Store<T>::load(x, i, P.n, xc);
       diag_group<W>(P, i, a);
+      if (PK != kPrecNone) {
+        prec_group<PK, W>(P, K.aux0, i, a, pr);
+        for (int e = 0; e < W; ++e) gc[e] = pr[e] * gc[e];
+      }
 #pragma unroll
       for (int e = 0; e < W; ++e) {
-        const float a0 = 2.f * a[e] - K.aux0;
-        const float u0 = xc[e];
-        const float u1 = (2.f * a[e]) * xc[e];
+        float a0, u0, u1;
+        fold<PK>(a[e], xc[e], PK != kPrecNone ? pr[e] : 1.f, K.aux0, a0, u0,
+                 u1);
         const float a0g = a0 * gc[e];
         acc[0] += gc[e] * gc[e];
         acc[1] += a0g * gc[e];
@@ -432,19 +498,31 @@ __global__ void __launch_bounds__(kThreads) streamed_cg_kernel(Params P) {
   // takes the same number of trips through grid.sync().
   while (c.k < P.max_iterations && c.done == 0.f && sqrtf(c.rv) > K.target) {
     if (P.pair) {
-      const float pend = half<T, false>(grid, P, K, R, c, par, 0.f);
-      half<T, true>(grid, P, K, R, c, par, pend);
+      const float pend = half<T, PK, false>(grid, P, K, R, c, par, 0.f);
+      half<T, PK, true>(grid, P, K, R, c, par, pend);
     } else {
-      half<T, true>(grid, P, K, R, c, par, 0.f);
+      half<T, PK, true>(grid, P, K, R, c, par, 0.f);
     }
   }
 
+  T* s = static_cast<T*>(P.s);
   if (c.s_valid == 0.f) {
     // no CG step was taken (g = 0, or max_iterations = 0): s = 0
-    T* s = static_cast<T*>(P.s);
     const float z[W] = {};
     for (long long gi = t0; gi < ngroups; gi += stride)
       Store<T>::store(s, gi * W, P.n, z);
+  } else if (PK != kPrecNone) {
+    // un-transform s = p shat; each thread rewrites the elements it wrote
+    // in the loop (the same grid-stride walk), so no grid.sync is needed
+    for (long long gi = t0; gi < ngroups; gi += stride) {
+      const long long i = gi * W;
+      float sc[W], a[W], pr[W];
+      Store<T>::load(s, i, P.n, sc);
+      diag_group<W>(P, i, a);
+      prec_group<PK, W>(P, K.aux0, i, a, pr);
+      for (int e = 0; e < W; ++e) sc[e] = sc[e] * pr[e];
+      Store<T>::store(s, i, P.n, sc);
+    }
   }
   if (blockIdx.x == 0 && threadIdx.x == 0) {
     P.res[0] = (float)c.k;
@@ -454,24 +532,34 @@ __global__ void __launch_bounds__(kThreads) streamed_cg_kernel(Params P) {
   }
 }
 
+// The kernel instance for a storage dtype and preconditioner form.
 template <typename T>
-cudaError_t max_blocks(int* out) {
+const void* kernel_for(int prec_kind) {
+  switch (prec_kind) {
+    case kPrecJacobi: return (const void*)streamed_cg_kernel<T, kPrecJacobi>;
+    case kPrecStored: return (const void*)streamed_cg_kernel<T, kPrecStored>;
+    default: return (const void*)streamed_cg_kernel<T, kPrecNone>;
+  }
+}
+
+template <typename T>
+cudaError_t max_blocks(int prec_kind, int* out) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return e;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, streamed_cg_kernel<T>, kThreads, 0);
+      &per_sm, kernel_for<T>(prec_kind), kThreads, 0);
   if (e != cudaSuccess) return e;
   *out = per_sm * sms;
   return cudaSuccess;
 }
 
 template <typename T>
-cudaError_t grid_for(long long n, int* grid) {
+cudaError_t grid_for(int prec_kind, long long n, int* grid) {
   int cap = 0;
-  cudaError_t e = max_blocks<T>(&cap);
+  cudaError_t e = max_blocks<T>(prec_kind, &cap);
   if (e != cudaSuccess) return e;
   const long long groups = (n + Store<T>::W - 1) / Store<T>::W;
   long long want = (groups + kThreads - 1) / kThreads;
@@ -486,9 +574,10 @@ extern "C" {
 
 // Number of blocks the launch for n elements uses (co-resident at most);
 // the caller sizes the partial buffer as 2 * grid * streamed_cg_nacc().
-int streamed_cg_grid(int bf16, long long n, int* grid) {
-  return bf16 ? (int)grid_for<__nv_bfloat16>(n, grid)
-              : (int)grid_for<float>(n, grid);
+// prec_kind: 0 none, 1 the generated shifted-Jacobi power, 2 stored p.
+int streamed_cg_grid(int bf16, int prec_kind, long long n, int* grid) {
+  return bf16 ? (int)grid_for<__nv_bfloat16>(prec_kind, n, grid)
+              : (int)grid_for<float>(prec_kind, n, grid);
 }
 
 int streamed_cg_nacc() { return kNacc; }
@@ -505,12 +594,16 @@ int streamed_cg_launch(int bf16, const void* g, const void* x,
                        const float* scal, float* res, double* partial,
                        int grid, long long n, float a_c, float a_b,
                        int max_iterations, float kappa_fgr, float theta,
-                       float epsilon, int pair, int with_init,
+                       float epsilon, int pair, int with_init, int prec_kind,
+                       const float* prec, float prec_c, int prec_quarter,
                        void* stream) {
   Params P;
   P.g = g;
   P.x = x;
   P.diag = diag;
+  P.prec = prec;
+  P.prec_c = prec_c;
+  P.prec_quarter = prec_quarter;
   P.s = s;
   P.r = r;
   P.p = p;
@@ -527,8 +620,8 @@ int streamed_cg_launch(int bf16, const void* g, const void* x,
   P.pair = pair;
   P.with_init = with_init;
   void* args[] = {&P};
-  const void* fn = bf16 ? (const void*)streamed_cg_kernel<__nv_bfloat16>
-                        : (const void*)streamed_cg_kernel<float>;
+  const void* fn = bf16 ? kernel_for<__nv_bfloat16>(prec_kind)
+                        : kernel_for<float>(prec_kind);
   cudaError_t e = cudaLaunchCooperativeKernel(
       fn, dim3(grid), dim3(kThreads), args, 0, (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;

@@ -2,8 +2,9 @@
 
 Port of the problem construction of ``bench.py:run_tier`` (round-5 JAX
 package): f(x) = <x, A x> on the unit sphere in R^n with the SPD diagonal
-A = diag(1 + b i), b = 999/(n-1) (spectrum 1..1000, so f* = 1), 30 outer
-TNT iterations with at most 50 CG iterations each.  Two storage tiers:
+A = diag(1 + b i), b = (kappa - 1)/(n - 1) (spectrum 1..kappa, so f* = 1;
+kappa = 1000 is the headline), 30 outer TNT iterations with at most 50 CG
+iterations each.  Two storage tiers:
 
 - f32: the trust-region subproblem runs in ``stpcg_flat_streamed`` through
   the ``flat_solve`` seam (the CUDA kernel on a CUDA tensor; its plain
@@ -15,7 +16,15 @@ TNT iterations with at most 50 CG iterations each.  Two storage tiers:
 ``engine`` picks the subproblem route: ``"streamed"`` (the f32 tier's),
 ``"streamed_reference"`` (the same route with the kernel's plain version,
 the comparison ``chip_smoke.py`` makes) or ``"flat"`` (the bf16 tier's).
-The trial step is always ``sphere_rayleigh_step``.
+The trial step is always ``sphere_rayleigh_step``, and the gradient is
+cast to the iterate's dtype, so one problem serves every storage dtype (and
+both stages of ``tnt.solve_escalated``).
+
+``jacobi_power=e`` adds the shifted-Jacobi preconditioner
+P = (|2a - rq| + 1)^(-e) (e = 1/4 is the half power of the JAX package's
+``benchmarks/config13_streamed_prec.py``): the flat route folds it through
+``flat_prec``, the streamed routes through the kernel's ``JacobiPower``
+descriptor; no init group is threaded then (it would be untransformed).
 
 The diagonal is regenerated from its index inside the kernel; the eager
 PyTorch paths hold it as one stored f32 vector with the same values.
@@ -24,12 +33,13 @@ PyTorch paths hold it as one stored f32 vector with the same values.
 from __future__ import annotations
 
 import time
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from .core.problem import RiemannianProblem
-from .kernels.streamed_cg import (AffineDiagonal, sphere_rayleigh_streamed,
+from .kernels.streamed_cg import (AffineDiagonal, JacobiPower,
+                                  sphere_rayleigh_streamed,
                                   stpcg_flat_streamed,
                                   stpcg_flat_streamed_reference)
 from .linalg.flat_cg import sphere_rayleigh_flat, sphere_rayleigh_step
@@ -42,14 +52,17 @@ __all__ = ["ENGINES", "make_problem", "tier_params", "initial_point",
 ENGINES = ("streamed", "streamed_reference", "flat")
 
 
-def make_problem(n: int, dtype: torch.dtype, device,
-                 engine: str = "flat") -> RiemannianProblem:
-    """The headline ``RiemannianProblem`` at size n and storage dtype."""
+def make_problem(n: int, device, engine: str = "flat", *,
+                 kappa: float = 1000.0,
+                 jacobi_power: Optional[float] = None) -> RiemannianProblem:
+    """The headline ``RiemannianProblem`` at size n, diagonal spread
+    ``kappa``, optionally preconditioned (module docstring)."""
     if engine not in ENGINES:
         raise ValueError(f"engine must be one of {ENGINES}")
     M = sphere()
-    diag = AffineDiagonal(1.0, 999.0 / (n - 1))
+    diag = AffineDiagonal(1.0, (kappa - 1.0) / (n - 1))
     a = diag.values(n, device)
+    desc = None if jacobi_power is None else JacobiPower(1.0, jacobi_power)
 
     def A_elem(v):
         return a * v.to(torch.float32)
@@ -58,14 +71,23 @@ def make_problem(n: int, dtype: torch.dtype, device,
         return torch.dot(x.to(torch.float32), A_elem(x))
 
     def grad(x, dd):
-        return M.proj(x, (2.0 * A_elem(x)).to(dtype))
+        return M.proj(x, (2.0 * A_elem(x)).to(x.dtype))
 
     def flat_qm(x, dd, aux=None):
         # aux: the step_eval carry (trial Rayleigh quotient + the flat
         # engine's pre-loop dot group)
         rq = aux.rq if aux is not None else None
         A0, U, B, _ = sphere_rayleigh_flat(x, A_elem, rq=rq)
+        if desc is not None:
+            return A0, U, B
         return A0, U, B, (aux.init if aux is not None else None)
+
+    flat_prec = None
+    if desc is not None:
+        def flat_prec(x, dd):
+            return desc.map(diag,
+                            torch.dot(x.to(torch.float32), 2.0 * A_elem(x)),
+                            n, x.device)
 
     flat_solve = None
     if engine != "flat":
@@ -75,14 +97,16 @@ def make_problem(n: int, dtype: torch.dtype, device,
 
         def flat_solve(g, x, dd, aux, Delta, params):
             rq = aux.rq
+            kw = (dict(init=aux.init) if desc is None
+                  else dict(prec_chunk=desc,
+                            prec=desc.map(diag, rq, n, x.device)))
             return solver(
                 g, x, B_fn(rq), Delta, aux_scalars=(rq,), a0_chunk=a0c,
                 weights=weights, max_iterations=params.max_TPCG_iterations,
-                kappa_fgr=params.kappa_fgr, theta=params.theta,
-                init=aux.init)
+                kappa_fgr=params.kappa_fgr, theta=params.theta, **kw)
 
     return RiemannianProblem(f=f, manifold=M, grad=grad, flat_qm=flat_qm,
-                             flat_solve=flat_solve,
+                             flat_solve=flat_solve, flat_prec=flat_prec,
                              step_eval=sphere_rayleigh_step(A_elem))
 
 

@@ -1,10 +1,10 @@
 """Carry the JAX package's state across to the port, and results back.
 
 The ported problems have no learned weights: their state is the params
-(``TNTParams``, ``GradientDescentParams`` and their bases), the initial
-point, the data, and a LOBPCG solve's ``warm_start`` carry.  These
-functions carry them without importing JAX (arrays arrive through numpy's
-array protocol).
+(``TNTParams``, ``TNLSParams``, ``GradientDescentParams`` and their bases),
+the initial point, the data, and a LOBPCG solve's ``warm_start`` carry.
+These functions carry them without importing JAX (arrays arrive through
+numpy's array protocol).
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ import torch
 from .core.tree import tree_map
 from .core.types import OptimizerParams, SmoothOptimizerParams
 from .solvers.gradient_descent import GradientDescentParams
+from .solvers.tnls import TNLSParams
 from .solvers.tnt import TNTParams
 
 __all__ = ["params_from_jax", "tensor_from_numpy", "result_to_numpy",
@@ -24,7 +25,7 @@ __all__ = ["params_from_jax", "tensor_from_numpy", "result_to_numpy",
 
 _PARAMS = {cls.__name__: cls
            for cls in (OptimizerParams, SmoothOptimizerParams,
-                       GradientDescentParams, TNTParams)}
+                       GradientDescentParams, TNTParams, TNLSParams)}
 
 
 def params_from_jax(p):

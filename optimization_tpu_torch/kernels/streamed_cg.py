@@ -25,11 +25,26 @@ Rayleigh family with descriptors:
 - ``weights = (None, ScaledDiagonal(a))``: U = (x, 2a .* x), so k = 2;
 - ``B``: any 2x2.
 
-:func:`sphere_rayleigh_streamed` builds that bundle.  General k and
-arbitrary generators are not ported yet.  Nor are the elementwise
-preconditioner (``prec_chunk``/``prec``), which raises
-``NotImplementedError``, and the TPU's VMEM knobs (``chunk_rows``,
-``pin_x``): x streams every iteration, and n may be any size.
+:func:`sphere_rayleigh_streamed` builds that bundle.
+
+The elementwise preconditioner P = M^(-1/2) (``prec_chunk``/``prec``, the
+Pallas kernel's folding s = P shat) is described the same way, by
+``prec_chunk``:
+
+- a :class:`JacobiPower` (c, e): p(i) = (|2a(i) - aux[0]| + c)^(-e), e
+  in {1/2, 1/4}, on the operator's own diagonal a (regenerated in
+  registers);
+- or a stored (n,) f32 tensor p (one more read per pass).
+
+``prec`` is the whole-array map v -> p .* v (``JacobiPower.map(a, rq, n,
+device)``), as in the JAX package: both forms or neither, and never with
+``init=``.  The plain version folds p over whole vectors and un-transforms
+its step with ``prec``; the kernel un-transforms in its own tail pass from
+the descriptor, so ``prec`` must be the same map.  General k and arbitrary
+chunk generators are not ported:
+every caller in the JAX package is the k = 2 sphere family.  Nor are the
+TPU's VMEM knobs (``chunk_rows``, ``pin_x``): x streams every iteration,
+and n may be any size.
 """
 
 from __future__ import annotations
@@ -44,7 +59,7 @@ from ..linalg.flat_cg import FlatCGInit, FlatCGResult
 
 __all__ = ["stpcg_flat_streamed", "stpcg_flat_streamed_reference",
            "sphere_rayleigh_streamed", "AffineDiagonal", "ShiftedDiagonal",
-           "ScaledDiagonal"]
+           "ScaledDiagonal", "JacobiPower"]
 
 _STORAGE = (torch.float32, torch.bfloat16)
 _ALIGN = 16                     # bytes per vector load in the kernel
@@ -88,6 +103,42 @@ def _diag_values(a: Diagonal, n: int, device) -> torch.Tensor:
     return a.to(torch.float32)
 
 
+@dataclasses.dataclass(frozen=True)
+class JacobiPower:
+    """The shifted-Jacobi power  p(i) = (|2 a(i) - aux[0]| + c)^(-e),
+    e = 1/2 or 1/4, on the diagonal ``a`` of the operator it preconditions
+    (A0 = 2a - aux[0]; the kernel and the plain version take ``a`` from
+    ``a0_chunk``).  c = 1, e = 1/2 is the regularized Jacobi M^(-1/2);
+    c = 0, e = 1/2 the exact Jacobi of a positive-definite A0; c = 1,
+    e = 1/4 the half-power Jacobi of the JAX package's config13.  Evaluated
+    in f32, the quarter power as rsqrt(sqrt(d))."""
+
+    c: float = 1.0
+    e: float = 0.5
+
+    def values(self, a: Diagonal, aux0, n: int, device) -> torch.Tensor:
+        """p as an (n,) f32 tensor on the diagonal ``a`` for the aux scalar
+        ``aux0``."""
+        d = torch.abs(2.0 * _diag_values(a, n, device)
+                      - _f32(aux0, device)) + self.c
+        return torch.rsqrt(d if self.e == 0.5 else torch.sqrt(d))
+
+    def map(self, a: Diagonal, aux0, n: int, device):
+        """The whole-array form ``prec``: v -> p .* v (in f32 or wider); p
+        is computed at the first call and kept (the kernel never calls
+        it)."""
+        held = []
+
+        def apply(v):
+            if not held:
+                held.append(self.values(a, aux0, n, device))
+            return v * held[0]
+        return apply
+
+
+Prec = Union[JacobiPower, torch.Tensor]
+
+
 def sphere_rayleigh_streamed(a_diag: Diagonal):
     """Streamed-kernel operator bundle for the sphere Rayleigh quotient.
 
@@ -107,14 +158,20 @@ def sphere_rayleigh_streamed(a_diag: Diagonal):
     return ShiftedDiagonal(a_diag), (None, ScaledDiagonal(a_diag)), B_fn
 
 
-def _check(g, x, B, aux_scalars, a0_chunk, weights, body_kind, prec_chunk,
-           prec) -> Diagonal:
+def _check(g, x, B, aux_scalars, a0_chunk, weights, body_kind, init,
+           prec_chunk, prec):
     """Validate the call (shared by the kernel and the plain version) and
     return the diagonal descriptor."""
-    if prec_chunk is not None or prec is not None:
-        raise NotImplementedError(
-            "stpcg_flat_streamed(prec_chunk=, prec=): the folded elementwise "
-            "preconditioner is not ported yet")
+    if (prec_chunk is None) != (prec is None):
+        raise ValueError(
+            "preconditioning needs both forms of the same elementwise "
+            "M^{-1/2}: prec_chunk (the descriptor the kernel folds) and prec "
+            "(the whole-array map)")
+    if prec_chunk is not None and init is not None:
+        raise ValueError(
+            "init= (the precomputed pre-loop dot group) is computed in "
+            "untransformed coordinates and cannot be combined with "
+            "prec_chunk= (same contract as linalg/flat_cg.stpcg_flat)")
     if g.dtype not in _STORAGE:
         raise ValueError("streamed kernel storage dtype must be f32 or "
                          "bf16 (all compute accumulates in f32)")
@@ -144,7 +201,26 @@ def _check(g, x, B, aux_scalars, a0_chunk, weights, body_kind, prec_chunk,
             or a.device != g.device):
         raise ValueError("a stored diagonal must be an (n,) f32 tensor on "
                          "g's device")
+    if isinstance(prec_chunk, JacobiPower):
+        if prec_chunk.e not in (0.5, 0.25) or prec_chunk.c < 0:
+            raise ValueError("JacobiPower takes e = 1/2 or 1/4 and c >= 0")
+    elif isinstance(prec_chunk, torch.Tensor):
+        if (prec_chunk.shape != g.shape or prec_chunk.dtype != torch.float32
+                or prec_chunk.device != g.device):
+            raise ValueError("a stored preconditioner must be an (n,) f32 "
+                             "tensor on g's device")
+    elif prec_chunk is not None:
+        raise NotImplementedError(
+            "prec_chunk takes a JacobiPower or a stored (n,) f32 tensor; "
+            "arbitrary chunk generators are not ported")
     return a
+
+
+def _prec_values(pc: Prec, a: Diagonal, aux0, n: int,
+                 device) -> torch.Tensor:
+    if isinstance(pc, JacobiPower):
+        return pc.values(a, aux0, n, device)
+    return pc
 
 
 def _f32(v, device) -> torch.Tensor:
@@ -174,9 +250,11 @@ def stpcg_flat_streamed_reference(
     vectors, in f32 with storage-dtype vectors, on any device.  Like the
     kernel it reads r from g on the first iteration, allocates s and p
     uninitialized (guarded by select, not by scaling), and returns s = 0
-    when no CG step is taken.  The loop condition is read back once per
-    loop body."""
-    a = _check(g, x, B, aux_scalars, a0_chunk, weights, body_kind,
+    when no CG step is taken.  With a preconditioner it folds p over whole
+    vectors (ghat = p g, a0hat = p^2 a0, uhat = p u) and un-transforms the
+    step with ``prec``, as the JAX wrapper does.  The loop condition is read
+    back once per loop body."""
+    a = _check(g, x, B, aux_scalars, a0_chunk, weights, body_kind, init,
                prec_chunk, prec)
     dev = g.device
     n = g.shape[0]
@@ -189,7 +267,13 @@ def stpcg_flat_streamed_reference(
     aux0 = _f32(aux_scalars[0], dev)
     a0 = 2.0 * av - aux0
     xf = x.to(f32)
-    us = (xf, (2.0 * av) * xf)
+    if prec_chunk is None:
+        us = (xf, (2.0 * av) * xf)
+    else:
+        # the Pallas kernel's folding, in its multiplication order
+        pv = _prec_values(prec_chunk, a, aux0, n, dev)
+        a0 = pv * pv * a0
+        us = (pv * xf, (pv * (2.0 * av)) * xf)
     Bt = _f32(B, dev)
     Bl = [[Bt[0, 0], Bt[0, 1]], [Bt[1, 0], Bt[1, 1]]]
     Delta_t = _f32(Delta, dev)
@@ -213,7 +297,7 @@ def stpcg_flat_streamed_reference(
         mA0 = [_f32(init.mA[j], dev) for j in range(2)]
         UU = [[_f32(init.UU[i, j], dev) for j in range(2)] for i in range(2)]
     else:
-        gf = g.to(f32)
+        gf = g.to(f32) if prec_chunk is None else pv * g.to(f32)
         a0g = a0 * gf
         rv0, ar0, nr0 = dot(gf, gf), dot(a0g, gf), dot(a0g, a0g)
         m0 = [dot(u, gf) for u in us]
@@ -225,9 +309,9 @@ def stpcg_flat_streamed_reference(
     target = r0n * torch.minimum(_f32(kappa_fgr, dev), r0n ** theta)
 
     # the carry of the Pallas kernel (optimization_tpu/kernels/
-    # streamed_cg.py:329-331); r starts as g itself
+    # streamed_cg.py:329-331); r starts as g itself (ghat, stored)
     s = torch.empty_like(g)
-    r = g
+    r = g if prec_chunk is None else gf.to(sdt)
     p = torch.empty_like(g)
     c = dict(k=torch.zeros((), dtype=torch.int32, device=dev),
              rv=rv0, ar=ar0, nr=nr0, pa=zero, nAp=zero, rv_prev=zero,
@@ -349,6 +433,8 @@ def stpcg_flat_streamed_reference(
 
     if not bool(c["s_valid"] != 0):
         s = torch.zeros_like(g)    # no CG step was taken
+    if prec is not None:
+        s = prec(s.to(f32)).to(sdt)
     boundary = c["bnd"] > 0.5
     m_norm = torch.where(boundary, Delta_t, torch.sqrt(c["sk2"]))
     return FlatCGResult(s=s, update_step_M_norm=m_norm,
@@ -363,7 +449,7 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_argtypes_set", False):
         vp, i32, i64, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                            ctypes.c_float)
-        lib.streamed_cg_grid.argtypes = [i32, i64, ctypes.POINTER(i32)]
+        lib.streamed_cg_grid.argtypes = [i32, i32, i64, ctypes.POINTER(i32)]
         lib.streamed_cg_grid.restype = i32
         lib.streamed_cg_nacc.argtypes = []
         lib.streamed_cg_nacc.restype = i32
@@ -371,7 +457,7 @@ def _lib() -> ctypes.CDLL:
         lib.streamed_cg_error_string.restype = ctypes.c_char_p
         lib.streamed_cg_launch.argtypes = [
             i32, vp, vp, vp, vp, vp, vp, vp, vp, vp, i32, i64, f, f,
-            i32, f, f, f, i32, i32, vp]
+            i32, f, f, f, i32, i32, i32, vp, f, i32, vp]
         lib.streamed_cg_launch.restype = i32
         lib._argtypes_set = True
     return lib
@@ -425,17 +511,23 @@ def stpcg_flat_streamed(
     threaded group is accumulated in another order than the kernel's own,
     so this is contract parity, not bitwise.
 
+    ``prec_chunk`` / ``prec``: the elementwise M^(-1/2) (module docstring):
+    truncation in |r|_{M^{-1}}, trust region and reported step norm in
+    |s|_M, the kernel-of-H safeguard on P H P, as
+    ``linalg.flat_cg.stpcg_flat(prec=)``.
+
     On a CPU tensor this runs :func:`stpcg_flat_streamed_reference`; on a
     CUDA tensor it launches the kernel (counted in
     ``stpcg_flat_streamed.launches``) or raises.
     """
-    a = _check(g, x, B, aux_scalars, a0_chunk, weights, body_kind,
+    a = _check(g, x, B, aux_scalars, a0_chunk, weights, body_kind, init,
                prec_chunk, prec)
     if g.device.type == "cpu":
         return stpcg_flat_streamed_reference(
             g, x, B, Delta, aux_scalars, a0_chunk=a0_chunk, weights=weights,
             max_iterations=max_iterations, kappa_fgr=kappa_fgr, theta=theta,
-            epsilon=epsilon, body_kind=body_kind, init=init)
+            epsilon=epsilon, body_kind=body_kind, init=init,
+            prec_chunk=prec_chunk, prec=prec)
     if g.device.type != "cuda":
         raise ValueError(f"stpcg_flat_streamed runs on CUDA tensors (the "
                          f"kernel) or CPU tensors (the plain version), not "
@@ -445,6 +537,10 @@ def stpcg_flat_streamed(
     bf16 = int(g.dtype == torch.bfloat16)
     g, x = _aligned(g), _aligned(x)
     diag = _aligned(a) if isinstance(a, torch.Tensor) else None
+    # 0: none, 1: the generated JacobiPower, 2: a stored p
+    generated = isinstance(prec_chunk, JacobiPower)
+    prec_kind = 0 if prec_chunk is None else 1 if generated else 2
+    stored_p = _aligned(prec_chunk) if prec_kind == 2 else None
 
     parts = [_f32(Delta, dev).reshape(1), _f32(aux_scalars[0], dev).reshape(1),
              _f32(B, dev).reshape(4)]
@@ -457,7 +553,8 @@ def stpcg_flat_streamed(
     lib = _lib()
     with torch.cuda.device(dev):
         grid = ctypes.c_int(0)
-        _raise_on(lib, lib.streamed_cg_grid(bf16, n, ctypes.byref(grid)),
+        _raise_on(lib, lib.streamed_cg_grid(bf16, prec_kind, n,
+                                            ctypes.byref(grid)),
                   "occupancy query")
         s = torch.empty_like(g)
         r = torch.empty_like(g)
@@ -473,6 +570,10 @@ def stpcg_flat_streamed(
             res.data_ptr(), partial.data_ptr(), grid.value, n,
             aff.c, aff.b, int(max_iterations), float(kappa_fgr), float(theta),
             float(epsilon), int(body_kind == "pair"), int(init is not None),
+            prec_kind,
+            stored_p.data_ptr() if stored_p is not None else None,
+            float(prec_chunk.c) if generated else 0.0,
+            int(generated and prec_chunk.e == 0.25),
             torch.cuda.current_stream(dev).cuda_stream)
         _raise_on(lib, code, "launch")
     stpcg_flat_streamed.launches += 1

@@ -4,3 +4,4 @@ from .flat_cg import (FlatCGInit, FlatCGResult, SphereStepAux,
 from .stpcg import STPCGResult, stpcg
 from .jacobi import jacobi_eigh
 from .lobpcg import LOBPCGResult, lobpcg, lobpcg_fleet, rayleigh_ritz
+from .lsqr import LSQRResult, lsqr

@@ -18,9 +18,10 @@ In eager PyTorch the loop is a Python loop whose scalars stay tensors on
 the vectors' device; the loop condition is read back once per loop body
 (one pair of iterations, or one iteration for the single body).
 
-Not ported yet (they raise ``NotImplementedError``): the s-step engine
-(``s_steps >= 2``, ``_stpcg_flat_sstep``), ``solve_mode``, and the folded
-elementwise preconditioner (``prec=``, ``_fold_prec``).
+``prec=`` folds an elementwise M^{-1/2} in symmetrically
+(:func:`_fold_prec`).  Not ported yet (they raise ``NotImplementedError``):
+the s-step engine (``s_steps >= 2``, ``_stpcg_flat_sstep``) and
+``solve_mode``.
 
 Storage-dtype generic: vectors may be bf16; every dot accumulates in (at
 least) f32 and every stored output casts back to the storage dtype.
@@ -360,6 +361,33 @@ def _stpcg_flat_pair(
                         predicted_decrease=-st.mval)
 
 
+def _fold_prec(g, A0, U, B, prec, sdt):
+    """Symmetric preconditioner folding: the change of variables s = P shat
+    with P = ``prec`` (an elementwise, linear, self-adjoint, positive map
+    applying M^{-1/2}) turns the M-preconditioned trust-region subproblem
+    into a plain one over
+
+        ghat = P g,   A0hat = P A0 P,   Uhat_j = P U_j.
+
+    Euclidean norms in the transformed space are the reference's
+    preconditioned norms: |rhat| = |r|_{M^{-1}} (the truncation norm,
+    ``IterativeSolvers.h:275-291``) and |shat| = |s|_M (the trust-region /
+    step norm, ``IterativeSolvers.h:388-420``), so the unmodified engine on
+    the transformed data runs the reference's preconditioned STPCG."""
+    U, B = _norm_U(U, B, sdt, g.device)
+
+    def wrap(u: _UEntry) -> _UEntry:
+        # self-adjointness: <P u, v> = <u, P v>, so the transformed dot
+        # reuses the entry's own (possibly adjoint-form) reduction
+        return _UEntry(mat=lambda: prec(u.mat()),
+                       dot=lambda v: u.dot(prec(v)),
+                       mat_scaled=lambda c: prec(u.mat_scaled(c)))
+
+    ghat = prec(g.to(sdt)).to(g.dtype)
+    A0hat = lambda v: prec(A0(prec(v)).to(sdt))
+    return ghat, A0hat, tuple(wrap(u) for u in U), B
+
+
 def stpcg_flat(
     g: torch.Tensor,
     A0: Callable[[torch.Tensor], torch.Tensor],
@@ -393,13 +421,31 @@ def stpcg_flat(
     - ``init``: optional :class:`FlatCGInit` computed in an earlier pass
       (e.g. a TNT ``step_eval``); the engine then runs no pre-loop pass.
     - ``kernel_check=False`` drops the kernel-of-H epsilon safeguard.
-    - ``s_steps >= 2``, ``solve_mode`` and ``prec`` are not ported yet and
-      raise ``NotImplementedError``.
+    - ``prec``: optional elementwise, linear, self-adjoint, positive map
+      applying M^{-1/2}, folded in symmetrically (:func:`_fold_prec`):
+      truncation runs in |.|_{M^{-1}}, the trust region and the reported
+      step norm in |.|_M, and the kernel-of-H safeguard tests the folded
+      operator P H P.  Incompatible with ``init=`` (its dot group is
+      computed in untransformed coordinates).
+    - ``s_steps >= 2`` and ``solve_mode`` are not ported yet and raise
+      ``NotImplementedError``.
     """
     if prec is not None:
-        raise NotImplementedError(
-            "stpcg_flat(prec=) needs the folded preconditioner (_fold_prec), "
-            "which is not ported yet")
+        if init is not None:
+            raise ValueError(
+                "init= (the precomputed pre-loop dot group) is computed in "
+                "untransformed coordinates and cannot be combined with "
+                "prec=; compute the group on the transformed data instead")
+        sdt = _acc_dt(g)
+        ghat, A0hat, Uhat, Bhat = _fold_prec(g, A0, U, B, prec, sdt)
+        res = stpcg_flat(ghat, A0hat, Uhat, Bhat, Delta,
+                         max_iterations=max_iterations, kappa_fgr=kappa_fgr,
+                         theta=theta, epsilon=epsilon, s_steps=s_steps,
+                         solve_mode=solve_mode, body_kind=body_kind,
+                         kernel_check=kernel_check)
+        # un-transform the step; the M-norm and model decrease already are
+        # the reference's preconditioned quantities (see _fold_prec)
+        return res._replace(s=prec(res.s.to(sdt)).to(g.dtype))
     if solve_mode or s_steps > 1:
         raise NotImplementedError(
             "stpcg_flat(s_steps >= 2) and solve_mode need the s-step engine "
@@ -437,23 +483,30 @@ def sphere_rayleigh_step(A_elem, with_init: bool = True):
     carries the flat engine's pre-loop dot group (:func:`flat_init_dots`)
     evaluated on the cast trial point and gradient, and |grad| comes from
     that group's <g, g>.
+
+    n2, fu and na2 are accumulated in float64 (then rounded to the compute
+    dtype): at n = 2^24 an f32 sum on the card (each thread adds ~10^2
+    terms in turn) is off by ~1e-6 relative, the size of the objective's
+    late decreases, and the gain ratio df/dm turns to noise there (the
+    JAX package's TPU reductions add in a tree).
     """
     def step_eval(x, h, data):
         sdt = _acc_dt(x)
         u = x.to(sdt) + h.to(sdt)
         au = A_elem(u).to(sdt)
-        n2 = torch.sum(u * u)
-        fu = torch.sum(u * au)
-        na2 = torch.sum(au * au)
-        c = 1.0 / torch.sqrt(n2)
-        f_prop = fu / n2
+        n2 = torch.sum(u * u, dtype=torch.float64)
+        fu = torch.sum(u * au, dtype=torch.float64)
+        c = (1.0 / torch.sqrt(n2)).to(sdt)
+        f_prop = (fu / n2).to(sdt)
         rqp = 2.0 * f_prop
         x_prop = (c * u).to(x.dtype)
         g = ((2.0 * c) * au - (rqp * c) * u).to(x.dtype)
         if not with_init:
             # |grad| by the identity 4 na2/n2 - rq'^2 (cancels near the
             # optimum: fine for fixed-effort runs only)
-            gn = torch.sqrt(torch.clamp(4.0 * na2 / n2 - rqp * rqp, min=0.0))
+            na2 = torch.sum(au * au, dtype=torch.float64)
+            gn = torch.sqrt(torch.clamp(4.0 * na2 / n2 - (fu / n2 * 2.0) ** 2,
+                                        min=0.0)).to(sdt)
             return x_prop, f_prop, g, gn, SphereStepAux(rq=rqp, init=None)
         A0p, Up, Bp, _ = sphere_rayleigh_flat(x_prop, A_elem, rq=rqp)
         init = flat_init_dots(g, A0p, Up, Bp)

@@ -1,2 +1,2 @@
-from . import euclidean, gradient_descent, tnt
+from . import euclidean, gradient_descent, tnls, tnt
 from .euclidean import euclidean_gradient_descent, euclidean_tnls, euclidean_tnt

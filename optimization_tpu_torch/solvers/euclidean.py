@@ -3,16 +3,17 @@
 Counterpart of ``optimization_tpu/solvers/euclidean.py`` (reference
 ``EuclideanGradientDescent`` / ``EuclideanTNT``, ``GradientDescent.h:420-433``,
 ``TNT.h:757-805``): the Euclidean manifold is every problem's default, so
-these wrap plain functions into a ``RiemannianProblem`` and solve.
-``euclidean_tnls`` waits for TNLS and LSQR.
+these wrap plain functions into a ``RiemannianProblem`` (or, for
+``euclidean_tnls``, a ``LeastSquaresProblem``) and solve.
 """
 
 from __future__ import annotations
 
 from typing import Any, Callable, Optional
 
-from ..core.problem import RiemannianProblem
+from ..core.problem import LeastSquaresProblem, RiemannianProblem
 from . import gradient_descent as _gd
+from . import tnls as _tnls
 from . import tnt as _tnt
 
 __all__ = ["euclidean_gradient_descent", "euclidean_tnt", "euclidean_tnls"]
@@ -53,10 +54,17 @@ def euclidean_tnt(
                       user_function=user_function)
 
 
-def euclidean_tnls(F, x0, params=None, data=None, precon=None,
-                   user_function=None):
-    """Not ported yet: truncated-Newton least squares needs TNLS, LSQR and
-    ``LeastSquaresProblem`` (ROADMAP.md, Queue 1 item 11)."""
-    raise NotImplementedError(
-        "euclidean_tnls needs TNLS, LSQR and LeastSquaresProblem, which are "
-        "not ported yet (ROADMAP.md, Queue 1 item 11)")
+def euclidean_tnls(
+    F: Callable[..., Any],
+    x0: Any,
+    params: Optional[_tnls.TNLSParams] = None,
+    data: Any = None,
+    precon: Optional[tuple] = None,
+    user_function=None,
+) -> _tnls.TNLSResult:
+    """Minimize ``|F(x, data)|`` over R^n by truncated-Newton least squares
+    (reference ``EuclideanTNLS``, ``TNLS.h:747-757``).  Jacobian/adjoint
+    products default to ``torch.func`` of F."""
+    problem = LeastSquaresProblem(residual=F, precon=precon)
+    return _tnls.solve(problem, x0, params or _tnls.TNLSParams(), data,
+                       user_function=user_function)

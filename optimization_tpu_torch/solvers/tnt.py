@@ -23,7 +23,8 @@ Functional contract (the reference's, as in the JAX package):
   stepsize, trust region, iteration limit, user function;
 - fixed-length traces, NaN-padded beyond ``num_iterations``.
 
-``solve_escalated`` (bf16 -> f32 dtype escalation) is not ported yet.
+:func:`solve_escalated` runs TNT with dtype escalation (a low-precision
+storage stage until its floor, then a high-precision finish).
 """
 
 from __future__ import annotations
@@ -38,7 +39,8 @@ from ..core.tree import tree_map, tree_where, tree_zeros_like
 from ..core.types import SmoothOptimizerParams, TNTStatus, trace_fill
 from ..linalg.stpcg import stpcg
 
-__all__ = ["TNTParams", "TNTResult", "solve", "step_decision"]
+__all__ = ["TNTParams", "TNTResult", "EscalatedResult", "solve",
+           "solve_escalated", "step_decision"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,6 +121,10 @@ class TNTResult(NamedTuple):
     # package's monolithic solve (filled only by a host driver).
     times: Optional[torch.Tensor] = None
     iterates: Optional[Any] = None
+    # The state a resumed solve needs besides x and the radius: (f, grad,
+    # |grad|, |M^-1 grad|, step_eval aux) at the returned iterate (see
+    # ``solve(warm_start=)``).
+    warm_start: Optional[Any] = None
 
 
 def step_decision(rho, dm, eta1, eta2):
@@ -143,6 +149,7 @@ def solve(
     data: Any = None,
     user_function: Optional[Callable[..., Any]] = None,
     Delta0=None,
+    warm_start=None,
 ) -> TNTResult:
     """Minimize ``problem`` from ``x0`` by truncated-Newton trust region.
 
@@ -151,6 +158,14 @@ def solve(
     outer iteration before the update is applied (reference
     ``TNT.h:64-71,545-552``).  ``Delta0`` optionally overrides
     ``params.Delta0`` (a float or a tensor).
+
+    ``warm_start``: a previous result's ``warm_start`` (with ``x0`` its
+    ``x`` and ``Delta0`` its last radius) resumes that solve exactly.
+    Without it the solve seeds f, the gradient and the ``step_eval`` aux at
+    x0; with a trial-step evaluator that seed renormalizes x0
+    (``step_eval(x0, 0)``), so a resume from x alone leaves the
+    uninterrupted trajectory in the last bits (the host driver's
+    chunked == monolithic contract needs the carry).
     """
     params.validate()
     M = problem.manifold
@@ -172,7 +187,10 @@ def solve(
     use_step_eval = (problem.step_eval is not None
                      and problem.precon is None)
     aux = None
-    if use_step_eval:
+    if warm_start is not None:
+        x = x0
+        f, grad, gradnorm, pgradnorm, aux = warm_start
+    elif use_step_eval:
         out0 = problem.step_eval(x0, tree_zeros_like(x0), data)
         x, f, grad, gradnorm = (out0[0], torch.as_tensor(out0[1]), out0[2],
                                 out0[3])
@@ -378,4 +396,65 @@ def solve(
         gain_ratios=gain_ratios,
         times=trace_fill(n_trace, torch.float32, dev),
         iterates=iterates,
+        warm_start=(f, grad, gradnorm, pgradnorm, aux),
     )
+
+
+class EscalatedResult(NamedTuple):
+    """Result of :func:`solve_escalated`: the final (high-precision) state
+    plus both stage results and the iteration at which the dtype
+    crossover fired."""
+
+    x: Any
+    f: torch.Tensor
+    gradfx_norm: torch.Tensor
+    status: torch.Tensor           # final-stage TNTStatus
+    num_iterations: torch.Tensor   # total outer iterations across stages
+    switch_iteration: torch.Tensor  # low-precision iterations before promotion
+    stage_low: TNTResult
+    stage_high: TNTResult
+
+
+def solve_escalated(
+    problem: RiemannianProblem,
+    x0: Any,
+    params: TNTParams = TNTParams(),
+    data: Any = None,
+    *,
+    low_dtype: torch.dtype = torch.bfloat16,
+    high_dtype: torch.dtype = torch.float32,
+    low_params: Optional[TNTParams] = None,
+) -> EscalatedResult:
+    """TNT with dtype escalation (the JAX package's ``solve_escalated``):
+    run the low-precision storage tier until it stalls at its rounding
+    floor, then promote the iterate to ``high_dtype`` and finish to the
+    caller's tolerances (the reference's converge-to-|grad|-tolerance
+    contract, ``TNT.h:122-125``).
+
+    Stage 1 (``low_dtype``) runs until the trust region collapses below
+    ``Delta_tolerance`` (at the floor, trial steps stop giving measurable
+    decrease, get rejected and shrink the radius): relative-decrease and
+    stepsize tolerances are off there.  ``low_params`` overrides the whole
+    stage-1 set.  Stage 2 casts the iterate to ``high_dtype``, projects it
+    back onto the manifold with a zero-tangent retraction (a bf16 iterate
+    sits about 2^-9 off the sphere, where stage 2 would reject every step),
+    and runs ``params`` from a fresh ``Delta0`` with ``floor_acceptance``
+    on.  ``switch_iteration`` is where stage 1 stopped."""
+    if low_params is None:
+        low_params = dataclasses.replace(
+            params, relative_decrease_tolerance=0.0, stepsize_tolerance=0.0,
+            Delta_tolerance=max(params.Delta_tolerance, 1e-6))
+    params = dataclasses.replace(params, floor_acceptance=True)
+
+    res_low = solve(problem, tree_map(lambda l: l.to(low_dtype), x0),
+                    low_params, data=data)
+    x_high = tree_map(lambda l: l.to(high_dtype), res_low.x)
+    x_high = problem.manifold.retract(x_high, tree_zeros_like(x_high))
+    res_high = solve(problem, x_high, params, data=data)
+
+    return EscalatedResult(
+        x=res_high.x, f=res_high.f, gradfx_norm=res_high.gradfx_norm,
+        status=res_high.status,
+        num_iterations=res_low.num_iterations + res_high.num_iterations,
+        switch_iteration=res_low.num_iterations,
+        stage_low=res_low, stage_high=res_high)

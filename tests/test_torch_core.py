@@ -2,7 +2,8 @@
 
 Params dataclasses (fields, defaults, ``validate()`` messages), status
 enums, ``pad_value`` and the pytree vector-space helpers, fed the same
-numpy inputs on both sides.  Tree ops run in float64 and must agree to
+numpy inputs on both sides; and the host helpers ``core.host`` and
+``core.profiling``.  Tree ops run in float64 and must agree to
 1e-15 relative (one rounding of the same elementwise formula).
 """
 
@@ -18,18 +19,22 @@ import torch
 import optimization_tpu.core.debug as jdebug
 import optimization_tpu.core.tree as jtree
 import optimization_tpu.core.types as jtypes
+import optimization_tpu.solvers.tnls as jtnls
 import optimization_tpu.solvers.tnt as jtnt
 import optimization_tpu_torch.core.debug as tdebug
 import optimization_tpu_torch.core.tree as ttree
 import optimization_tpu_torch.core.types as ttypes
+import optimization_tpu_torch.solvers.tnls as ttnls
 import optimization_tpu_torch.solvers.tnt as ttnt
+from optimization_tpu_torch.core import host, profiling
 
 torch.set_num_threads(1)
 
 PARAMS = [("OptimizerParams", jtypes.OptimizerParams, ttypes.OptimizerParams),
           ("SmoothOptimizerParams", jtypes.SmoothOptimizerParams,
            ttypes.SmoothOptimizerParams),
-          ("TNTParams", jtnt.TNTParams, ttnt.TNTParams)]
+          ("TNTParams", jtnt.TNTParams, ttnt.TNTParams),
+          ("TNLSParams", jtnls.TNLSParams, ttnls.TNLSParams)]
 
 
 @pytest.mark.parametrize("name,jcls,tcls", PARAMS, ids=[p[0] for p in PARAMS])
@@ -58,6 +63,12 @@ INVALID = [
     ("TNTParams", dict(theta=-0.1)),
     ("TNTParams", dict(flat_s_steps=4)),
     ("TNTParams", dict(flat_kernel_check=False, flat_s_steps=2)),
+    ("TNLSParams", dict(Delta0=0.0)),
+    ("TNLSParams", dict(eta1=0.5, eta2=0.4)),
+    ("TNLSParams", dict(alpha2=1.0)),
+    ("TNLSParams", dict(lam=-1.0)),
+    ("TNLSParams", dict(root_tolerance=-1.0)),
+    ("TNLSParams", dict(Delta_tolerance=-1.0)),
 ]
 
 
@@ -161,3 +172,21 @@ def test_tree_none_is_empty_subtree():
     out = ttree.tree_where(torch.tensor(True), a, (torch.zeros(2), None))
     assert out[1] is None
     assert len(ttree.tree_leaves(a)) == 1
+
+
+def test_stopwatch_and_profiling_helpers(tmp_path):
+    """core.host.Stopwatch and core.profiling (torch.profiler in place of
+    jax.profiler): the trace holds the annotated region, time_fn returns
+    seconds per call (host clock on CPU tensors)."""
+    watch = host.Stopwatch()
+    x = torch.randn(1000)
+    t = profiling.time_fn(lambda v: (v * 2.0).sum(), x, iters=5)
+    assert 0.0 < t < 1.0
+    assert watch.tock() >= t
+    watch.tick()
+    assert watch.tock() < 1.0
+    with profiling.trace(str(tmp_path)) as prof:
+        with profiling.annotate("port_region"):
+            (x * 3.0).sum()
+    assert (tmp_path / "trace.json").exists()
+    assert any(e.key == "port_region" for e in prof.key_averages())

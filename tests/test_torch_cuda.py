@@ -7,10 +7,17 @@ package, so it runs on a machine that has only PyTorch:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -m cuda
 
 Tolerances of the streamed kernel (those of ``chip_smoke.check_parity`` and
-``tests/test_streamed_cg.py``): f32 iteration counts within 1 and s within
-2e-3 |s| (the kernel sums in another order than ``torch.sum``, so CG may
-stop one step apart at the truncation threshold; equal counts give ~1e-6);
-bf16 storage iterations within 3 and s within 3e-2 |s|.  Tolerances of the
+``tests/test_streamed_cg.py``, the step norm to norm): f32 iteration counts
+within 1 and |s - s_ref| within 2e-3 |s_ref| (the kernel sums in another
+order than ``torch.sum``, so CG may stop one step apart at the truncation
+threshold; equal counts give ~1e-6); bf16 storage iterations within 3 and
+s within 3e-2.  The same hold with the preconditioner: the kernel's
+generated p (round-to-nearest rsqrt) and the plain version's
+``torch.rsqrt`` may differ in the last bit, inside those tolerances.  A
+stored P unrelated to the diagonal runs CG ~50 iterations to where |r|
+creeps past the truncation target, and the order of the sums alone moves
+the count there (``chip_smoke.permuted_plain`` measures 2): its counts are
+held within 3.  Tolerances of the
 fused kernels: those of ``chip_smoke.FUSED_TOLERANCES`` and
 ``chip_smoke.GRAM_TOLERANCES``, reasons there.
 """
@@ -69,8 +76,14 @@ def test_kernel_matches_plain_version(dev, storage, body, n):
     assert abs(int(res.num_iterations) - int(ref.num_iterations)) <= dit
     if storage == torch.float32:
         assert int(ref.num_iterations) > 3       # a multi-iteration run
-    scale = float(torch.linalg.vector_norm(ref.s.float()))
-    assert float((res.s.float() - ref.s.float()).abs().max()) <= tol * scale
+    _assert_step_close(res.s, ref.s, tol)
+
+
+def _assert_step_close(s, s_ref, tol):
+    """|s - s_ref| <= tol |s_ref|, 2-norms."""
+    norm = torch.linalg.vector_norm
+    rel = float(norm(s.float() - s_ref.float()) / norm(s_ref.float()))
+    assert rel <= tol, rel
 
 
 def test_two_runs_are_bitwise_equal(dev):
@@ -99,6 +112,109 @@ def test_zero_gradient_and_outputs_stay_on_card(dev):
     assert not res.s.any()
     for t in res[1:]:
         assert t.device.type == "cuda"
+
+
+PREC_FORMS = ["jacobi", "quarter", "exact", "stored"]
+
+
+def _prec(form, args):
+    """(prec_chunk, prec, diagonal) for the pd fixture: the shifted-Jacobi
+    powers on its diagonal (exact: c = 0, valid as 2a - 0.5 > 0) or a
+    stored P unrelated to it, (1 + (i mod 13)/4)^(-1/2) (the P of
+    tests/test_torch_streamed_cg.py): a kernel that generated p in place of
+    reading it would disagree."""
+    g, _, _, _, (rq,) = args
+    n, dev = g.shape[0], g.device
+    diag = T.AffineDiagonal(1.0, 25.0 / (n - 1))
+    if form == "stored":
+        p = torch.rsqrt(1.0 + 0.25 * (torch.arange(n, device=dev) % 13)
+                        .float())
+        return p, (lambda v: v * p), diag
+    c, e = {"jacobi": (1.0, 0.5), "quarter": (1.0, 0.25),
+            "exact": (0.0, 0.5)}[form]
+    desc = T.JacobiPower(c, e)
+    return desc, desc.map(diag, rq, n, dev), diag
+
+
+@pytest.mark.parametrize("form", PREC_FORMS)
+@pytest.mark.parametrize("storage", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("body", ["pair", "single"])
+@pytest.mark.parametrize("n", [1 << 18, 100_003])
+def test_prec_kernel_matches_plain_version(dev, form, storage, body, n):
+    args, kw = _pd_fixture(n, storage, dev)
+    pc, pmap, diag = _prec(form, args)
+    a0c, weights, _ = T.sphere_rayleigh_streamed(diag)
+    kw = dict(kw, a0_chunk=a0c, weights=weights, prec_chunk=pc, prec=pmap)
+    before = T.stpcg_flat_streamed.launches
+    res = T.stpcg_flat_streamed(*args, body_kind=body, **kw)
+    ref = T.stpcg_flat_streamed_reference(*args, body_kind=body, **kw)
+    torch.cuda.synchronize()
+    assert T.stpcg_flat_streamed.launches == before + 1
+    assert res.s.dtype == storage and res.s.device == args[0].device
+    tol, dit = (3e-2, 3) if storage == torch.bfloat16 else (2e-3, 1)
+    if form == "stored":
+        dit = 3
+    assert abs(int(res.num_iterations) - int(ref.num_iterations)) <= dit
+    _assert_step_close(res.s, ref.s, tol)
+    if storage == torch.float32:
+        torch.testing.assert_close(res.update_step_M_norm,
+                                   ref.update_step_M_norm, rtol=1e-3, atol=0)
+
+
+def test_prec_kernel_is_bitwise_repeatable_and_exact_jacobi_collapses(dev):
+    args, kw = _pd_fixture(1 << 18, torch.float32, dev)
+    pc, pmap, diag = _prec("quarter", args)
+    a0c, weights, _ = T.sphere_rayleigh_streamed(diag)
+    kw = dict(kw, a0_chunk=a0c, weights=weights)
+    r1 = T.stpcg_flat_streamed(*args, prec_chunk=pc, prec=pmap, **kw)
+    r2 = T.stpcg_flat_streamed(*args, prec_chunk=pc, prec=pmap, **kw)
+    assert torch.equal(r1.s, r2.s)
+    assert all(torch.equal(a, b) for a, b in zip(r1[1:], r2[1:]))
+    # B = 0 and the exact Jacobi: P H P = I, one CG step to -g / (2a - rq)
+    g, x, _, _, aux = args
+    pc = T.JacobiPower(0.0, 0.5)
+    pmap = pc.map(diag, aux[0], g.shape[0], dev)
+    zkw = dict(kw, max_iterations=400, kappa_fgr=1e-6, theta=0.0)
+    res = T.stpcg_flat_streamed(g, x, torch.zeros(2, 2, device=dev), 1e6,
+                                aux, prec_chunk=pc, prec=pmap, **zkw)
+    assert int(res.num_iterations) <= 2
+    s_true = -g / (2.0 * diag.values(g.shape[0], dev) - aux[0])
+    _assert_step_close(res.s, s_true, 1e-5)
+
+
+def test_escalation_and_least_squares_stay_on_card(dev):
+    """solve_escalated through the streamed kernel in both stages (bf16,
+    then f32) and euclidean_tnls on a CUDA x0: every result on the card."""
+    from optimization_tpu_torch import euclidean_tnls, headline
+    from optimization_tpu_torch.core.types import TNLSStatus, TNTStatus
+    from optimization_tpu_torch.solvers import tnt
+
+    n = 1 << 16
+    prob = headline.make_problem(n, dev, "streamed")
+    params = tnt.TNTParams(max_iterations=200, max_TPCG_iterations=100,
+                           gradient_tolerance=1e-3,
+                           relative_decrease_tolerance=0.0,
+                           stepsize_tolerance=0.0,
+                           preconditioned_gradient_tolerance=0.0)
+    before = T.stpcg_flat_streamed.launches
+    res = tnt.solve_escalated(prob, headline.initial_point(n, torch.float32,
+                                                           dev, 3), params)
+    assert T.stpcg_flat_streamed.launches > before
+    assert res.stage_low.x.dtype == torch.bfloat16
+    assert res.x.dtype == torch.float32 and res.x.device.type == "cuda"
+    assert int(res.status) == TNTStatus.GRADIENT
+    assert float(torch.linalg.vector_norm(prob.rgrad(res.x))) <= 1e-3
+
+    xs = torch.linspace(-3.14159, 3.14159, 1000, device=dev)
+    y = torch.sin(1.5707964 * xs + 0.7853982)
+    fit = euclidean_tnls(lambda b, d: d - torch.sin(b[0] * xs + b[1]),
+                         torch.ones(2, device=dev), data=y)
+    assert fit.x.device.type == "cuda" and fit.f.device.type == "cuda"
+    assert int(fit.status) in (TNLSStatus.ROOT, TNLSStatus.GRADIENT)
+    torch.testing.assert_close(fit.x.cpu(), torch.tensor([1.5707964,
+                                                          0.7853982]),
+                               rtol=0, atol=1e-3)
 
 
 # ---- the fused kernels (kernels/fused.py, csrc/fused.cu) ----

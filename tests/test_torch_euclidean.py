@@ -27,7 +27,6 @@ from optimization_tpu.kernels import diag_stencil_matvec as j_stencil
 from optimization_tpu.solvers import gradient_descent as jgd
 from optimization_tpu.solvers import tnt as jtnt
 from optimization_tpu_torch import euclidean_gradient_descent as t_gd
-from optimization_tpu_torch import euclidean_tnls as t_tnls
 from optimization_tpu_torch import euclidean_tnt as t_tnt
 from optimization_tpu_torch.core.types import GradientDescentStatus, TNTStatus
 from optimization_tpu_torch.interop import params_from_jax, result_to_numpy
@@ -76,11 +75,6 @@ def test_euclidean_tnt_matches_jax():
                                np.asarray(j.objective_values), rtol=1e-7,
                                atol=1e-14)
     np.testing.assert_allclose(t.x.numpy(), [1.0, 1.0], atol=1e-6)
-
-
-def test_euclidean_tnls_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        t_tnls(lambda x, d: x, torch.zeros(2))
 
 
 def _slice_data(n=N):

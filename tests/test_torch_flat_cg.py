@@ -9,8 +9,14 @@ TestInitThreading).  float64 inputs from a numpy seed: iteration counts
 EQUAL, steps and scalars within rtol 1e-9 (same recurrences, reduction
 order differs).  The bf16-storage case compares in f32 to one bf16
 rounding of the step (2^-8 relative).
+
+``stpcg_flat(prec=)`` (the folded elementwise M^(-1/2)) against JAX's at
+the same rtol 1e-9, and against the port's generic preconditioned
+``stpcg`` at the tolerances of ``tests/test_flat_cg.py::
+TestPreconditionedFlat`` (iterations equal, s rtol 1e-5, M-norm rtol 1e-6).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,6 +24,7 @@ import torch
 
 from optimization_tpu.linalg import flat_cg as J
 from optimization_tpu_torch.linalg import flat_cg as T
+from optimization_tpu_torch.linalg.stpcg import stpcg
 
 torch.set_num_threads(1)
 
@@ -215,9 +222,8 @@ def test_bf16_storage_matches_jax():
                                atol=2 ** -8 * scale)
 
 
-@pytest.mark.parametrize("kw", [dict(s_steps=2), dict(solve_mode=True),
-                                dict(prec=lambda v: v)],
-                         ids=["s_steps", "solve_mode", "prec"])
+@pytest.mark.parametrize("kw", [dict(s_steps=2), dict(solve_mode=True)],
+                         ids=["s_steps", "solve_mode"])
 def test_unported_engines_raise(kw):
     with pytest.raises(NotImplementedError):
         T.stpcg_flat(torch.ones(4), lambda v: v, None, None, 1.0, **kw)
@@ -231,3 +237,68 @@ def test_auto_body_is_pair():
     assert torch.equal(auto.s, pair.s)
     with pytest.raises(ValueError):
         T.stpcg_flat(tg, tA0, tU, tB, 1e9, body_kind="triple", **kw)
+
+
+def _prec_setup(seed=11, n=300, cond=1e4):
+    """tests/test_flat_cg.py::TestPreconditionedFlat._setup in both
+    packages: an ill-conditioned diagonal plus a rank-2 term, the Jacobi
+    P = D^(-1/2)."""
+    rng = np.random.default_rng(seed)
+    d = rng.uniform(1.0, cond, n)
+    Um = rng.normal(size=(n, 2)) / np.sqrt(n)
+    Bm = rng.normal(size=(2, 2))
+    B = 0.5 * (Bm + Bm.T) + 2.0 * np.eye(2)
+    g = rng.normal(size=n)
+    jd, td = jnp.asarray(d), torch.from_numpy(d)
+    jU = (jnp.asarray(Um[:, 0]), jnp.asarray(Um[:, 1]))
+    tU = tuple(torch.from_numpy(np.ascontiguousarray(Um[:, j]))
+               for j in range(2))
+    j = (jnp.asarray(g), lambda v: jd * v, jU, jnp.asarray(B),
+         lambda v: v * jax.lax.rsqrt(jd))
+    t = (torch.from_numpy(g), lambda v: td * v, tU, torch.from_numpy(B),
+         lambda v: v * torch.rsqrt(td))
+    tUm, tB = torch.from_numpy(Um), torch.from_numpy(B)
+    Hv = lambda v: td * v + tUm @ (tB @ (tUm.T @ v))
+    return d, Um, B, g, j, t, Hv, (lambda r: (r / td, None))
+
+
+@pytest.mark.parametrize("body", ["pair", "single"])
+@pytest.mark.parametrize("Delta", [1e9, 1.0, 1e-2])
+def test_prec_matches_jax_and_generic_engine(Delta, body):
+    _, _, _, _, (jg, jA0, jU, jB, jP), (tg, tA0, tU, tB, tP), Hv, pre = \
+        _prec_setup(seed=23)
+    kw = dict(max_iterations=400, kappa_fgr=0.05, theta=0.5)
+    tr = T.stpcg_flat(tg, tA0, tU, tB, Delta, prec=tP, body_kind=body, **kw)
+    _assert_same(J.stpcg_flat(jg, jA0, jU, jB, Delta, prec=jP,
+                              body_kind=body, **kw), tr)
+    ref = stpcg(tg, Hv, torch.dot, Delta, precon=pre, **kw)
+    assert int(tr.num_iterations) == int(ref.num_iterations)
+    np.testing.assert_allclose(tr.s.numpy(), ref.s.numpy(), rtol=1e-5,
+                               atol=1e-9)
+    np.testing.assert_allclose(float(tr.update_step_M_norm),
+                               float(ref.update_step_M_norm), rtol=1e-6)
+
+
+def test_prec_exact_regime_matches_direct():
+    d, Um, B, g, _, (tg, tA0, tU, tB, tP), _, _ = _prec_setup()
+    res = T.stpcg_flat(tg, tA0, tU, tB, 1e9, max_iterations=3000,
+                       kappa_fgr=1e-10, theta=0.999, prec=tP)
+    H = np.diag(d) + Um @ B @ Um.T
+    s_direct = -np.linalg.solve(H, g)
+    np.testing.assert_allclose(res.s.numpy(), s_direct, rtol=1e-6,
+                               atol=1e-9)
+    # the reported step norm is the M-norm |s|_D
+    np.testing.assert_allclose(float(res.update_step_M_norm),
+                               np.sqrt(s_direct @ (d * s_direct)), rtol=1e-6)
+
+
+def test_prec_cuts_iterations_and_rejects_init():
+    _, _, _, _, _, (tg, tA0, tU, tB, tP), _, _ = _prec_setup(seed=7,
+                                                            cond=1e6)
+    kw = dict(max_iterations=3000, kappa_fgr=1e-6, theta=0.9)
+    plain = T.stpcg_flat(tg, tA0, tU, tB, 1e9, **kw)
+    pc = T.stpcg_flat(tg, tA0, tU, tB, 1e9, prec=tP, **kw)
+    assert int(pc.num_iterations) * 10 < int(plain.num_iterations)
+    init = T.flat_init_dots(tg, tA0, tU, tB)
+    with pytest.raises(ValueError, match="init"):
+        T.stpcg_flat(tg, tA0, tU, tB, 1.0, prec=tP, init=init)

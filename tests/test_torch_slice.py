@@ -104,8 +104,7 @@ def test_f32_tier_first_steps_match_pallas_streamed():
     x0 = _x0(N)
     jres = jtnt.solve(_jax_problem(N, streamed=True), jnp.asarray(x0),
                       params)
-    run = headline.run_tier(headline.make_problem(N, torch.float32, "cpu",
-                                                  "streamed"),
+    run = headline.run_tier(headline.make_problem(N, "cpu", "streamed"),
                             tensor_from_numpy(x0, device="cpu"),
                             params_from_jax(params))
     t = result_to_numpy(run.result)
@@ -128,7 +127,7 @@ def test_headline_tiers_reach_the_jax_optimum(tier):
     jres = jtnt.solve(_jax_problem(N, streamed=False),
                       jnp.asarray(x0).astype(jdt), params)
     run = headline.run_tier(
-        headline.make_problem(N, dtype, "cpu", engine),
+        headline.make_problem(N, "cpu", engine),
         tensor_from_numpy(jnp.asarray(x0).astype(jdt), device="cpu",
                           dtype=dtype),
         params_from_jax(params))
@@ -152,7 +151,7 @@ def test_initial_point_and_params():
     assert (p.max_iterations, p.max_TPCG_iterations) == (30, 50)
     assert params_from_jax(_jax_params(1e-5)) == p
     with pytest.raises(ValueError, match="engine"):
-        headline.make_problem(64, torch.float32, "cpu", "xla")
+        headline.make_problem(64, "cpu", "xla")
 
 
 def test_interop_params_arrays_results():

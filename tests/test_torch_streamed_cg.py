@@ -15,6 +15,13 @@ decrease rtol 1e-3 — the two accumulate their f32 sums in another order and
 CG may stop one step apart at the truncation threshold; bf16 storage
 (test_bf16_storage_parity): iterations within 3, s within 3e-2 |s|.
 
+With the elementwise preconditioner (``prec_chunk``/``prec``), the four
+forms of P (the regularized Jacobi, its quarter power, the exact Jacobi and
+a stored P) against the Pallas kernel folding the same P: f32 at the
+tolerances of ``tests/test_streamed_cg.py::test_prec_matches_xla_prec_engine``
+(iterations within 1, M-norm rtol 2e-4, s within 3e-4 |s|, predicted
+decrease rtol 2e-3); bf16 storage within the bf16 tolerances above.
+
 The kernel itself runs only on the card: ``tests/test_torch_cuda.py``.
 """
 
@@ -221,8 +228,6 @@ def test_validation():
     call = lambda **k: T.stpcg_flat_streamed(
         k.pop("g", tg), k.pop("x", tx), torch.from_numpy(B), 1.0,
         (torch.tensor(rq),), **{"a0_chunk": a0c, "weights": weights, **k})
-    with pytest.raises(NotImplementedError, match="preconditioner"):
-        call(prec_chunk=lambda i0, aux: 1.0, prec=lambda v: v)
     with pytest.raises(NotImplementedError, match="sphere Rayleigh"):
         call(weights=(None, None))
     with pytest.raises(ValueError, match="storage dtype"):
@@ -235,3 +240,156 @@ def test_validation():
         bad = T.sphere_rayleigh_streamed(torch.ones(3))
         call(a0_chunk=bad[0], weights=bad[1])
 
+
+
+# ------------------------------------------------------ preconditioning --
+
+def _prec_forms(form, b, rq, n=N):
+    """P in both packages: (JAX prec_chunk, JAX prec, port prec_chunk, port
+    prec) for ``jacobi`` (|2a - rq| + 1)^(-1/2), ``quarter`` its square
+    root (config13's half power), ``exact`` (2a - rq)^(-1/2) (positive
+    definite fixtures only) and ``stored``, a P unrelated to a:
+    (1 + (i mod 13)/4)^(-1/2), held as a tensor by the port."""
+    a_chunk = _a_chunk(b)
+    a_full = 1.0 + jnp.float32(b) * jnp.arange(n, dtype=jnp.float32)
+    diag = T.AffineDiagonal(1.0, b)
+    if form == "stored":
+        def pj(idx):
+            return jax.lax.rsqrt(1.0 + 0.25 * (idx % 13).astype(jnp.float32))
+
+        def chunk(i0, aux):
+            row = jax.lax.broadcasted_iota(jnp.int32, (CR, 128), 0) + i0
+            lane = jax.lax.broadcasted_iota(jnp.int32, (CR, 128), 1)
+            return pj(row * 128 + lane)
+
+        pv = torch.rsqrt(1.0 + 0.25 * (torch.arange(n) % 13).float())
+        pfull = pj(jnp.arange(n, dtype=jnp.int32))
+        return chunk, (lambda v: v * pfull), pv, (lambda v: v * pv)
+    c, e = {"jacobi": (1.0, 0.5), "quarter": (1.0, 0.25),
+            "exact": (0.0, 0.5)}[form]
+
+    def jp_of(a, r):
+        d = 2.0 * a - r if form == "exact" else jnp.abs(2.0 * a - r) + c
+        return jax.lax.rsqrt(d if e == 0.5 else jnp.sqrt(d))
+
+    desc = T.JacobiPower(c, e)
+    return ((lambda i0, aux: jp_of(a_chunk(i0, aux), aux[0])),
+            (lambda v: v * jp_of(a_full, jnp.float32(rq))),
+            desc, desc.map(diag, torch.tensor(rq), n, "cpu"))
+
+
+# (fixture, P, Delta, body, storage): every P form, Delta, body and storage
+PREC_CASES = [
+    ("sphere", "jacobi", 1e6, "single", "f32"),
+    ("sphere", "jacobi", 0.5, "pair", "f32"),
+    ("sphere", "jacobi", 0.02, "single", "f32"),
+    ("sphere", "quarter", 1e6, "pair", "f32"),
+    ("sphere", "quarter", 0.02, "single", "bf16"),
+    ("sphere", "stored", 0.02, "pair", "f32"),
+    ("sphere", "jacobi", 0.5, "pair", "bf16"),
+    ("pd", "jacobi", 1e6, "pair", "f32"),
+    ("pd", "quarter", 0.5, "single", "f32"),
+    ("pd", "exact", 1e6, "pair", "f32"),
+    ("pd", "exact", 0.5, "single", "bf16"),
+    ("pd", "stored", 1e6, "single", "f32"),
+    ("pd", "stored", 0.5, "pair", "bf16"),
+    ("pd", "jacobi", 0.02, "pair", "bf16"),
+]
+
+
+@pytest.mark.parametrize("kind,form,Delta,body,storage", PREC_CASES,
+                         ids=[f"{c[0]}-{c[1]}-{c[2]:g}-{c[3]}-{c[4]}"
+                              for c in PREC_CASES])
+def test_prec_plain_version_matches_pallas(kind, form, Delta, body,
+                                           storage):
+    g, x, rq, B, b, kw = _fixture(kind)
+    jdt, tdt = ((jnp.bfloat16, torch.bfloat16) if storage == "bf16"
+                else (jnp.float32, torch.float32))
+    jpc, jpf, tpc, tpf = _prec_forms(form, b, rq)
+    a0c, weights, _ = J.sphere_rayleigh_streamed(_a_chunk(b))
+    jr = J.stpcg_flat_streamed(
+        jnp.asarray(g).astype(jdt), jnp.asarray(x).astype(jdt),
+        jnp.asarray(B), Delta, aux_scalars=(jnp.float32(rq),),
+        a0_chunk=a0c, weights=weights, chunk_rows=CR, interpret=True,
+        body_kind=body, prec_chunk=jpc, prec=jpf, **kw)
+    ta0, tw, _ = T.sphere_rayleigh_streamed(T.AffineDiagonal(1.0, b))
+    tr = T.stpcg_flat_streamed_reference(
+        torch.from_numpy(g).to(tdt), torch.from_numpy(x).to(tdt),
+        torch.from_numpy(B), Delta, (torch.tensor(rq),), a0_chunk=ta0,
+        weights=tw, body_kind=body, prec_chunk=tpc, prec=tpf, **kw)
+    assert tr.s.dtype == tdt
+    ki, kj = int(tr.num_iterations), int(jr.num_iterations)
+    s_t, s_j = tr.s.float().numpy(), np.asarray(jr.s, np.float32)
+    scale = max(float(np.linalg.norm(s_j)), 1e-9)
+    if storage == "bf16":
+        assert abs(ki - kj) <= 3
+        np.testing.assert_allclose(s_t, s_j, atol=3e-2 * scale)
+        return
+    assert abs(ki - kj) <= 1
+    np.testing.assert_allclose(s_t, s_j, atol=3e-4 * scale)
+    np.testing.assert_allclose(float(tr.update_step_M_norm),
+                               float(jr.update_step_M_norm), rtol=2e-4)
+    np.testing.assert_allclose(float(tr.predicted_decrease),
+                               float(jr.predicted_decrease), rtol=2e-3,
+                               atol=1e-8)
+
+
+def test_exact_jacobi_collapses_to_the_closed_form():
+    """tests/test_streamed_cg.py::test_prec_cuts_iterations_on_ill_
+    conditioned_fixture in the port: on a spread-4000 positive-definite
+    diagonal with B = 0, the exact Jacobi P turns H into the identity: at
+    most 2 CG iterations (at least 10x fewer than without P) and s = -g /
+    (2a - rq) within 1e-5 |s|."""
+    spread = 4000.0
+    b = spread / (N - 1)
+    rng = np.random.default_rng(13)
+    x = rng.standard_normal(N).astype(np.float32)
+    x /= np.linalg.norm(x)
+    g = rng.standard_normal(N).astype(np.float32)
+    diag = T.AffineDiagonal(1.0, b)
+    a0c, weights, _ = T.sphere_rayleigh_streamed(diag)
+    rq = torch.tensor(0.5)
+    desc = T.JacobiPower(0.0, 0.5)
+    kw = dict(a0_chunk=a0c, weights=weights, max_iterations=400,
+              kappa_fgr=1e-6, theta=0.0)
+    args = (torch.from_numpy(g), torch.from_numpy(x), torch.zeros(2, 2),
+            1e6, (rq,))
+    plain = T.stpcg_flat_streamed(*args, **kw)
+    prec = T.stpcg_flat_streamed(*args, prec_chunk=desc,
+                                 prec=desc.map(diag, rq, N, "cpu"), **kw)
+    assert int(prec.num_iterations) <= 2
+    assert int(plain.num_iterations) >= 10 * int(prec.num_iterations)
+    s_true = -g / (2.0 * diag.values(N, "cpu").numpy() - 0.5)
+    np.testing.assert_allclose(prec.s.numpy(), s_true,
+                               atol=1e-5 * np.linalg.norm(s_true))
+
+
+def test_prec_validation():
+    """The JAX package's rules (tests/test_streamed_cg.py::
+    test_prec_validation): both forms or neither, and no init=; and the
+    port's descriptor rules."""
+    g, x, rq, B, b, kw = _fixture("pd")
+    tg, tx = torch.from_numpy(g), torch.from_numpy(x)
+    diag = T.AffineDiagonal(1.0, b)
+    a0c, weights, _ = T.sphere_rayleigh_streamed(diag)
+    desc = T.JacobiPower()
+    pmap = desc.map(diag, torch.tensor(rq), N, "cpu")
+    call = lambda **k: T.stpcg_flat_streamed(
+        tg, tx, torch.from_numpy(B), 1.0, (torch.tensor(rq),),
+        **{"a0_chunk": a0c, "weights": weights, **k})
+    with pytest.raises(ValueError, match="both forms"):
+        call(prec_chunk=desc)
+    with pytest.raises(ValueError, match="both forms"):
+        call(prec=pmap)
+    a = diag.values(N, "cpu")
+    A0 = lambda v: 2.0 * a * v - float(rq) * v
+    init = flat_init_dots(tg, A0, (tx, (tx, lambda v: 2.0 * a * v)),
+                          torch.from_numpy(B))
+    with pytest.raises(ValueError, match="init"):
+        call(prec_chunk=desc, prec=pmap, init=init)
+    with pytest.raises(NotImplementedError, match="generators"):
+        call(prec_chunk=lambda i0, aux: 1.0, prec=pmap)
+    with pytest.raises(ValueError, match="e = 1/2 or 1/4"):
+        call(prec_chunk=T.JacobiPower(1.0, 1.0), prec=pmap)
+    with pytest.raises(ValueError, match="stored preconditioner"):
+        call(prec_chunk=torch.ones(3), prec=pmap)

@@ -9,9 +9,9 @@ non-zero exit and no result line:
 1. device: a CUDA device is required (there is no CPU path); prints
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` and
    turns TF32 off;
-2. build: compiles ``optimization_tpu_torch/csrc/streamed_cg.cu`` and
-   ``csrc/fused.cu`` with nvcc from this checkout, both at once, and prints
-   each build's seconds;
+2. build: compiles ``optimization_tpu_torch/csrc/streamed_cg.cu``,
+   ``csrc/fused.cu`` and ``csrc/probes.cu`` with nvcc from this checkout,
+   all at once, and prints each build's seconds;
 3. kernel parity: ``stpcg_flat_streamed`` on the card against its plain
    PyTorch version on the same inputs, at n = 2^20 and a ragged n, over
    storage dtype x body x init x Delta x fixture, then its preconditioned
@@ -64,7 +64,29 @@ non-zero exit and no result line:
 11. least squares on the card: ``euclidean_tnls`` on the sinusoid fit of
    tests/test_tnls.py with m = 2^24 samples in f32, noise from a seeded
    generator on the card, gated on beta and |F|; host reads counted;
-12. each streaming kernel's GB/s as a fraction of the measured ceiling, the
+12. the two residency probe kernels against their plain versions on the
+   card: ``pinned_stream`` and ``resident_body`` at n = 2^20, 999,999 and
+   100, K = 3 and 10, every arm (with and without s; x held or streamed;
+   r, p resident or streamed; bf16 and f32 storage), vectors norm to norm,
+   acc relative, a bitwise repeat, and the two arms of a kernel bitwise
+   equal;
+13. the probes' timing at n = 2^24 (what ``probe_pinned_stream.py`` and
+   ``probe_resident_body.py`` print): ms an iteration by the two-point
+   slope over K = 40 and 400 for ``stream5``, ``stream7``, ``pin4``,
+   ``pin6``, ``body_streamed`` and ``body_resident`` (also at n = 2^22,
+   fully resident), GB/s over the measured ceiling, the share held on
+   chip; launches counted; then both kernels against their plain versions
+   at n = 2^24, K = 40, where shared memory holds a part only (and
+   ``resident_body`` where x is held in part), at phase 12's limits, and
+   ``resident_body``'s bound from the card's own shared memory and L2;
+14. the convex path at the width of ``benchmarks/config4_lasso.py`` (LASSO,
+   m = 1500, n = 5000 dense f32, B = 1), data from a seeded generator on
+   the card: FISTA with config4's params, ISTA to the same F, ADMM (the
+   splitting of ``examples/lasso.py``, one Cholesky factor) simple and
+   accelerated, gated on their statuses and on agreeing with FISTA;
+   ``drive(proximal_gradient)`` and ``drive_admm`` bitwise equal to the
+   monolithic runs; host reads counted;
+15. each streaming kernel's GB/s as a fraction of the measured ceiling, the
    kernel table as one JSON line (each kernel's launches on its path, its
    error, its time, its plain version's, its bound and the library call's,
    null where no single PyTorch call computes the function), then the
@@ -93,7 +115,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 N_PARITY = (1 << 20, 999_999)       # the second is not a multiple of 1024
 N_MAIN = 1 << 24
 SHORT = 10                          # CG iterations: see check_parity
-SOURCES = ("streamed_cg", "fused")
+SOURCES = ("streamed_cg", "fused", "probes")
 N_FUSED = (1 << 24, 999_999, 100)   # fused kernel parity sizes
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"f32": 67e12, "tf32": 495e12, "bf16": 989e12}
@@ -124,13 +146,14 @@ def prec_of(torch, form, g, rq, diag):
     a stored P unrelated to a, (1 + (i mod 13)/4)^(-1/2) (the P of
     tests/test_torch_streamed_cg.py): a kernel that generated p in place of
     reading it would disagree."""
-    from optimization_tpu_torch.kernels.streamed_cg import JacobiPower
+    from optimization_tpu_torch.kernels.streamed_cg import (JacobiPower,
+                                                            stored_prec_map)
 
     n, dev = g.shape[0], g.device
     if form == "stored":
         i = torch.arange(n, device=dev)
         p = torch.rsqrt(1.0 + 0.25 * (i % 13).float())
-        return p, (lambda v: v * p)
+        return p, stored_prec_map(p)
     desc = JacobiPower(1.0, 0.5 if form == "jacobi" else 0.25)
     return desc, desc.map(diag, rq, n, dev)
 
@@ -141,7 +164,8 @@ def permuted_plain(torch, args, kwargs, diag):
     mathematics, its sums in another order.  Returns its iteration count
     and its step, unpermuted."""
     from optimization_tpu_torch.kernels.streamed_cg import (
-        sphere_rayleigh_streamed, stpcg_flat_streamed_reference)
+        sphere_rayleigh_streamed, stored_prec_map,
+        stpcg_flat_streamed_reference)
 
     g, x, B, Delta, aux = args
     n, dev = g.shape[0], g.device
@@ -153,7 +177,7 @@ def permuted_plain(torch, args, kwargs, diag):
     res = stpcg_flat_streamed_reference(
         g[perm].contiguous(), x[perm].contiguous(), B, Delta, aux,
         **dict(kwargs, a0_chunk=a0c, weights=weights, prec_chunk=p,
-               prec=lambda v: v * p))
+               prec=stored_prec_map(p)))
     s = torch.empty_like(res.s)
     s[perm] = res.s
     return int(res.num_iterations), s
@@ -1307,6 +1331,504 @@ def least_squares_phase(torch, dev, label):
     print("  gates passed: |beta - truth| <= 1e-3, |F| < |z|", flush=True)
 
 
+# ---- the residency probe kernels (csrc/probes.cu) ----
+
+N_PROBE = (1 << 20, 999_999, 100)
+N_PARTLY_X = 6_000_001              # bf16: r, p and a part of x fit on chip
+PROBE_K = (40, 400)                 # the two-point slope's iteration counts
+PROBE_TOLERANCES = """\
+  tolerances, kernel against plain version on the card:
+    pinned_stream (f32): r, p, s norm to norm 1e-5, acc 1e-5 relative (the
+      probe's own gate) -- the kernel contracts multiply-adds and sums its
+      f32 partials in double in a fixed order, torch.sum in its own tree;
+    resident_body: f32 storage r 1e-5, acc 1e-4; bf16 storage r 1e-3 (a
+      last-bit difference before a store flips a bf16 rounding, 2^-8
+      relative, in a few elements an iteration; measured <= 4e-5; a
+      storage rounding skipped on a region would show as ~4e-3), acc 1e-3
+      (the probe's own gate; a sum with large cancellation between dots);
+    both arms of a kernel (held / streamed, resident / streamed) and two
+      runs of one arm: bit for bit;
+    the same limits at n = 2^24, K = 40 (phase 13), where shared memory
+      holds a part only and the streamed regions' code runs.
+"""
+
+
+def probe_vectors(torch, n, dtype, dev, seed):
+    """r, p, x ~ U(0.5, 1), the probes' inputs, from a seeded generator."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [(0.5 + 0.5 * torch.rand(n, generator=gen, device=dev)).to(dtype)
+            for _ in range(3)]
+
+
+def _rel_norm(torch, got, ref):
+    got, ref = got.double(), ref.double()
+    return float(torch.linalg.vector_norm(got - ref)
+                 / torch.linalg.vector_norm(ref))
+
+
+def probe_parity_phase(torch, dev):
+    """Both probe kernels against their plain versions at sizes that
+    shared memory holds whole (``probe_full_width_check`` has the rest)."""
+    from optimization_tpu_torch.kernels import probes as P
+
+    print("phase 12: residency probe kernels vs plain versions on the card",
+          flush=True)
+    print(PROBE_TOLERANCES, end="", flush=True)
+    cases = 0
+
+    def check(label, ok, detail):
+        print(f"  {'ok  ' if ok else 'FAIL'} {label}: {detail}", flush=True)
+        if not ok:
+            raise AssertionError(f"probe kernel disagrees: {label}")
+
+    for n, K, with_s in itertools.product(N_PROBE, (3, 10), (False, True)):
+        r, p, x = probe_vectors(torch, n, torch.float32, dev, n % 997)
+        s = torch.zeros(n, device=dev) if with_s else None
+        ref = P.pinned_stream_reference(r, p, x, s, iterations=K)
+        arms = {name: P.pinned_stream(r, p, x, s, iterations=K, **kw)
+                for name, kw in (
+                    ("streamed", dict(hold_x=False)),
+                    ("held", dict(hold_x=True)),
+                    ("repeat", dict(hold_x=True)))}
+        torch.cuda.synchronize()
+        out = arms["held"]
+        rels = [_rel_norm(torch, u, v) for u, v in zip(out[:3], ref[:3])
+                if u is not None]
+        acc_rel = abs(float(out[3]) - float(ref[3])) / abs(float(ref[3]))
+        same = all(torch.equal(u, v) for arm in arms.values()
+                   for u, v in zip(arm, out) if u is not None)
+        tag = f"pinned_stream n={n} K={K} {'with s' if with_s else 'no s'}"
+        check(tag, max(rels) <= 1e-5 and acc_rel <= 1e-5 and same
+              and all(bool(torch.isfinite(u).all()) for u in out
+                      if u is not None),
+              f"max |dv|/|v| {max(rels):.2e}, acc rel {acc_rel:.2e}, three "
+              f"runs (streamed, held, repeat) bitwise equal {same}")
+        cases += 1
+
+    for n, K, dtype in itertools.product(
+            N_PROBE, (3, 10), (torch.bfloat16, torch.float32)):
+        r, p, x = probe_vectors(torch, n, dtype, dev, n % 991)
+        ref = P.resident_body_reference(r, p, x, iterations=K)
+        arms = [P.resident_body(r, p, x, iterations=K, resident=res)
+                for res in (False, True, True)]
+        torch.cuda.synchronize()
+        out = arms[1]
+        rel = _rel_norm(torch, out[0], ref[0])
+        acc_rel = abs(float(out[1]) - float(ref[1])) / abs(float(ref[1]))
+        same = all(torch.equal(a[0], out[0]) and torch.equal(a[1], out[1])
+                   for a in arms)
+        bf16 = dtype == torch.bfloat16
+        tag = f"resident_body n={n} K={K} {str(dtype)[6:]}"
+        check(tag, rel <= (1e-3 if bf16 else 1e-5)
+              and acc_rel <= (1e-3 if bf16 else 1e-4) and same
+              and out[0].dtype == dtype
+              and bool(torch.isfinite(out[0].float()).all()),
+              f"|dr|/|r| {rel:.2e}, acc rel {acc_rel:.2e}, three runs "
+              f"(streamed, resident, repeat) bitwise equal {same}")
+        cases += 1
+    print(f"phase 12: {cases} cases passed, each with its arms and a repeat "
+          f"bitwise equal", flush=True)
+
+
+def slope_ms(torch, call, reps=3):
+    """Milliseconds an iteration by the two-point slope over PROBE_K (as
+    the JAX probes time: the fixed cost of a call cancels), the best of
+    ``reps``; each point is ``time_ms`` of one call."""
+    k_lo, k_hi = PROBE_K
+    best = math.inf
+    for _ in range(reps):
+        lo = time_ms(torch, lambda: call(k_lo), 1)
+        hi = time_ms(torch, lambda: call(k_hi), 1)
+        best = min(best, (hi - lo) / (k_hi - k_lo))
+    return best
+
+
+def stream3_ceiling(torch, dev):
+    """GB/s of ``stream3_probe`` at n = 2^24 f32: the measured ceiling."""
+    from optimization_tpu_torch.kernels import fused as F
+
+    n = N_MAIN
+    gen = torch.Generator(device=dev).manual_seed(8)
+    v = torch.randn(n, generator=gen, device=dev)
+    d = 1.0 + 999.0 * torch.rand(n, generator=gen, device=dev)
+    return 3 * 4 * n / time_ms(torch, lambda: F.stream3_probe(d, v), 100) / 1e6
+
+
+def pinned_stream_arms(torch, dev, label, ceiling, n=N_MAIN, window=False):
+    """Time the arms of ``pinned_stream`` at n f32 elements (``window``:
+    the two L2-window arms as well); prints one line an arm and returns
+    {arm: (ms an iteration, held info)}."""
+    from optimization_tpu_torch.kernels import probes as P
+
+    r, p, x = probe_vectors(torch, n, torch.float32, dev, 1)
+    s = torch.zeros(n, device=dev)
+    out = {}
+    for name, words, sv, kw in (
+            ("stream5", 5, None, dict(hold_x=False)),
+            ("stream7", 7, s, dict(hold_x=False)),
+            ("pin4 (shared memory)", 4, None,
+             dict(hold_x=True, l2_window=False)),
+            ("pin4 (shared memory + L2 window)", 4, None,
+             dict(hold_x=True, l2_window=True)),
+            ("pin6 (shared memory)", 6, s,
+             dict(hold_x=True, l2_window=False)),
+            ("pin6 (shared memory + L2 window)", 6, s,
+             dict(hold_x=True, l2_window=True))):
+        if kw.get("l2_window") and not window:
+            continue
+        ms = slope_ms(torch, lambda k: P.pinned_stream(
+            r, p, x, sv, iterations=k, **kw))
+        held = P.pinned_stream.last_held
+        # the words that have to come from device memory: x only where
+        # neither shared memory nor the L2 window holds it
+        real = words + (0.0 if name.startswith("stream") else
+                        1.0 - held["x_shared"] - held["x_l2_window"])
+        gbs = real * 4 * n / ms / 1e6
+        bound_ms, _ = bound(words * 4 * n, 15 * n)
+        print(f"  {name}: {ms:.4f} ms an iteration, {gbs:.0f} GB/s of "
+              f"{real:.3f} n real words = {gbs / ceiling:.3f} of the measured "
+              f"ceiling; bound at {words} n words {bound_ms:.4f} ms "
+              f"({bound_ms / ms:.3f} of it); x held: shared memory "
+              f"{held['x_shared']:.3f}, L2 window {held['x_l2_window']:.3f}; "
+              f"n = {n} f32 [{label}]", flush=True)
+        out[name] = (ms, held)
+    return out
+
+
+def resident_body_arms(torch, dev, label, ceiling, sizes=(N_MAIN, 1 << 22)):
+    """Time the arms of ``resident_body`` in bf16 storage; prints one line
+    an arm and returns {(arm, n): (ms an iteration, held info)}."""
+    from optimization_tpu_torch.kernels import probes as P
+
+    out = {}
+    for n in sizes:
+        r, p, x = probe_vectors(torch, n, torch.bfloat16, dev, 2)
+        for name, res in (("body_streamed", False), ("body_resident", True)):
+            ms = slope_ms(torch, lambda k: P.resident_body(
+                r, p, x, iterations=k, resident=res))
+            held = P.resident_body.last_held
+            real = (4.0 * (1.0 - held["rp_shared"])
+                    + 1.0 - held["x_shared"])
+            gbs = real * 2 * n / ms / 1e6
+            b_bytes, _ = bound(5 * 2 * n, 0)
+            b_ops, _ = bound(0, 25 * n)
+            print(f"  {name}: {ms:.4f} ms an iteration, {gbs:.0f} GB/s of "
+                  f"{real:.3f} n real bf16 words = {gbs / ceiling:.3f} of the "
+                  f"measured ceiling; bounds: 5 n words streamed "
+                  f"{b_bytes:.4f} ms, 25 flops an element {b_ops:.4f} ms; "
+                  f"held in shared memory: r, p {held['rp_shared']:.3f}, x "
+                  f"{held['x_shared']:.3f}; n = {n} bf16 [{label}]",
+                  flush=True)
+            out[(name, n)] = (ms, held)
+    return out
+
+
+def probe_full_width_check(torch, dev):
+    """Both kernels against their plain versions where shared memory holds
+    a part only, so that the streamed regions' code (``pinned_stream``'s
+    grid-wide sweep, ``resident_body``'s r, p-only and streamed regions) is
+    held to PROBE_TOLERANCES too: n = 2^24 at K = 40, and ``resident_body``
+    in bf16 at n = N_PARTLY_X, where x is held in part.  Returns {name: max
+    |err| of r at n = 2^24} (f32 without s; bf16)."""
+    from optimization_tpu_torch.kernels import probes as P
+
+    n, K = N_MAIN, PROBE_K[0]
+    errs = {}
+
+    def check(label, ok, detail):
+        print(f"  {'ok  ' if ok else 'FAIL'} {label}: {detail}", flush=True)
+        if not ok:
+            raise AssertionError(f"probe kernel disagrees: {label}")
+
+    r, p, x = probe_vectors(torch, n, torch.float32, dev, 1)
+    for with_s in (False, True):
+        s = torch.zeros(n, device=dev) if with_s else None
+        ref = P.pinned_stream_reference(r, p, x, s, iterations=K)
+        out = P.pinned_stream(r, p, x, s, iterations=K)
+        share = P.pinned_stream.last_held["x_shared"]
+        rels = [_rel_norm(torch, u, v) for u, v in zip(out[:3], ref[:3])
+                if u is not None]
+        acc_rel = abs(float(out[3]) - float(ref[3])) / abs(float(ref[3]))
+        check(f"pinned_stream n={n} K={K} {'with s' if with_s else 'no s'}",
+              max(rels) <= 1e-5 and acc_rel <= 1e-5 and 0.0 < share < 1.0,
+              f"max |dv|/|v| {max(rels):.2e}, acc rel {acc_rel:.2e}, "
+              f"{share:.3f} of x in shared memory")
+        errs.setdefault("pinned_stream",
+                        float((out[0] - ref[0]).abs().max()))
+    for m, k, dtype in ((n, K, torch.bfloat16), (n, K, torch.float32),
+                        (N_PARTLY_X, 10, torch.bfloat16)):
+        r, p, x = probe_vectors(torch, m, dtype, dev, 2)
+        ref = P.resident_body_reference(r, p, x, iterations=k)
+        out = P.resident_body(r, p, x, iterations=k)
+        held = P.resident_body.last_held
+        rel = _rel_norm(torch, out[0], ref[0])
+        acc_rel = abs(float(out[1]) - float(ref[1])) / abs(float(ref[1]))
+        bf16 = dtype == torch.bfloat16
+        partly = (0.0 < held["rp_shared"] < 1.0 if m == n else
+                  held["rp_shared"] == 1.0 and 0.0 < held["x_shared"] < 1.0)
+        check(f"resident_body n={m} K={k} {str(dtype)[6:]}",
+              rel <= (1e-3 if bf16 else 1e-5)
+              and acc_rel <= (1e-3 if bf16 else 1e-4) and partly,
+              f"|dr|/|r| {rel:.2e}, acc rel {acc_rel:.2e}, in shared memory "
+              f"{held['rp_shared']:.3f} of r, p and {held['x_shared']:.3f} "
+              f"of x")
+        err = float((out[0].float() - ref[0].float()).abs().max())
+        if m == n and bf16:
+            # one bf16 step at r's size, in the few elements whose rounding
+            # a last-bit difference flipped
+            print(f"       max |dr| {err:.3g} where max |r| is "
+                  f"{float(ref[0].float().abs().max()):.3g}", flush=True)
+        errs.setdefault("resident_body", err)
+    return errs
+
+
+def probe_timing_phase(torch, dev, label, ceiling):
+    """Phase 13: the probes' measurement, the kernels against their plain
+    versions at this size, then each kernel's entry of the kernels line
+    (one K = 40 call at n = 2^24 beside its plain version and its bound)."""
+    from optimization_tpu_torch.kernels import probes as P
+
+    n, K = N_MAIN, PROBE_K[0]
+    print(f"phase 13: residency probes at n = 2^24, two-point slope over K "
+          f"= {PROBE_K[0]} and {PROBE_K[1]} [{label}]", flush=True)
+    # ---- the probes' run: both counts start at 0 here ----
+    P.pinned_stream.launches = 0
+    P.resident_body.launches = 0
+    pinned = pinned_stream_arms(torch, dev, label, ceiling)
+    body = resident_body_arms(torch, dev, label, ceiling)
+    launches = {"pinned_stream": P.pinned_stream.launches,
+                "resident_body": P.resident_body.launches}
+    # ---- end of the probes' run ----
+    s5, p4 = pinned["stream5"][0], pinned["pin4 (shared memory)"][0]
+    bs, br = (body[("body_streamed", n)][0], body[("body_resident", n)][0])
+    print(f"  x held against x streamed: pin4 / stream5 = {p4 / s5:.3f} "
+          f"(shared memory; probe_pinned_stream.py times the L2 window); r, p "
+          f"resident against streamed: {br / bs:.3f} at n = 2^24, "
+          f"{body[('body_resident', 1 << 22)][0] / body[('body_streamed', 1 << 22)][0]:.3f} "
+          f"at n = 2^22; the production kernel streams everything at 0.1472 "
+          f"ms a CG iteration of 6 n f32 words (7.36 ms / 50, PERF.md) "
+          f"[{label}]", flush=True)
+    print(f"  launches in the probes' run: {launches}", flush=True)
+
+    full = probe_full_width_check(torch, dev)
+    cap = P.card_capacity(dev)
+    entries = []
+    r, p, x = probe_vectors(torch, n, torch.float32, dev, 1)
+    ms = time_ms(torch, lambda: P.pinned_stream(r, p, x, iterations=K), 5)
+    plain_ms = time_ms(torch, lambda: P.pinned_stream_reference(
+        r, p, x, iterations=K), 2)
+    # x held: 4 n words an iteration, and x once
+    bound_ms, bound_by = bound((4 * K + 1) * 4 * n, 15 * n * K)
+    print(f"  pinned_stream, one K = {K} call (x held in shared memory as "
+          f"far as it fits): kernel {ms:.3f} ms, "
+          f"plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+          f"(4 K + 1) n words; {bound_ms / ms:.3f} of it) [{label}]",
+          flush=True)
+    entries.append({
+        "name": "pinned_stream", "route": "cuda",
+        "source": "optimization_tpu_torch/csrc/probes.cu",
+        "replaces": "benchmarks/probe_pallas_stream.py:111",
+        "launches": launches["pinned_stream"],
+        "max_abs_err": full["pinned_stream"], "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+
+    r, p, x = probe_vectors(torch, n, torch.bfloat16, dev, 2)
+    ms = time_ms(torch, lambda: P.resident_body(r, p, x, iterations=K), 5)
+    held = P.resident_body.last_held
+    plain_ms = time_ms(torch, lambda: P.resident_body_reference(
+        r, p, x, iterations=K), 2)
+    # The bound is the card's, not the kernel's: all the shared memory the
+    # card has (SMs x the opt-in limit of a block) holds r and p first (four
+    # accesses an iteration each element), then x; x's rest costs nothing
+    # where it fits L2.  What is left streams every iteration; everything
+    # is read once and r written once.
+    best_rp = min(1.0, cap["shared_bytes"] / (2 * 2 * n))
+    best_x = min(1.0, max(0.0, cap["shared_bytes"] - 2 * 2 * n) / (2 * n))
+    x_words = 0.0 if (1.0 - best_x) * 2 * n <= cap["l2_bytes"] \
+        else 1.0 - best_x
+    per_it = 4.0 * (1.0 - best_rp) + x_words
+    bound_ms, bound_by = bound((per_it * K + 4) * 2 * n, 25 * n * K)
+    print(f"  resident_body, one K = {K} call: kernel {ms:.3f} ms, plain "
+          f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+          f"({per_it:.3f} K + 4) n bf16 words, with {cap['sms']} SMs' "
+          f"{cap['shared_bytes']} bytes of shared memory holding "
+          f"{best_rp:.3f} of r, p and x's rest in the {cap['l2_bytes']} "
+          f"bytes of L2; {bound_ms / ms:.3f} of it); the kernel holds "
+          f"{held['rp_shared']:.3f} of r, p [{label}]", flush=True)
+    if held["rp_shared"] < 0.98 * best_rp:
+        raise AssertionError(
+            f"resident_body holds {held['rp_shared']:.3f} of r, p where the "
+            f"card's shared memory can hold {best_rp:.3f}")
+    entries.append({
+        "name": "resident_body", "route": "cuda",
+        "source": "optimization_tpu_torch/csrc/probes.cu",
+        "replaces": "benchmarks/probe_resident_kernel.py:238",
+        "launches": launches["resident_body"],
+        "max_abs_err": full["resident_body"], "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a probe kernel was not launched: {launches}")
+    return entries
+
+
+# ---- the convex path (config4's LASSO) ----
+
+
+LASSO_SHAPE = (1500, 5000)          # config4's m, n
+
+
+def host_reads(torch, fn):
+    """(result, seconds, host reads) of fn() under the sync debug mode."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            res, secs = timed_solve(torch, torch.cuda.current_device(), fn)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return res, secs, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def convex_phase(torch, dev, label):
+    """Phase 14: FISTA, ISTA and ADMM on config4's LASSO at full width
+    (m = 1500, n = 5000 dense f32, B = 1), and the host drivers."""
+    from optimization_tpu_torch import CompositeProblem
+    from optimization_tpu_torch.core.driver import drive, drive_admm
+    from optimization_tpu_torch.core.types import (ADMMStatus,
+                                                   ProximalGradientStatus)
+    from optimization_tpu_torch.solvers import admm, prox
+    from optimization_tpu_torch.solvers import proximal_gradient as pg
+
+    (m, n), mu = LASSO_SHAPE, 0.1
+    print(f"phase 14: config4 LASSO, m = {m}, n = {n} dense f32, B = 1, mu = "
+          f"{mu}: FISTA, ISTA, ADMM, drive, drive_admm [{label}]", flush=True)
+    # config4's law (benchmarks/config4_lasso.py:25-34) from a generator on
+    # the card: A ~ N(0, 1/m), 1 % support, noise 0.01
+    gen = torch.Generator(device=dev).manual_seed(0)
+    A = torch.randn((m, n), generator=gen, device=dev) / math.sqrt(m)
+    support = torch.rand(n, generator=gen, device=dev) < 0.01
+    x_true = torch.where(support, torch.randn(n, generator=gen, device=dev),
+                         torch.zeros(n, device=dev))
+    b = A @ x_true + 0.01 * torch.randn(m, generator=gen, device=dev)
+    data = {"A": A, "b": b}
+    problem = CompositeProblem(
+        f=lambda x, d: 0.5 * torch.sum((d["A"] @ x - d["b"]) ** 2),
+        g=lambda x, d: mu * torch.sum(torch.abs(x)),
+        prox_g=lambda x, lam, d: prox.soft_threshold(x, lam * mu))
+    x0 = torch.zeros(n, device=dev)
+    fista_params = pg.ProximalGradientParams(
+        max_iterations=300, composite_gradient_tolerance=1e-3,
+        relative_composite_gradient_tolerance=1e-6)
+    ista_params = dataclasses.replace(
+        fista_params, mode=pg.ProximalGradientMode.SIMPLE,
+        max_iterations=5000)
+
+    def report(name, res, secs, reads, extra=""):
+        k = int(res.num_iterations)
+        print(f"  {name}: {k} iterations in {secs:.3f} s = {k / secs:.0f} "
+              f"it/s, host reads {reads} ({reads / max(k, 1):.2f} an "
+              f"iteration){extra} [{label}]", flush=True)
+        if res.x.device.type != "cuda" or not bool(
+                torch.isfinite(res.x).all()) or res.x.shape != (n,):
+            raise AssertionError(f"{name}: x is not a finite ({n},) tensor "
+                                 f"on the card")
+
+    pg.solve(problem, x0, dataclasses.replace(fista_params, max_iterations=2),
+             data)                                             # warm-up
+    fista, secs, reads = host_reads(
+        torch, lambda: pg.solve(problem, x0, fista_params, data))
+    kf = int(fista.num_iterations)
+    report("FISTA", fista, secs, reads,
+           f", F = {float(fista.f):.6f}, |G| = "
+           f"{float(fista.composite_gradient_norms[kf - 1]):.3e}, line-search "
+           f"steps {int(fista.linesearch_iterations[:kf].sum())}, "
+           f"{ProximalGradientStatus(int(fista.status)).name}")
+    ista, secs, reads = host_reads(
+        torch, lambda: pg.solve(problem, x0, ista_params, data))
+    report("ISTA", ista, secs, reads,
+           f", F = {float(ista.f):.6f}, "
+           f"{ProximalGradientStatus(int(ista.status)).name}")
+    dF = abs(float(ista.f) - float(fista.f)) / abs(float(fista.f))
+    support_hit = float(((fista.x != 0) == support).float().mean())
+    if not (int(fista.status) == ProximalGradientStatus.PROX_GRAD_RESIDUAL
+            and int(ista.status) == ProximalGradientStatus.PROX_GRAD_RESIDUAL
+            and int(ista.num_iterations) > kf and dF <= 1e-3):
+        raise AssertionError(f"convex: FISTA / ISTA gate failed (dF = {dF})")
+    print(f"  gates passed: both PROX_GRAD_RESIDUAL, ISTA needs more "
+          f"iterations, |F_ista - F_fista| / F = {dF:.2e} <= 1e-3; FISTA's "
+          f"support agrees with the planted one on {support_hit:.4f} of the "
+          f"entries", flush=True)
+
+    chunked, secs_c = timed_solve(torch, dev, lambda: drive(
+        pg, problem, x0, fista_params, data, chunk_iterations=25))
+    same = torch.equal(chunked.x, fista.x)
+    print(f"  drive(proximal_gradient, chunk_iterations=25): "
+          f"{int(chunked.num_iterations)} iterations in {secs_c:.3f} s, x "
+          f"bitwise equal to the monolithic solve's: {same} [{label}]",
+          flush=True)
+    if not (same and int(chunked.num_iterations) == kf
+            and int(chunked.status) == int(fista.status)
+            and chunked.x.device.type == "cuda"):
+        raise AssertionError("convex: the chunked FISTA drive disagrees "
+                             "with the monolithic solve")
+
+    # ADMM on x - y = 0 (examples/lasso.py:57-64): the x-update through one
+    # Cholesky factor of A'A + rho I (rho fixed; library calls, as the JAX
+    # package leaves this product and solve outside any kernel)
+    rho = 1.0
+    (AtA, Atb, chol), secs_f = timed_solve(torch, dev, lambda: (
+        A.T @ A, A.T @ b,
+        torch.linalg.cholesky(A.T @ A + rho * torch.eye(n, device=dev))))
+    lasso = admm.ADMMProblem(
+        minLx=lambda y, lam, r, d: torch.cholesky_solve(
+            (Atb + r * y - lam)[:, None], chol)[:, 0],
+        minLy=lambda x, lam, r, d: prox.soft_threshold(x + lam / r, mu / r),
+        A=lambda x, d: x, B=lambda y, d: -y, At=lambda r, d: r)
+    base = admm.ADMMParams(max_iterations=250, rho=rho, eps_rel=1e-4,
+                           eps_abs_pri=1e-2, eps_abs_dual=1e-2)
+    print(f"  A'A, A'b and the Cholesky factor of A'A + I: {secs_f:.3f} s "
+          f"[{label}]", flush=True)
+    z = torch.zeros(n, device=dev)
+    admm.solve(lasso, z, z, z, dataclasses.replace(base, max_iterations=2))
+    fnorm = float(torch.linalg.vector_norm(fista.x))
+    for mode in admm.ADMMMode:
+        params = dataclasses.replace(base, mode=mode)
+        res, secs, reads = host_reads(
+            torch, lambda: admm.solve(lasso, z, z, z, params))
+        k = int(res.num_iterations)
+        dist = float(torch.linalg.vector_norm(res.y - fista.x)) / fnorm
+        F = float(problem.value(res.y, data))
+        report(f"ADMM {mode.value}", res, secs, reads,
+               f", |r| = {float(res.primal_residuals[k - 1]):.3e}, |s| = "
+               f"{float(res.dual_residuals[k - 1]):.3e}, F(y) = {F:.6f}, "
+               f"|y - x_fista| / |x_fista| = {dist:.3e}, "
+               f"{ADMMStatus(int(res.status)).name}")
+        # both solvers stop at loose tolerances (|G| <= 1e-3 against |r|,
+        # |s| <= 1e-2 + 1e-4 |.|): their answers are held to 5e-2 of |x|
+        # and 1e-2 of F
+        if not (int(res.status) == ADMMStatus.RESIDUAL_TOLERANCE
+                and dist <= 5e-2
+                and abs(F - float(fista.f)) <= 1e-2 * abs(float(fista.f))):
+            raise AssertionError(f"convex: ADMM {mode.value} gate failed")
+        chunked, secs_c = timed_solve(torch, dev, lambda: drive_admm(
+            lasso, z, z, z, params, chunk_iterations=20))
+        same = torch.equal(chunked.x, res.x) and torch.equal(chunked.y, res.y)
+        print(f"  drive_admm({mode.value}, chunk_iterations=20): "
+              f"{int(chunked.num_iterations)} iterations in {secs_c:.3f} s, "
+              f"x and y bitwise equal to the monolithic solve's: {same} "
+              f"[{label}]", flush=True)
+        if not (same and int(chunked.num_iterations) == k
+                and int(chunked.status) == int(res.status)
+                and chunked.x.device.type == "cuda"):
+            raise AssertionError("convex: drive_admm disagrees with the "
+                                 "monolithic solve")
+    print("  gates passed: RESIDUAL_TOLERANCE in both modes, y within 5e-2 "
+          "of FISTA's x and F within 1e-2, the chunked drives bitwise equal",
+          flush=True)
+
+
 def ceiling_summary(ceiling, rates, label):
     print(f"bandwidth ceiling: stream3_probe {ceiling:.0f} GB/s at n = 2^24 "
           f"f32 [{label}]", flush=True)
@@ -1357,6 +1879,9 @@ def main():
     prec_kernel, prec_gbs = config13_phase(torch, dev, label)
     config12_phase(torch, dev, label)
     least_squares_phase(torch, dev, label)
+    probe_parity_phase(torch, dev)
+    probe_kernels = probe_timing_phase(torch, dev, label, ceiling)
+    convex_phase(torch, dev, label)
     ceiling_summary(ceiling, {"stpcg_flat_streamed": streamed_gbs,
                               "stpcg_flat_streamed[prec]": prec_gbs,
                               **rates}, label)
@@ -1370,7 +1895,7 @@ def main():
         **times7[name]}
         for name in ("gram_pair", "stream3_probe")]
     print(json.dumps({"kernels": [kernel] + fused_kernels + new_kernels
-                      + [prec_kernel]}))
+                      + [prec_kernel] + probe_kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

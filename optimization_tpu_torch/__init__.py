@@ -20,12 +20,22 @@ reduction kernels of ``csrc/fused.cu``), ``euclidean_gradient_descent`` and
 ``euclidean_tnls`` (least squares: ``linalg.lsqr``, ``solvers.tnls``,
 ``LeastSquaresProblem``); the eigensolvers ``linalg.lobpcg`` /
 ``linalg.lobpcg_fleet`` (their Gram stage in the ``gram_pair`` kernel of
-``csrc/fused.cu``) and ``linalg.jacobi_eigh``; and the host-chunked
-drivers ``core.driver.drive`` / ``drive_lobpcg`` / ``drive_lobpcg_fleet``.
+``csrc/fused.cu``) and ``linalg.jacobi_eigh``; the convex solvers ``solvers.prox`` (six proximal
+operators), ``solvers.proximal_gradient`` (ISTA / FISTA on a
+``CompositeProblem``) and ``solvers.admm`` (simple, accelerated, residual
+balancing); the host-chunked drivers ``driver.drive`` (gradient descent,
+TNT, TNLS, proximal gradient) / ``drive_admm`` / ``drive_lobpcg`` /
+``drive_lobpcg_fleet`` on the ``Stopwatch`` clock; and the two residency
+probe kernels ``kernels.pinned_stream`` / ``kernels.resident_body``
+(``csrc/probes.cu``; ``probe_pinned_stream.py`` and
+``probe_resident_body.py`` at the repository root time them).
 """
 
 from . import core, kernels, linalg, manifolds, solvers
-from .core.problem import LeastSquaresProblem, RiemannianProblem
+from .core import driver
+from .core.host import Stopwatch
+from .core.problem import (CompositeProblem, LeastSquaresProblem,
+                           RiemannianProblem)
 from .core.types import (ADMMStatus, GradientDescentStatus,
                          ProximalGradientStatus, TNLSStatus, TNTStatus)
 from .solvers.euclidean import (euclidean_gradient_descent, euclidean_tnls,

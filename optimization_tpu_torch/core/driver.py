@@ -1,16 +1,19 @@
 """Host-chunked solve drivers: wall-clock limits, verbose output, observers.
 
 Counterpart of ``optimization_tpu/core/driver.py`` (``drive``,
-``drive_lobpcg``, ``drive_lobpcg_fleet`` and their shared loops).  The
+``drive_admm``, ``drive_lobpcg``, ``drive_lobpcg_fleet`` and their shared
+loops).  The
 reference checks a wall clock and prints a line at the top of every solver
 iteration (``TNT.h:447-471``, ``GradientDescent.h:231-253``,
-``TNLS.h:491-506``) and stores per-iteration times (``Base/Concepts.h:
+``TNLS.h:491-506``, ``ProximalGradient.h:334-345``, ``ADMM.h:477-504``) and
+stores per-iteration times (``Base/Concepts.h:
 76-80``).  As in the JAX package, a solve runs K iterations per call, and
 between calls the driver reads the clock, prints the per-iteration lines,
 calls the observer and writes the checkpoint, then resumes through the
 solver's warm-start seam (``Delta0`` for TNT and TNLS, plus TNT's
-``warm_start`` carry of its trial-step evaluator; gradient descent keeps no
-state across iterations), so a chunked run visits the same iterates as a
+``warm_start`` carry of its trial-step evaluator; the ``warm_start`` tuples
+of proximal gradient and ADMM; gradient descent keeps no state across
+iterations), so a chunked run visits the same iterates as a
 monolithic one.  (The JAX package's driver resumes TNT from x and the
 radius alone, which leaves the uninterrupted trajectory in the last bits
 when the problem has a ``step_eval``: ROADMAP Queue 3.)  A checkpoint
@@ -26,8 +29,14 @@ from the same generator state (a copy of ``generator``'s state at the call,
 or the solver's default generator, seeded 0 on the card), as the JAX driver
 hands every chunk the same ``key``: that is what makes chunked equal
 monolithic.  ``jax.block_until_ready`` is a synchronize on the result's
-device.  ``drive`` of ``proximal_gradient`` and ``drive_admm`` wait for the
-convex solvers (ROADMAP Queue 1 item 12).
+device.
+
+A terminating ``user_function`` of proximal gradient or ADMM sees the
+global iteration under chunking: the driver hands each chunk the iterations
+done so far (the solvers' ``iteration_offset``), and ADMM's
+penalty-adaptation schedule counts from there too, so a chunked run equals
+the monolithic one whatever the chunk size.  (In the JAX package both
+restart at 0 in every chunk; the reference passes the global iteration.)
 """
 
 from __future__ import annotations
@@ -42,11 +51,12 @@ from .debug import pad_value
 from .host import Stopwatch
 from .tree import tree_leaves, tree_map
 
-__all__ = ["drive", "drive_lobpcg", "drive_lobpcg_fleet"]
+__all__ = ["drive", "drive_admm", "drive_lobpcg", "drive_lobpcg_fleet"]
 
 
 class _Adapter(NamedTuple):
-    run: Callable          # (x, carry, n_iters, previous result) -> result
+    run: Callable          # (x, carry, n_iters, previous result,
+                           #  iterations done so far) -> result
     extract: Callable      # result -> (x, carry)
     pre_traces: Sequence[str]   # length n+1, recorded at top of iteration
     step_traces: Sequence[str]  # length n, recorded per attempted step
@@ -90,6 +100,19 @@ _TNT_STATUS_MSG = {  # TNT.h:626-686
     7: "computation-time limit reached",
     8: "user-supplied stopping criterion",
 }
+_PG_STATUS_MSG = {  # ProximalGradient.h:412-445
+    1: "composite gradient tolerance reached",
+    2: "iteration limit reached",
+    3: "linesearch failed to find an acceptable stepsize",
+    4: "computation-time limit reached",
+    5: "user-supplied stopping criterion",
+}
+_ADMM_STATUS_MSG = {  # ADMM.h:597-620
+    1: "primal and dual residual tolerances reached",
+    2: "iteration limit reached",
+    3: "computation-time limit reached",
+    4: "user-supplied stopping criterion",
+}
 _TNLS_STATUS_MSG = {  # TNLS.h:669-726
     1: "root found: residual norm below tolerance",
     2: "gradient norm tolerance reached",
@@ -108,7 +131,7 @@ def _adapter_for(solver, problem, params, data, user_function):
     if name == "gradient_descent":
         from .types import GradientDescentStatus as S
 
-        def run(x, carry, n, prev):
+        def run(x, carry, n, prev, done):
             return solver.solve(problem, x, _chunk_params(params, n), data,
                                 user_function=user_function)
 
@@ -127,7 +150,7 @@ def _adapter_for(solver, problem, params, data, user_function):
     if name == "tnt":
         from .types import TNTStatus as S
 
-        def run(x, carry, n, prev):
+        def run(x, carry, n, prev, done):
             # the previous chunk's evaluator state makes the resume exact
             # (solvers/tnt.py:solve(warm_start=))
             return solver.solve(problem, x, _chunk_params(params, n), data,
@@ -158,7 +181,7 @@ def _adapter_for(solver, problem, params, data, user_function):
     if name == "tnls":
         from .types import TNLSStatus as S
 
-        def run(x, carry, n, prev):
+        def run(x, carry, n, prev, done):
             return solver.solve(problem, x, _chunk_params(params, n), data,
                                 user_function=user_function, Delta0=carry)
 
@@ -180,9 +203,29 @@ def _adapter_for(solver, problem, params, data, user_function):
                                    ("|gradL|", float(r.gradfx_norm))])
 
     if name == "proximal_gradient":
-        raise NotImplementedError(
-            "drive(proximal_gradient) waits for the convex solvers, which "
-            "are not ported yet (ROADMAP.md, Queue 1 item 12)")
+        from .types import ProximalGradientStatus as S
+
+        def run(x, carry, n, prev, done):
+            return solver.solve(problem, x, _chunk_params(params, n), data,
+                                warm_start=carry, user_function=user_function,
+                                iteration_offset=done)
+
+        def fmt(r, i, k, p):
+            return (f"Iter: {k:4d}  F: {r.objective_values[i]:+.{p}e}  "
+                    f"|G|: {r.composite_gradient_norms[i]:.{p}e}")
+
+        return _Adapter(run, lambda r: (r.x, r.warm_start),
+                        (),
+                        ("objective_values", "composite_gradient_norms",
+                         "relative_composite_gradient_norms",
+                         "linesearch_iterations"),
+                        S.ITERATION_LIMIT.value, S.ELAPSED_TIME.value, fmt,
+                        "Proximal gradient", _PG_STATUS_MSG,
+                        lambda r: [("F", float(r.f)),
+                                   ("|G|", float(
+                                       r.composite_gradient_norms[
+                                           max(int(r.num_iterations) - 1, 0)])
+                                    if int(r.num_iterations) else float("nan"))])
 
     raise ValueError(f"No driver adapter for solver module '{name}'")
 
@@ -251,11 +294,11 @@ def _drive(adapter: _Adapter, params, chunk_iterations, observer,
             if not results:
                 # max_iterations == 0: mirror the monolithic solver (one
                 # zero-iteration run records the initial trace entry)
-                results.append(adapter.run(x, carry, 0, None))
+                results.append(adapter.run(x, carry, 0, None, 0))
                 counts.append(0)
                 chunk_times.append(watch.tock())
             break
-        r = adapter.run(x, carry, n, results[-1] if results else None)
+        r = adapter.run(x, carry, n, results[-1] if results else None, done)
         _synchronize(tree_leaves(r.x)[0])
         t = watch.tock()
         i = int(r.num_iterations)
@@ -329,8 +372,7 @@ def drive(solver, problem, x0, params, data=None, *,
     """Run ``solver.solve`` in host-driven chunks.
 
     - ``solver``: one of the solver modules ``gradient_descent`` / ``tnt`` /
-      ``tnls`` (``proximal_gradient`` raises ``NotImplementedError`` until
-      the convex solvers are ported).
+      ``tnls`` / ``proximal_gradient`` (for ADMM use :func:`drive_admm`).
     - Honors ``params.max_computation_time`` (checked between chunks; the
       status becomes the solver's ElapsedTime code, reference
       ``TNT.h:447-451``), ``params.verbose`` (per-iteration lines printed
@@ -352,6 +394,124 @@ def drive(solver, problem, x0, params, data=None, *,
     adapter = _adapter_for(solver, problem, params, data, user_function)
     return _drive(adapter, params, chunk_iterations, observer,
                   checkpoint_path, x0, time_interpolation)
+
+
+def drive_admm(problem, c, x0, y0, params, data=None, *,
+               user_function=None,
+               chunk_iterations: Optional[int] = None,
+               observer: Optional[Callable[..., None]] = None,
+               checkpoint_path: Optional[str] = None,
+               time_interpolation: bool = False):
+    """Host-chunked ADMM (see :func:`drive`).  Resumes via the solver's
+    ``warm_start`` seam, so acceleration/penalty state carries exactly.
+    ``user_function`` is the solver's terminating predicate
+    (``admm.solve``; it sees the global iteration); at
+    ``chunk_iterations=1`` the chunk result seen by ``observer``
+    additionally carries the reference callback's residual VECTORS
+    ``r``/``s`` per iteration (``ADMM.h:71-76``).  A checkpoint holds
+    ``(x, y, warm_start)``, as the JAX package's does."""
+    from .types import ADMMStatus as S
+    from ..solvers import admm
+
+    verbose = params.verbose
+    if chunk_iterations is None:
+        chunk_iterations = (1 if verbose
+                            else max(1, params.max_iterations // 10))
+
+    watch = Stopwatch()
+    results, counts, chunk_times = [], [], []
+    x, y, ws = x0, y0, None
+    done = 0
+    final_status = None
+
+    def run(n):
+        return admm.solve(problem, c, x, y, _chunk_params(params, n), data,
+                          warm_start=ws, user_function=user_function,
+                          iteration_offset=done)
+
+    while True:
+        n = min(chunk_iterations, params.max_iterations - done)
+        if n <= 0:
+            final_status = S.ITERATION_LIMIT.value
+            if not results:
+                results.append(run(0))
+                counts.append(0)
+                chunk_times.append(watch.tock())
+            break
+        r = run(n)
+        _synchronize(tree_leaves(r.x)[0])
+        t = watch.tock()
+        i = int(r.num_iterations)
+        status = int(r.status)
+        results.append(r)
+        counts.append(i)
+        chunk_times.append(t)
+        x, ws = r.x, r.warm_start
+        y = ws[2]["y_prev"]  # the internal (plain) y
+
+        if verbose:
+            for j in range(i):
+                print(f"Iter: {done + j:4d}  "
+                      f"|r|: {r.primal_residuals[j]:.{params.precision}e}  "
+                      f"|s|: {r.dual_residuals[j]:.{params.precision}e}  "
+                      f"rho: {r.penalty_parameters[j]:.{params.precision}e}"
+                      f"  time: {t:.3f}", flush=True)
+        if observer is not None:
+            observer(done + i, r, t)
+        if checkpoint_path is not None:
+            from .checkpoint import save_pytree
+            save_pytree(checkpoint_path, (x, y, ws))
+
+        done += i
+        if status != S.ITERATION_LIMIT.value:
+            final_status = status
+            break
+        if t > params.max_computation_time:
+            final_status = S.ELAPSED_TIME.value
+            break
+        if done >= params.max_iterations:
+            final_status = S.ITERATION_LIMIT.value
+            break
+
+    last = results[-1]
+    updates = {}
+    for f in ("primal_residuals", "dual_residuals", "m_k",
+              "penalty_parameters", "iteration_types"):
+        updates[f] = _stitch(results, counts, f, "step",
+                             params.max_iterations, False)
+    if params.log_iterates and getattr(last, "iterates", None) is not None:
+        sliced = [tree_map(lambda l, n=i: l[:n], r.iterates)
+                  for r, i in zip(results, counts)]
+
+        def cat(*xs):
+            flat = torch.cat(xs)
+            pad = params.max_iterations - flat.shape[0]
+            if pad > 0:
+                flat = torch.cat([flat, flat.new_zeros(
+                    (pad,) + tuple(flat.shape[1:]))])
+            return flat
+
+        updates["iterates"] = tree_map(cat, *sliced)
+    times, _ = _fill_times(params.max_iterations, counts, chunk_times,
+                           time_interpolation)
+    updates["times"] = torch.from_numpy(times).to(last.times.device)
+
+    dev = last.status.device
+    result = last._replace(
+        num_iterations=torch.tensor(done, dtype=torch.int32, device=dev),
+        status=torch.tensor(final_status, dtype=torch.int32, device=dev),
+        **updates)
+    if verbose:
+        _print_summary(
+            "ADMM", _ADMM_STATUS_MSG.get(final_status, str(final_status)),
+            [("primal residual",
+              float(result.primal_residuals[max(done - 1, 0)])
+              if done else float("nan")),
+             ("dual residual",
+              float(result.dual_residuals[max(done - 1, 0)])
+              if done else float("nan"))],
+            chunk_times[-1], params.precision)
+    return result
 
 
 def _chunk_generators(generator: Optional[torch.Generator]):

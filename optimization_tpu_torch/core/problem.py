@@ -1,8 +1,8 @@
 """Problem protocols: a problem is a frozen bundle of pure functions with
 the uniform signature ``fn(x, ..., data)``.
 
-Counterpart of ``optimization_tpu/core/problem.py`` (``RiemannianProblem``
-and ``LeastSquaresProblem``).  Derivatives default to ``torch.func``: the
+Counterpart of ``optimization_tpu/core/problem.py`` (``RiemannianProblem``,
+``LeastSquaresProblem`` and ``CompositeProblem``).  Derivatives default to ``torch.func``: the
 gradient is ``torch.func.grad`` pushed through the manifold's
 ``egrad_to_rgrad``, the Hessian-vector product is ``torch.func.jvp`` of the
 Riemannian gradient field followed by tangent projection (exact for
@@ -22,7 +22,8 @@ from ..manifolds.base import Manifold
 from ..manifolds.euclidean import EUCLIDEAN
 from .tree import tree_dot
 
-__all__ = ["RiemannianProblem", "LeastSquaresProblem"]
+__all__ = ["RiemannianProblem", "LeastSquaresProblem",
+           "CompositeProblem"]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -167,3 +168,37 @@ class LeastSquaresProblem:
         if self.inner_y is not None:
             return self.inner_y(u, v, data)
         return tree_dot(u, v)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class CompositeProblem:
+    """min_x f(x) + g(x), f smooth, g prox-friendly (for proximal gradient,
+    reference ``ProximalGradient.h:125-147``).
+
+    - ``f(x, data) -> scalar``; ``grad_f`` optional (defaults to
+      ``torch.func.grad``).
+    - ``g(x, data) -> scalar``: the nonsmooth term.
+    - ``prox_g(x, lam, data) -> x'``: proximal operator of g.
+    """
+
+    f: Callable[..., Any]
+    g: Callable[..., Any]
+    prox_g: Callable[..., Any]
+    grad_f: Optional[Callable[..., Any]] = None
+
+    def value_f(self, x, data=None):
+        return self.f(x, data)
+
+    def value_g(self, x, data=None):
+        return self.g(x, data)
+
+    def value(self, x, data=None):
+        return self.f(x, data) + self.g(x, data)
+
+    def gradient_f(self, x, data=None):
+        if self.grad_f is not None:
+            return self.grad_f(x, data)
+        return torch.func.grad(lambda y: self.f(y, data))(x)
+
+    def prox(self, x, lam, data=None):
+        return self.prox_g(x, lam, data)

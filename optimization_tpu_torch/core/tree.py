@@ -77,6 +77,10 @@ def tree_add(a: PyTree, b: PyTree) -> PyTree:
     return tree_map(torch.add, a, b)
 
 
+def tree_sub(a: PyTree, b: PyTree) -> PyTree:
+    return tree_map(torch.sub, a, b)
+
+
 def tree_scale(alpha, a: PyTree) -> PyTree:
     return tree_map(lambda x: alpha * x, a)
 
@@ -106,6 +110,15 @@ def tree_dot(a: PyTree, b: PyTree) -> torch.Tensor:
     return functools.reduce(operator.add, terms)
 
 
+def tree_norm(a: PyTree) -> torch.Tensor:
+    return torch.sqrt(tree_dot(a, a))
+
+
 def tree_where(pred, a: PyTree, b: PyTree) -> PyTree:
     """Leafwise select: pred ? a : b (pred is a scalar boolean tensor)."""
     return tree_map(lambda x, y: torch.where(pred, x, y), a, b)
+
+
+def tree_select(pred, a: PyTree, b: PyTree) -> PyTree:
+    """Alias of tree_where (kept for readability at call sites)."""
+    return tree_where(pred, a, b)

@@ -13,6 +13,8 @@ from __future__ import annotations
 import dataclasses
 import enum
 import math
+from typing import NamedTuple
+
 import torch
 
 __all__ = [
@@ -23,6 +25,8 @@ __all__ = [
     "TNLSStatus",
     "ProximalGradientStatus",
     "ADMMStatus",
+    "ADMMIterationType",
+    "SolveInfo",
     "RUNNING",
 ]
 
@@ -138,6 +142,13 @@ class ADMMIterationType(enum.IntEnum):
     ACCELERATED = 0
     STANDARD = 1
     RESTART = 2
+
+
+class SolveInfo(NamedTuple):
+    """Host-side metadata attached to results by the chunked drivers."""
+
+    elapsed_time: float
+    chunks: int
 
 
 def trace_fill(n: int, dtype: torch.dtype = torch.float32,

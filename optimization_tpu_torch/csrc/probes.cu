@@ -1,0 +1,652 @@
+// The two CG-body residency probes for the H100 (sm_90a): what does it buy
+// to keep a loop-invariant vector, or the loop's own state, on chip across
+// the iterations of a streamed CG-like loop?
+//
+// pinned_stream replaces benchmarks/probe_pallas_stream.py:mk_pallas (the
+// Pallas TPU kernel that pins x in VMEM and streams r, p (and s) in place):
+// K iterations of
+//
+//   a = 1e-12 acc;  pn = -r + a p;  rn = r + a (d .* pn) + a^2 x;
+//   [sn = s + a pn;]  acc = sum rn^2 + sum x .* rn,   d(i) = 1 + b i,
+//
+// f32, acc starting at 1, the diagonal regenerated from the index.
+//
+// resident_body replaces benchmarks/probe_resident_kernel.py:mk_pallas (x, r
+// and p pinned in VMEM, no traffic in the loop): K iterations of the streamed
+// CG kernel's chunk body (a0 = 2a - rq regenerated, u1 = 2a x, the p and r
+// updates, six dots) coupled through coefs_from(dots), bf16 or f32 storage,
+// f32 arithmetic, r and p rounded to storage at the end of every iteration.
+//
+// What bounds them: device-memory bytes (a few tens of flops an element).
+// The TPU kernels hold whole 64 MiB vectors in VMEM.  This card has no such
+// memory: a block can use at most 227 KB of shared memory, 132 SMs hold
+// about 30 MB together, and a part of the 50 MB L2 can be set aside for
+// persisting lines.  So the design keeps what fits and streams the rest:
+//
+// - one persistent cooperative launch for all K iterations, kBlocksPerSM
+//   blocks of kThreads threads on every SM;
+// - the vector's 16-byte groups are split into contiguous regions (held /
+//   streamed); every block owns a fixed slice of each held region for the
+//   whole loop (pinned_stream walks its streamed region grid-wide), so a
+//   thread meets the same elements in every iteration and what it keeps in
+//   shared memory never has to be exchanged;
+// - pinned_stream copies its slice of x's held region into shared memory
+//   once, and may put an L2 access-policy window (persisting hits, streaming
+//   misses) over the rest of x;
+// - resident_body keeps its slices of r and p (then x, if room is left) in
+//   shared memory in the storage type, rounding as a store would, and writes
+//   r back once;
+// - the per-thread f32 partial sums are reduced per block and then over the
+//   grid in double in a fixed order after one grid.sync() per iteration, and
+//   every thread advances the scalar recurrence redundantly: no atomics, no
+//   scalar ever goes to the host, two runs are bitwise equal;
+// - the held and the not-held arm of a kernel use ONE geometry (grid,
+//   regions, thread-to-element map) and differ only in where an operand is
+//   read from, so their results are bitwise equal too.
+//
+// Plain C interface for ctypes; see optimization_tpu_torch/kernels/probes.py
+// for the wrappers and the plain PyTorch versions.
+
+#include <cooperative_groups.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "storage.cuh"
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+// Two blocks of 512 threads on every SM, each with half the SM's shared
+// memory.  Of the geometries tried on the H100 (1024 x 1, 512 x 2, 256 x 4,
+// 256 x 6 blocks; one, two or four groups in flight a thread; the streamed
+// region walked block by block or grid-wide) this one streamed fastest.
+constexpr int kThreads = 512;
+constexpr int kBlocksPerSM = 2;
+constexpr int kWarps = kThreads / 32;
+// groups a thread has in flight per trip of pinned_stream's sweep (their
+// loads all start before the first of them is used)
+constexpr int kUnroll = 2;
+constexpr int kMaxAcc = 6;               // resident_body's dot group
+constexpr int kSlot = 16;                // bytes of one group in shared memory
+constexpr long long kNoBound = 1LL << 62;
+
+// The groups [begin, begin + len) of a region that this block owns.
+struct Slice {
+  long long begin;
+  long long len;
+};
+
+__host__ __device__ inline long long ceil_div(long long a, long long b) {
+  return (a + b - 1) / b;
+}
+
+__device__ __forceinline__ Slice block_slice(long long g0, long long g1) {
+  const long long per = ceil_div(g1 - g0, (long long)gridDim.x);
+  long long b = g0 + (long long)blockIdx.x * per;
+  long long e = b + per;
+  if (b > g1) b = g1;
+  if (e > g1) e = g1;
+  return Slice{b, e - b};
+}
+
+// Block + grid reduction of NACC per-thread partials: this block's sums go
+// to partial[par], one grid.sync(), then every block adds all the blocks'
+// sums in one fixed order, so `out` is bitwise the same in every thread.
+template <int NACC>
+__device__ void grid_sum(cg::grid_group& grid, double* partial, int par,
+                         double (*red)[kMaxAcc], double* tot,
+                         const float (&acc)[NACC], float (&out)[NACC]) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int a = 0; a < NACC; ++a) {
+    double v = acc[a];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+    if (lane == 0) red[warp][a] = v;
+  }
+  __syncthreads();
+  double* part = partial + (size_t)par * gridDim.x * kMaxAcc;
+  if (threadIdx.x < NACC) {
+    double v = 0.0;
+    for (int w = 0; w < kWarps; ++w) v += red[w][threadIdx.x];
+    part[(size_t)blockIdx.x * kMaxAcc + threadIdx.x] = v;
+  }
+  grid.sync();
+  for (int a = warp; a < NACC; a += kWarps) {
+    double v = 0.0;
+    for (unsigned b = lane; b < gridDim.x; b += 32) v += part[(size_t)b * kMaxAcc + a];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+    if (lane == 0) tot[a] = v;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int a = 0; a < NACC; ++a) out[a] = (float)tot[a];
+  // tot is rewritten only after the next grid_sum's first __syncthreads
+}
+
+// d(i) = 1 + b * f32(i): a separate multiply and add, as the plain version
+// and the JAX code evaluate it (exact index up to 2^24).
+__device__ __forceinline__ float affine_diag(float b, long long i) {
+  return __fadd_rn(1.f, __fmul_rn(b, __ll2float_rn(i)));
+}
+
+// ------------------------------------------------------------ pinned_stream
+
+struct PinnedParams {
+  const float* r_in;
+  const float* p_in;
+  const float* x;
+  const float* s_in;
+  float* r;
+  float* p;
+  float* s;
+  float* acc_out;
+  double* partial;     // [2][gridDim.x][kMaxAcc]
+  long long n;
+  long long g_held;    // x's groups [0, g_held) are the held region
+  int hold;            // the held region's x is read from shared memory
+  int iterations;
+  float b;
+};
+
+// One iteration's pass over a slice.  xs: this block's copy of the slice's x
+// in shared memory, or nullptr to read x from device memory.  A thread
+// takes the slice's groups first + j, j = t, t + step, ... (first = 0 and
+// step = the block's threads for a block's own slice; for the streamed
+// region walked grid-wide, first and step span the grid), kUnroll of them a
+// trip, always in this order, so its partial sums do not depend on kUnroll.
+template <bool WITH_S>
+__device__ __forceinline__ void pinned_sweep(
+    const PinnedParams& P, Slice sl, long long first, long long step,
+    const float* xs, const float* rs, const float* ps, const float* ss,
+    float a, float a2, float (&part)[2]) {
+  constexpr int W = 4;
+  constexpr int U = kUnroll;
+  for (long long j0 = first; j0 < sl.len; j0 += U * step) {
+    float rc[U][W], pc[U][W], xc[U][W], sc[U][W];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const long long j = j0 + u * step;
+      if (j < sl.len) {
+        const long long i = (sl.begin + j) * W;
+        Store<float>::load(rs, i, P.n, rc[u]);
+        Store<float>::load(ps, i, P.n, pc[u]);
+        if (xs != nullptr) Store<float>::load(xs, j * W, kNoBound, xc[u]);
+        else Store<float>::load(P.x, i, P.n, xc[u]);
+        if (WITH_S) Store<float>::load(ss, i, P.n, sc[u]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const long long j = j0 + u * step;
+      if (j < sl.len) {
+        const long long i = (sl.begin + j) * W;
+        float rn[W], pn[W];
+#pragma unroll
+        for (int e = 0; e < W; ++e) {
+          const float d = affine_diag(P.b, i + e);
+          pn[e] = -rc[u][e] + a * pc[u][e];
+          rn[e] = rc[u][e] + a * (d * pn[e]) + a2 * xc[u][e];
+          part[0] += rn[e] * rn[e];
+          part[1] += xc[u][e] * rn[e];
+        }
+        if (WITH_S) {
+#pragma unroll
+          for (int e = 0; e < W; ++e) sc[u][e] = sc[u][e] + a * pn[e];
+          Store<float>::store(P.s, i, P.n, sc[u]);
+        }
+        Store<float>::store(P.r, i, P.n, rn);
+        Store<float>::store(P.p, i, P.n, pn);
+      }
+    }
+  }
+}
+
+template <bool WITH_S>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM) pinned_stream_kernel(PinnedParams P) {
+  extern __shared__ uint4 dyn_smem[];
+  __shared__ double red[kWarps][kMaxAcc];
+  __shared__ double tot[kMaxAcc];
+  cg::grid_group grid = cg::this_grid();
+  constexpr int W = 4;
+  float* xs = reinterpret_cast<float*>(dyn_smem);
+  const long long G = ceil_div(P.n, W);
+  const Slice held = block_slice(0, P.g_held);
+  // the streamed region is walked by the whole grid in one stride
+  const Slice rest = Slice{P.g_held, G - P.g_held};
+  const long long rest_first = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const long long rest_step = (long long)gridDim.x * kThreads;
+
+  if (P.hold) {
+    // a thread reads back only the slots it wrote: no barrier is needed
+    for (long long j = threadIdx.x; j < held.len; j += kThreads) {
+      float v[W];
+      Store<float>::load(P.x, (held.begin + j) * W, P.n, v);
+      Store<float>::store(xs, j * W, kNoBound, v);
+    }
+  }
+
+  float acc = 1.f;
+  int par = 0;
+  for (int k = 0; k < P.iterations; ++k) {
+    const float a = 1e-12f * acc;
+    const float a2 = a * a;
+    // the first iteration reads the inputs; then r, p, s stream in place
+    const float* rs = k == 0 ? P.r_in : P.r;
+    const float* ps = k == 0 ? P.p_in : P.p;
+    const float* ss = k == 0 ? P.s_in : P.s;
+    float part[2] = {0.f, 0.f};
+    pinned_sweep<WITH_S>(P, held, threadIdx.x, kThreads, P.hold ? xs : nullptr,
+                         rs, ps, ss, a, a2, part);
+    pinned_sweep<WITH_S>(P, rest, rest_first, rest_step, nullptr, rs, ps, ss,
+                         a, a2, part);
+    float out[2];
+    grid_sum<2>(grid, P.partial, par, red, tot, part, out);
+    par ^= 1;
+    acc = out[0] + out[1];
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) *P.acc_out = acc;
+}
+
+// ------------------------------------------------------------ resident_body
+
+struct BodyParams {
+  const void* r_in;
+  const void* p_in;
+  const void* x;
+  void* r;             // the result; the streamed regions' r in place
+  void* p;             // scratch: the streamed regions' p in place
+  float* acc_out;
+  double* partial;     // [2][gridDim.x][kMaxAcc]
+  long long n;
+  long long g1;        // groups [0, g1): r, p and x held in shared memory
+  long long g2;        // groups [g1, g2): r and p held; [g2, G): streamed
+  int resident;        // the held regions are really held (else streamed)
+  int iterations;
+  float b;
+};
+
+struct Coefs {
+  float beta, crr, c0, c1, rq;
+};
+
+// The cross-iteration coupling of the probe (coefs_from).
+__device__ __forceinline__ Coefs coefs_from(const float (&d)[kMaxAcc]) {
+  Coefs c;
+  c.beta = 1e-7f * d[0] / (1.f + fabsf(d[1]));
+  c.crr = -1e-7f * d[0] / (1.f + d[2]);
+  c.c0 = 1e-9f * d[3] / (1.f + fabsf(d[4]));
+  c.c1 = 1e-9f * d[5] / (1.f + d[2]);
+  c.rq = 500.f + 1e-6f * d[0];
+  return c;
+}
+
+// One iteration's pass over a slice.  sm_r / sm_p / sm_x: this block's copy
+// of the slice in shared memory (storage type), or nullptr for device
+// memory (rs, ps, P.x in; P.r, P.p out).
+template <typename T>
+__device__ __forceinline__ void body_sweep(
+    const BodyParams& P, Slice sl, const T* rs, const T* ps, T* sm_r, T* sm_p,
+    const T* sm_x, const Coefs& c, float (&part)[kMaxAcc]) {
+  constexpr int W = Store<T>::W;
+  const T* x = static_cast<const T*>(P.x);
+  T* r_out = static_cast<T*>(P.r);
+  T* p_out = static_cast<T*>(P.p);
+  for (long long j = threadIdx.x; j < sl.len; j += kThreads) {
+    const long long i = (sl.begin + j) * W;
+    float rc[W], pc[W], xc[W], rn[W], pn[W];
+    if (sm_r != nullptr) {
+      Store<T>::load(sm_r, j * W, kNoBound, rc);
+      Store<T>::load(sm_p, j * W, kNoBound, pc);
+    } else {
+      Store<T>::load(rs, i, P.n, rc);
+      Store<T>::load(ps, i, P.n, pc);
+    }
+    if (sm_x != nullptr) Store<T>::load(sm_x, j * W, kNoBound, xc);
+    else Store<T>::load(x, i, P.n, xc);
+#pragma unroll
+    for (int e = 0; e < W; ++e) {
+      const float a = affine_diag(P.b, i + e);
+      const float a0 = 2.f * a - c.rq;
+      const float u1 = (2.f * a) * xc[e];
+      pn[e] = -rc[e] + c.beta * pc[e];
+      const float q = a0 * pn[e] + c.c0 * xc[e] + c.c1 * u1;
+      rn[e] = rc[e] + c.crr * q;
+      const float a0r = a0 * rn[e];
+      const float a0p = a0 * pn[e];
+      part[0] += rn[e] * rn[e];
+      part[1] += a0r * rn[e];
+      part[2] += a0r * a0r;
+      part[3] += a0r * a0p;
+      part[4] += xc[e] * a0r;
+      part[5] += u1 * a0r;
+    }
+    // r and p round to storage here, in shared memory as in device memory
+    if (sm_r != nullptr) {
+      Store<T>::store(sm_r, j * W, kNoBound, rn);
+      Store<T>::store(sm_p, j * W, kNoBound, pn);
+    } else {
+      Store<T>::store(r_out, i, P.n, rn);
+      Store<T>::store(p_out, i, P.n, pn);
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM) resident_body_kernel(BodyParams P) {
+  extern __shared__ uint4 dyn_smem[];
+  __shared__ double red[kWarps][kMaxAcc];
+  __shared__ double tot[kMaxAcc];
+  cg::grid_group grid = cg::this_grid();
+  constexpr int W = Store<T>::W;
+  const T* r_in = static_cast<const T*>(P.r_in);
+  const T* p_in = static_cast<const T*>(P.p_in);
+  const T* x = static_cast<const T*>(P.x);
+  T* r_out = static_cast<T*>(P.r);
+  const long long G = ceil_div(P.n, W);
+  const Slice sl[3] = {block_slice(0, P.g1), block_slice(P.g1, P.g2),
+                       block_slice(P.g2, G)};
+  // shared memory, in groups: r of regions 0 and 1, p of both, x of region 0
+  const long long held = sl[0].len + sl[1].len;
+  T* sm = reinterpret_cast<T*>(dyn_smem);
+  T* sm_r[2] = {sm, sm + sl[0].len * W};
+  T* sm_p[2] = {sm + held * W, sm + (held + sl[0].len) * W};
+  T* sm_x = sm + 2 * held * W;
+  const bool res = P.resident != 0;
+
+  // rv0 = sum r^2, and the copy-in of what is held (a thread reads back
+  // only the slots it wrote: no barrier is needed)
+  float acc0[1] = {0.f};
+  for (int reg = 0; reg < 3; ++reg) {
+    for (long long j = threadIdx.x; j < sl[reg].len; j += kThreads) {
+      const long long i = (sl[reg].begin + j) * W;
+      float v[W];
+      Store<T>::load(r_in, i, P.n, v);
+#pragma unroll
+      for (int e = 0; e < W; ++e) acc0[0] += v[e] * v[e];
+      if (res && reg < 2) {
+        Store<T>::store(sm_r[reg], j * W, kNoBound, v);
+        Store<T>::load(p_in, i, P.n, v);
+        Store<T>::store(sm_p[reg], j * W, kNoBound, v);
+        if (reg == 0) {
+          Store<T>::load(x, i, P.n, v);
+          Store<T>::store(sm_x, j * W, kNoBound, v);
+        }
+      }
+    }
+  }
+  int par = 0;
+  float rv0[1];
+  grid_sum<1>(grid, P.partial, par, red, tot, acc0, rv0);
+  par ^= 1;
+  float dots[kMaxAcc] = {rv0[0], 0.f, 0.f, 0.f, 0.f, 0.f};
+
+  for (int k = 0; k < P.iterations; ++k) {
+    const Coefs c = coefs_from(dots);
+    const T* rs = k == 0 ? r_in : r_out;
+    const T* ps = k == 0 ? p_in : static_cast<const T*>(P.p);
+    float part[kMaxAcc] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    body_sweep<T>(P, sl[0], rs, ps, res ? sm_r[0] : nullptr,
+                  res ? sm_p[0] : nullptr, res ? sm_x : nullptr, c, part);
+    body_sweep<T>(P, sl[1], rs, ps, res ? sm_r[1] : nullptr,
+                  res ? sm_p[1] : nullptr, nullptr, c, part);
+    body_sweep<T>(P, sl[2], rs, ps, nullptr, nullptr, nullptr, c, part);
+    grid_sum<kMaxAcc>(grid, P.partial, par, red, tot, part, dots);
+    par ^= 1;
+  }
+
+  if (res) {
+    // the held r goes back to device memory once
+    for (int reg = 0; reg < 2; ++reg) {
+      for (long long j = threadIdx.x; j < sl[reg].len; j += kThreads) {
+        float v[W];
+        Store<T>::load(sm_r[reg], j * W, kNoBound, v);
+        Store<T>::store(r_out, (sl[reg].begin + j) * W, P.n, v);
+      }
+    }
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) *P.acc_out = dots[0] + dots[3];
+}
+
+// ------------------------------------------------------------------- host
+
+// kBlocksPerSM blocks on every SM, fewer when the vector is short; the
+// shared-memory slots a block may take (the SM's shared memory split among
+// its blocks, less what the system and the kernel's static arrays take).
+cudaError_t card_geometry(const void* fn, long long groups, int* grid,
+                          long long* slots) {
+  int dev = 0, sms = 0, optin = 0, per_sm = 0, reserved = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return e;
+  e = cudaDeviceGetAttribute(&per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+  if (e != cudaSuccess) return e;
+  e = cudaDeviceGetAttribute(&reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev);
+  if (e != cudaSuccess) return e;
+  cudaFuncAttributes attr;
+  e = cudaFuncGetAttributes(&attr, fn);
+  if (e != cudaSuccess) return e;
+  const long long want = ceil_div(groups, kThreads);
+  const long long cap = (long long)sms * kBlocksPerSM;
+  *grid = (int)(want < 1 ? 1 : (want < cap ? want : cap));
+  long long bytes = per_sm / kBlocksPerSM - reserved;
+  if (bytes > optin) bytes = optin;
+  *slots = (bytes - (long long)attr.sharedSizeBytes) / kSlot;
+  if (*slots < 0) *slots = 0;
+  return cudaSuccess;
+}
+
+cudaError_t launch(const void* fn, void** args, int grid, int smem_bytes,
+                   const cudaAccessPolicyWindow* window, cudaStream_t stream) {
+  cudaError_t e = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (e != cudaSuccess) return e;
+  int per_sm = 0, dev = 0, sms = 0;
+  e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads, smem_bytes);
+  if (e != cudaSuccess) return e;
+  if ((long long)per_sm * sms < grid) return cudaErrorCooperativeLaunchTooLarge;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem_bytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attrs[2];
+  attrs[0].id = cudaLaunchAttributeCooperative;
+  attrs[0].val.cooperative = 1;
+  int nattrs = 1;
+  if (window != nullptr) {
+    attrs[1].id = cudaLaunchAttributeAccessPolicyWindow;
+    attrs[1].val.accessPolicyWindow = *window;
+    nattrs = 2;
+  }
+  cfg.attrs = attrs;
+  cfg.numAttrs = nattrs;
+  e = cudaLaunchKernelExC(&cfg, fn, args);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+template <typename T>
+const void* body_kernel() { return (const void*)resident_body_kernel<T>; }
+
+}  // namespace
+
+extern "C" {
+
+const char* probes_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+// Geometry of a pinned_stream launch over n f32 elements: the grid, the
+// dynamic shared memory a block takes, and how many of x's 16-byte groups
+// shared memory holds (the held region [0, g_held)).  The caller sizes the
+// partial buffer as 2 * grid * probes_nacc() doubles.
+int probes_pinned_geometry(long long n, int* grid, int* smem_bytes,
+                           long long* g_held) {
+  const long long G = ceil_div(n, 4);
+  long long slots = 0;
+  cudaError_t e = card_geometry((const void*)pinned_stream_kernel<true>, G,
+                                grid, &slots);
+  if (e != cudaSuccess) return (int)e;
+  const long long total = slots * *grid;
+  *g_held = G < total ? G : total;
+  *smem_bytes = (int)(ceil_div(*g_held, *grid) * kSlot);
+  return 0;
+}
+
+int probes_nacc() { return kMaxAcc; }
+
+// What the current card has on chip, whatever these kernels make of it: its
+// SM count, the most shared memory one block may opt in to, and its L2 size.
+int probes_card_capacity(int* sms, int* shared_optin_bytes, int* l2_bytes) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaDeviceGetAttribute(shared_optin_bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaDeviceGetAttribute(l2_bytes, cudaDevAttrL2CacheSize, dev);
+}
+
+// K iterations of the pinned-stream loop on `stream`.  hold: read the held
+// region's x from shared memory (else everything streams; the geometry is
+// the same).  window: put an L2 access-policy window over the part of x
+// that shared memory does not hold; the share of x's bytes it can keep
+// (set-aside L2 over x's size) is returned in *l2_share.  With a window the
+// call waits for the kernel, then gives the set-aside L2 back, so that no
+// later kernel runs with a smaller cache.  Returns a cudaError_t code.
+int probes_pinned_stream(const float* r_in, const float* p_in, const float* x,
+                         const float* s_in, float* r, float* p, float* s,
+                         float* acc_out, double* partial, long long n,
+                         int iterations, int hold, int window, int grid,
+                         int smem_bytes, long long g_held, double* l2_share,
+                         void* stream) {
+  PinnedParams P;
+  P.r_in = r_in;
+  P.p_in = p_in;
+  P.x = x;
+  P.s_in = s_in;
+  P.r = r;
+  P.p = p;
+  P.s = s;
+  P.acc_out = acc_out;
+  P.partial = partial;
+  P.n = n;
+  P.g_held = g_held;
+  P.hold = hold;
+  P.iterations = iterations;
+  P.b = (float)(999.0 / (double)(n - 1));
+  void* args[] = {&P};
+  const void* fn = s_in != nullptr ? (const void*)pinned_stream_kernel<true>
+                                   : (const void*)pinned_stream_kernel<false>;
+  *l2_share = 0.0;
+  cudaAccessPolicyWindow win;
+  size_t old_limit = 0;
+  bool windowed = false;
+  if (window) {
+    int dev = 0, max_persist = 0, max_window = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return (int)e;
+    e = cudaDeviceGetAttribute(&max_persist, cudaDevAttrMaxPersistingL2CacheSize, dev);
+    if (e != cudaSuccess) return (int)e;
+    e = cudaDeviceGetAttribute(&max_window, cudaDevAttrMaxAccessPolicyWindowSize, dev);
+    if (e != cudaSuccess) return (int)e;
+    const long long first = hold ? g_held * 4 : 0;   // elements held in smem
+    const long long want = (n - first) * 4;          // bytes of x that stream
+    const long long bytes = want < max_window ? want : max_window;
+    const long long persist = bytes < max_persist ? bytes : max_persist;
+    if (persist > 0) {
+      e = cudaDeviceGetLimit(&old_limit, cudaLimitPersistingL2CacheSize);
+      if (e != cudaSuccess) return (int)e;
+      e = cudaDeviceSetLimit(cudaLimitPersistingL2CacheSize, (size_t)persist);
+      if (e != cudaSuccess) return (int)e;
+      win.base_ptr = (void*)(x + first);
+      win.num_bytes = (size_t)bytes;
+      // a little under the set-aside size, so persisting lines do not
+      // evict each other
+      win.hitRatio = 0.95f * (float)((double)persist / (double)bytes);
+      win.hitProp = cudaAccessPropertyPersisting;
+      win.missProp = cudaAccessPropertyStreaming;
+      windowed = true;
+      *l2_share = (double)win.hitRatio * (double)bytes / ((double)n * 4.0);
+    }
+  }
+  cudaError_t e = launch(fn, args, grid, hold ? smem_bytes : 0,
+                         windowed ? &win : nullptr, (cudaStream_t)stream);
+  if (windowed) {
+    cudaError_t e2 = cudaStreamSynchronize((cudaStream_t)stream);
+    cudaError_t e3 = cudaCtxResetPersistingL2Cache();
+    cudaError_t e4 = cudaDeviceSetLimit(cudaLimitPersistingL2CacheSize, old_limit);
+    if (e == cudaSuccess) e = e2 != cudaSuccess ? e2 : (e3 != cudaSuccess ? e3 : e4);
+  }
+  return (int)e;
+}
+
+// Geometry of a resident_body launch over n elements of f32 or bf16
+// storage: groups [0, g1) have r, p and x in shared memory, [g1, g2) r and
+// p, the rest streams.  r and p come first (each is read and written every
+// iteration, x only read).
+int probes_body_geometry(int bf16, long long n, int* grid, int* smem_bytes,
+                         long long* g1, long long* g2) {
+  const int W = bf16 ? 8 : 4;
+  const long long G = ceil_div(n, W);
+  long long cap = 0;
+  const void* fn = bf16 ? body_kernel<__nv_bfloat16>() : body_kernel<float>();
+  cudaError_t e = card_geometry(fn, G, grid, &cap);
+  if (e != cudaSuccess) return (int)e;
+  const long long per_g = ceil_div(G, *grid);
+  if (2 * per_g <= cap) {
+    long long per_x = cap - 2 * per_g - 2;
+    if (per_x > per_g) per_x = per_g;
+    if (per_x < 0) per_x = 0;
+    *g1 = per_x * *grid < G ? per_x * *grid : G;
+    *g2 = G;
+  } else {
+    *g1 = 0;
+    *g2 = (cap / 2) * *grid;
+  }
+  *smem_bytes = (int)((3 * ceil_div(*g1, *grid)
+                       + 2 * ceil_div(*g2 - *g1, *grid)) * kSlot);
+  return 0;
+}
+
+// K iterations of the CG chunk body on `stream`.  resident: keep the held
+// regions in shared memory (else stream everything, in the same geometry).
+int probes_resident_body(int bf16, const void* r_in, const void* p_in,
+                         const void* x, void* r, void* p, float* acc_out,
+                         double* partial, long long n, int iterations,
+                         int resident, int grid, int smem_bytes, long long g1,
+                         long long g2, void* stream) {
+  BodyParams P;
+  P.r_in = r_in;
+  P.p_in = p_in;
+  P.x = x;
+  P.r = r;
+  P.p = p;
+  P.acc_out = acc_out;
+  P.partial = partial;
+  P.n = n;
+  P.g1 = g1;
+  P.g2 = g2;
+  P.resident = resident;
+  P.iterations = iterations;
+  P.b = (float)(999.0 / (double)(n - 1));
+  void* args[] = {&P};
+  const void* fn = bf16 ? body_kernel<__nv_bfloat16>() : body_kernel<float>();
+  return (int)launch(fn, args, grid, resident ? smem_bytes : 0, nullptr,
+                     (cudaStream_t)stream);
+}
+
+}  // extern "C"

@@ -1,8 +1,10 @@
 """Carry the JAX package's state across to the port, and results back.
 
 The ported problems have no learned weights: their state is the params
-(``TNTParams``, ``TNLSParams``, ``GradientDescentParams`` and their bases),
-the initial point, the data, and a LOBPCG solve's ``warm_start`` carry.
+(``TNTParams``, ``TNLSParams``, ``GradientDescentParams``,
+``ProximalGradientParams``, ``ADMMParams`` and their bases), the initial
+point, the data (for the convex solvers A, b, c), and the ``warm_start``
+carry of a LOBPCG, proximal-gradient or ADMM solve.
 These functions carry them without importing JAX (arrays arrive through
 numpy's array protocol).
 """
@@ -16,16 +18,25 @@ import torch
 
 from .core.tree import tree_map
 from .core.types import OptimizerParams, SmoothOptimizerParams
+from .solvers import admm as _admm
+from .solvers import proximal_gradient as _pg
 from .solvers.gradient_descent import GradientDescentParams
 from .solvers.tnls import TNLSParams
 from .solvers.tnt import TNTParams
 
 __all__ = ["params_from_jax", "tensor_from_numpy", "result_to_numpy",
-           "lobpcg_warm_start_from_jax"]
+           "lobpcg_warm_start_from_jax",
+           "proximal_gradient_warm_start_from_jax",
+           "admm_warm_start_from_jax"]
 
 _PARAMS = {cls.__name__: cls
            for cls in (OptimizerParams, SmoothOptimizerParams,
-                       GradientDescentParams, TNTParams, TNLSParams)}
+                       GradientDescentParams, TNTParams, TNLSParams,
+                       _pg.ProximalGradientParams, _admm.ADMMParams)}
+# enum-valued fields are carried by value into the port's enum of that name
+_ENUMS = {cls.__name__: cls
+          for cls in (_pg.ProximalGradientMode, _admm.ADMMMode,
+                      _admm.ADMMPenaltyAdaptation)}
 
 
 def params_from_jax(p):
@@ -35,6 +46,9 @@ def params_from_jax(p):
         raise TypeError(f"no port counterpart for {type(p).__name__}")
     port_fields = {f.name for f in dataclasses.fields(cls)}
     values = {f.name: getattr(p, f.name) for f in dataclasses.fields(p)}
+    for name, v in values.items():
+        if type(v).__name__ in _ENUMS:
+            values[name] = _ENUMS[type(v).__name__](v.value)
     if set(values) != port_fields:
         raise TypeError(f"{type(p).__name__}: fields differ from the port's "
                         f"({sorted(set(values) ^ port_fields)})")
@@ -76,3 +90,26 @@ def lobpcg_warm_start_from_jax(ws, device="cuda"):
     return (tensor_from_numpy(k, device),
             {key: () if isinstance(v, tuple) else tensor_from_numpy(v, device)
              for key, v in carry.items()})
+
+
+def proximal_gradient_warm_start_from_jax(ws, device="cuda"):
+    """The port's ``warm_start`` from a JAX
+    ``ProximalGradientResult.warm_start`` ``(x_prev, y, t_prev, lam)``:
+    every array leaf a tensor on ``device`` (the card unless told
+    ``device="cpu"``) of the same dtype, so a FISTA run started in JAX
+    resumes in the port's ``proximal_gradient.solve`` with its momentum and
+    stepsize."""
+    return tree_map(lambda a: tensor_from_numpy(a, device), tuple(ws))
+
+
+def admm_warm_start_from_jax(ws, device="cuda"):
+    """The port's ``warm_start`` from a JAX ``ADMMResult.warm_start``
+    ``(lam, rho, carry)``: every array leaf a tensor on ``device`` (the
+    card unless told ``device="cpu"``) of the same dtype, the carry's keys
+    kept.  Resume with ``admm.solve(problem, c, x, carry["y_prev"], ...,
+    warm_start=...)``: the loop continues from the plain y, not from the
+    ``y_hat`` an accelerated result reports."""
+    lam, rho, carry = ws
+    conv = lambda a: tensor_from_numpy(a, device)
+    return (tree_map(conv, lam), conv(rho),
+            {key: tree_map(conv, v) for key, v in carry.items()})

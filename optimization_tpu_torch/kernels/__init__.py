@@ -12,12 +12,19 @@
   ``gram_pair`` is the LOBPCG Gram stage (``linalg/lobpcg.py``),
   ``stream3_probe`` the measured bandwidth ceiling of ``chip_smoke.py``.
 
-The three Pallas probe harnesses of the JAX package's ``benchmarks/`` are
-not ported (see ROADMAP.md, Queue 2).
+- :mod:`probes` — ``pinned_stream`` and ``resident_body``, CUDA C++ in
+  ``csrc/probes.cu``; replace the Pallas kernels (``mk_pallas``) of the JAX
+  package's ``benchmarks/probe_pallas_stream.py`` and
+  ``benchmarks/probe_resident_kernel.py``: the two measurements behind the
+  streamed CG kernel's residency design.
+
+The Pallas chunk reader of ``benchmarks/probe_graph_stream.py`` is not
+ported yet (see ROADMAP.md, Queue 2): it belongs with the graph operators.
 """
 
-from .streamed_cg import (AffineDiagonal, JacobiPower, ScaledDiagonal,
-                          ShiftedDiagonal, sphere_rayleigh_streamed,
+from .streamed_cg import (AffineDiagonal, JacobiPower, PrecMap,
+                          ScaledDiagonal, ShiftedDiagonal,
+                          sphere_rayleigh_streamed, stored_prec_map,
                           stpcg_flat_streamed, stpcg_flat_streamed_reference)
 from .fused import (GRAM_MAX_K, affine_stencil_matvec,
                     affine_stencil_matvec_reference, axpy_selfdot,
@@ -25,13 +32,17 @@ from .fused import (GRAM_MAX_K, affine_stencil_matvec,
                     diag_stencil_matvec, diag_stencil_matvec_reference,
                     gram_pair, gram_pair_reference, stream3_probe,
                     stream3_probe_reference)
+from .probes import (pinned_stream, pinned_stream_reference, resident_body,
+                     resident_body_reference)
 
-__all__ = ["AffineDiagonal", "JacobiPower", "ScaledDiagonal",
-           "ShiftedDiagonal",
+__all__ = ["AffineDiagonal", "JacobiPower", "PrecMap", "ScaledDiagonal",
+           "ShiftedDiagonal", "stored_prec_map",
            "sphere_rayleigh_streamed", "stpcg_flat_streamed",
            "stpcg_flat_streamed_reference", "affine_stencil_matvec",
            "affine_stencil_matvec_reference", "axpy_selfdot",
            "axpy_selfdot_reference", "cg_dots", "cg_dots_reference",
            "diag_stencil_matvec", "diag_stencil_matvec_reference",
            "GRAM_MAX_K", "gram_pair", "gram_pair_reference", "stream3_probe",
-           "stream3_probe_reference"]
+           "stream3_probe_reference", "pinned_stream",
+           "pinned_stream_reference", "resident_body",
+           "resident_body_reference"]

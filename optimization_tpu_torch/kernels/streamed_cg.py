@@ -36,12 +36,15 @@ Pallas kernel's folding s = P shat) is described the same way, by
   registers);
 - or a stored (n,) f32 tensor p (one more read per pass).
 
-``prec`` is the whole-array map v -> p .* v (``JacobiPower.map(a, rq, n,
-device)``), as in the JAX package: both forms or neither, and never with
-``init=``.  The plain version folds p over whole vectors and un-transforms
-its step with ``prec``; the kernel un-transforms in its own tail pass from
-the descriptor, so ``prec`` must be the same map.  General k and arbitrary
-chunk generators are not ported:
+``prec`` is the whole-array map v -> p .* v, as in the JAX package: both
+forms or neither, and never with ``init=``.  The plain version folds p over
+whole vectors and un-transforms its step with ``prec``; the kernel
+un-transforms in its own tail pass from the descriptor and never calls
+``prec``.  So that the two routes cannot differ, ``prec`` must be the
+descriptor's own map, a :class:`PrecMap` from ``JacobiPower.map(a, rq, n,
+device)`` or :func:`stored_prec_map`: any other callable, or a map of
+another descriptor, diagonal or aux scalar, raises ``ValueError`` on both
+routes.  General k and arbitrary chunk generators are not ported:
 every caller in the JAX package is the k = 2 sphere family.  Nor are the
 TPU's VMEM knobs (``chunk_rows``, ``pin_x``): x streams every iteration,
 and n may be any size.
@@ -59,7 +62,7 @@ from ..linalg.flat_cg import FlatCGInit, FlatCGResult
 
 __all__ = ["stpcg_flat_streamed", "stpcg_flat_streamed_reference",
            "sphere_rayleigh_streamed", "AffineDiagonal", "ShiftedDiagonal",
-           "ScaledDiagonal", "JacobiPower"]
+           "ScaledDiagonal", "JacobiPower", "PrecMap", "stored_prec_map"]
 
 _STORAGE = (torch.float32, torch.bfloat16)
 _ALIGN = 16                     # bytes per vector load in the kernel
@@ -123,17 +126,67 @@ class JacobiPower:
                       - _f32(aux0, device)) + self.c
         return torch.rsqrt(d if self.e == 0.5 else torch.sqrt(d))
 
-    def map(self, a: Diagonal, aux0, n: int, device):
+    def map(self, a: Diagonal, aux0, n: int, device) -> "PrecMap":
         """The whole-array form ``prec``: v -> p .* v (in f32 or wider); p
         is computed at the first call and kept (the kernel never calls
         it)."""
-        held = []
+        return PrecMap(self, a, aux0, n, device)
 
-        def apply(v):
-            if not held:
-                held.append(self.values(a, aux0, n, device))
-            return v * held[0]
-        return apply
+
+def _same_scalar(u, v) -> bool:
+    """One aux scalar: the same object, or equal values (tensors that are
+    distinct objects are compared on their device, which reads the host)."""
+    if u is v:
+        return True
+    if isinstance(u, torch.Tensor) and isinstance(v, torch.Tensor):
+        return (u.device == v.device and u.numel() == v.numel() == 1
+                and bool(u.reshape(()).float() == v.reshape(()).float()))
+    return float(u) == float(v)
+
+
+class PrecMap:
+    """The whole-array form of a ``prec_chunk`` descriptor, v -> p .* v,
+    carrying what it was built from (the descriptor, and for a
+    :class:`JacobiPower` the diagonal and the aux scalar), so that
+    :func:`stpcg_flat_streamed` can hold the two forms to one map."""
+
+    def __init__(self, descriptor, a: Optional[Diagonal] = None, aux0=None,
+                 n: Optional[int] = None, device=None):
+        self.descriptor, self.a, self.aux0 = descriptor, a, aux0
+        self._n, self._device, self._p = n, device, None
+
+    def values(self) -> torch.Tensor:
+        if self._p is None:
+            d = self.descriptor
+            self._p = (d if isinstance(d, torch.Tensor) else
+                       d.values(self.a, self.aux0, self._n, self._device))
+        return self._p
+
+    def __call__(self, v):
+        return v * self.values()
+
+    def describes(self, prec_chunk, a: Diagonal, aux0) -> bool:
+        """Whether this is the map of ``prec_chunk`` on the diagonal ``a``
+        with the aux scalar ``aux0``."""
+        d = self.descriptor
+        if isinstance(d, torch.Tensor) or isinstance(prec_chunk,
+                                                     torch.Tensor):
+            return (isinstance(d, torch.Tensor)
+                    and isinstance(prec_chunk, torch.Tensor)
+                    and (d is prec_chunk
+                         or (d.data_ptr() == prec_chunk.data_ptr()
+                             and d.shape == prec_chunk.shape
+                             and d.stride() == prec_chunk.stride()
+                             and d.dtype == prec_chunk.dtype)))
+        same_a = self.a is a or (isinstance(a, AffineDiagonal)
+                                 and self.a == a)
+        return d == prec_chunk and same_a and _same_scalar(self.aux0, aux0)
+
+
+def stored_prec_map(p: torch.Tensor) -> PrecMap:
+    """The whole-array form ``prec`` of a stored (n,) preconditioner p
+    (``prec_chunk=p``)."""
+    return PrecMap(p)
 
 
 Prec = Union[JacobiPower, torch.Tensor]
@@ -213,6 +266,15 @@ def _check(g, x, B, aux_scalars, a0_chunk, weights, body_kind, init,
         raise NotImplementedError(
             "prec_chunk takes a JacobiPower or a stored (n,) f32 tensor; "
             "arbitrary chunk generators are not ported")
+    if prec_chunk is not None and not (
+            isinstance(prec, PrecMap)
+            and prec.describes(prec_chunk, a, aux_scalars[0])):
+        raise ValueError(
+            "prec must be the whole-array map of prec_chunk itself "
+            "(JacobiPower.map(a, aux[0], n, device) on the operator's "
+            "diagonal and aux scalar, or stored_prec_map(p) of the stored "
+            "p): the kernel un-transforms its step from prec_chunk, the "
+            "plain version with prec, and they must be one map")
     return a
 
 

@@ -19,7 +19,10 @@ creeps past the truncation target, and the order of the sums alone moves
 the count there (``chip_smoke.permuted_plain`` measures 2): its counts are
 held within 3.  Tolerances of the
 fused kernels: those of ``chip_smoke.FUSED_TOLERANCES`` and
-``chip_smoke.GRAM_TOLERANCES``, reasons there.
+``chip_smoke.GRAM_TOLERANCES``, reasons there.  The two residency probe
+kernels (``csrc/probes.cu``): ``chip_smoke.PROBE_TOLERANCES``, and every arm
+of a kernel bit for bit equal to its other arms.  The last tests hold the
+convex solvers and the ``prec`` check of the streamed kernel on the card.
 """
 
 import pytest
@@ -129,7 +132,7 @@ def _prec(form, args):
     if form == "stored":
         p = torch.rsqrt(1.0 + 0.25 * (torch.arange(n, device=dev) % 13)
                         .float())
-        return p, (lambda v: v * p), diag
+        return p, T.stored_prec_map(p), diag
     c, e = {"jacobi": (1.0, 0.5), "quarter": (1.0, 0.25),
             "exact": (0.0, 0.5)}[form]
     desc = T.JacobiPower(c, e)
@@ -459,3 +462,224 @@ def test_lobpcg_f32_on_card_launches_gram_pair(dev):
     assert int(res.num_converged) >= 4 and bool(res.pencil_consistent)
     torch.testing.assert_close(res.theta.cpu(), torch.arange(1.0, 5.0),
                                rtol=0, atol=5e-2)
+
+
+# ---- the residency probe kernels (csrc/probes.cu) ----
+
+
+def _probe_vectors(n, dtype, dev, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [(0.5 + 0.5 * torch.rand(n, generator=gen, device=dev)).to(dtype)
+            for _ in range(3)]
+
+
+def _rel(got, ref):
+    got, ref = got.double(), ref.double()
+    return float(torch.linalg.vector_norm(got - ref)
+                 / torch.linalg.vector_norm(ref))
+
+
+@pytest.mark.parametrize("with_s", [False, True], ids=["no-s", "with-s"])
+@pytest.mark.parametrize("K", [3, 10])
+@pytest.mark.parametrize("n", [1 << 18, 100_003, 100])
+def test_pinned_stream_matches_plain_version(dev, n, K, with_s):
+    """Tolerances of ``chip_smoke.PROBE_TOLERANCES``: vectors 1e-5 norm to
+    norm, acc 1e-5 relative; the held, shared-memory-only and streamed arms
+    and a repeat bit for bit; one launch a call."""
+    from optimization_tpu_torch.kernels import probes as P
+
+    r, p, x = _probe_vectors(n, torch.float32, dev, n % 997)
+    s = torch.zeros(n, device=dev) if with_s else None
+    ref = P.pinned_stream_reference(r, p, x, s, iterations=K)
+    before = P.pinned_stream.launches
+    out = P.pinned_stream(r, p, x, s, iterations=K)
+    assert P.pinned_stream.launches == before + 1
+    assert P.pinned_stream.last_held["x_shared"] == 1.0   # these n fit
+    arms = [P.pinned_stream(r, p, x, s, iterations=K, **kw)
+            for kw in (dict(hold_x=False), dict(l2_window=True), dict())]
+    torch.cuda.synchronize()
+    for got, want in zip(out[:3], ref[:3]):
+        if want is None:
+            assert got is None
+            continue
+        assert got.device == r.device and got.dtype == torch.float32
+        assert _rel(got, want) <= 1e-5
+    assert out[3].device == r.device and out[3].shape == ()
+    assert abs(float(out[3]) - float(ref[3])) <= 1e-5 * abs(float(ref[3]))
+    for arm in arms:
+        assert all(torch.equal(u, v) for u, v in zip(arm, out)
+                   if u is not None)
+
+
+@pytest.mark.parametrize("storage", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("K", [3, 10])
+@pytest.mark.parametrize("n", [1 << 18, 100_003, 100])
+def test_resident_body_matches_plain_version(dev, n, K, storage):
+    """r within 1e-3 (bf16: a flipped storage rounding here and there; a
+    rounding left out would show as ~4e-3) or 1e-5 (f32) norm to norm, acc within 1e-3 / 1e-4; the resident and
+    streamed arms and a repeat bit for bit."""
+    from optimization_tpu_torch.kernels import probes as P
+
+    r, p, x = _probe_vectors(n, storage, dev, n % 991)
+    ref = P.resident_body_reference(r, p, x, iterations=K)
+    before = P.resident_body.launches
+    out = P.resident_body(r, p, x, iterations=K)
+    assert P.resident_body.launches == before + 1
+    assert P.resident_body.last_held["rp_shared"] == 1.0
+    streamed = P.resident_body(r, p, x, iterations=K, resident=False)
+    again = P.resident_body(r, p, x, iterations=K)
+    torch.cuda.synchronize()
+    bf16 = storage == torch.bfloat16
+    assert out[0].dtype == storage and out[0].device == r.device
+    assert _rel(out[0], ref[0]) <= (1e-3 if bf16 else 1e-5)
+    assert abs(float(out[1]) - float(ref[1])) <= \
+        (1e-3 if bf16 else 1e-4) * abs(float(ref[1]))
+    for arm in (streamed, again):
+        assert torch.equal(arm[0], out[0]) and torch.equal(arm[1], out[1])
+
+
+def test_probe_kernels_partly_held_at_full_width(dev):
+    """n = 2^24: shared memory holds a part of x (of r and p) only, the
+    rest streams; still bitwise equal to the all-streamed arm, and within
+    the small sizes' limits of the plain version (the streamed regions'
+    code runs only here).  At n = 6,000,001 in bf16, r and p are resident
+    and x in part."""
+    from optimization_tpu_torch.kernels import probes as P
+
+    n = 1 << 24
+    r, p, x = _probe_vectors(n, torch.float32, dev, 5)
+    s = torch.zeros(n, device=dev)
+    for sv in (None, s):
+        ref = P.pinned_stream_reference(r, p, x, sv, iterations=4)
+        out = P.pinned_stream(r, p, x, sv, iterations=4)
+        assert 0.2 < P.pinned_stream.last_held["x_shared"] < 1.0
+        for got, want in zip(out[:3], ref[:3]):
+            assert want is None or _rel(got, want) <= 1e-5
+        assert abs(float(out[3]) - float(ref[3])) <= 1e-5 * abs(float(ref[3]))
+    del ref, out, s
+    held = P.pinned_stream(r, p, x, iterations=4)
+    share = P.pinned_stream.last_held["x_shared"]
+    assert 0.2 < share < 1.0
+    assert P.pinned_stream.last_held["x_l2_window"] == 0.0
+    streamed = P.pinned_stream(r, p, x, iterations=4, hold_x=False)
+    windowed = P.pinned_stream(r, p, x, iterations=4, l2_window=True)
+    assert P.pinned_stream.last_held["x_l2_window"] > 0.0
+    for arm in (streamed, windowed):
+        assert all(torch.equal(u, v) for u, v in zip(held, arm)
+                   if u is not None)
+    rb, pb, xb = (v.to(torch.bfloat16) for v in (r, p, x))
+    res = P.resident_body(rb, pb, xb, iterations=4)
+    assert 0.2 < P.resident_body.last_held["rp_shared"] < 1.0
+    st = P.resident_body(rb, pb, xb, iterations=4, resident=False)
+    assert torch.equal(res[0], st[0]) and torch.equal(res[1], st[1])
+    for rv, pv, xv, tol_r, tol_acc in (
+            (rb, pb, xb, 1e-3, 1e-3), (r, p, x, 1e-5, 1e-4),
+            (rb[:6_000_001], pb[:6_000_001], xb[:6_000_001], 1e-3, 1e-3)):
+        ref = P.resident_body_reference(rv, pv, xv, iterations=4)
+        out = P.resident_body(rv, pv, xv, iterations=4)
+        h = P.resident_body.last_held
+        if rv.shape[0] == n:
+            assert 0.0 < h["rp_shared"] < 1.0
+        else:
+            assert h["rp_shared"] == 1.0 and 0.0 < h["x_shared"] < 1.0
+        assert _rel(out[0], ref[0]) <= tol_r
+        assert abs(float(out[1]) - float(ref[1])) <= \
+            tol_acc * abs(float(ref[1]))
+
+
+def test_probe_kernels_reject_what_they_do_not_take(dev):
+    from optimization_tpu_torch.kernels import probes as P
+
+    v = torch.ones(64, device=dev)
+    with pytest.raises(ValueError, match="float32"):
+        P.pinned_stream(v.double(), v.double(), v.double(), iterations=2)
+    with pytest.raises(ValueError, match="one device"):
+        P.pinned_stream(v, v, v.cpu(), iterations=2)
+    with pytest.raises(ValueError, match="bfloat16"):
+        P.resident_body(v.half(), v.half(), v.half(), iterations=2)
+    with pytest.raises(ValueError, match="iterations"):
+        P.resident_body(v, v, v, iterations=0)
+
+
+def test_prec_that_is_not_the_descriptors_map_raises_on_the_card(dev):
+    """The kernel never calls ``prec``; a map that is not its descriptor's
+    own would un-transform differently on the CPU route, so the wrapper
+    refuses it on the card too (and launches nothing)."""
+    args, kw = _pd_fixture(1 << 14, torch.float32, dev)
+    g, _, _, _, (rq,) = args
+    n = g.shape[0]
+    pc, pmap, diag = _prec("quarter", args)
+    a0c, weights, _ = T.sphere_rayleigh_streamed(diag)
+    kw = dict(kw, a0_chunk=a0c, weights=weights)
+    pv = pmap.values()
+    before = T.stpcg_flat_streamed.launches
+    for wrong in (lambda v: v * pv,
+                  T.JacobiPower(1.0, 0.5).map(diag, rq, n, dev),
+                  pc.map(diag, rq + 1.0, n, dev),
+                  T.stored_prec_map(pv)):
+        with pytest.raises(ValueError, match="itself"):
+            T.stpcg_flat_streamed(*args, prec_chunk=pc, prec=wrong, **kw)
+    with pytest.raises(ValueError, match="itself"):
+        T.stpcg_flat_streamed(*args, prec_chunk=pv, prec=pmap, **kw)
+    assert T.stpcg_flat_streamed.launches == before
+    # an equal map built anew is accepted, and gives the same step
+    r1 = T.stpcg_flat_streamed(*args, prec_chunk=pc, prec=pmap, **kw)
+    r2 = T.stpcg_flat_streamed(
+        *args, prec_chunk=T.JacobiPower(1.0, 0.25),
+        prec=T.JacobiPower(1.0, 0.25).map(diag, rq.clone(), n, dev), **kw)
+    assert torch.equal(r1.s, r2.s)
+    assert T.stpcg_flat_streamed.launches == before + 2
+
+
+def test_convex_solvers_live_on_the_card(dev):
+    """FISTA, ADMM and their drivers on card tensors: every result leaf on
+    the card, the chunked drives bitwise equal to the monolithic solves."""
+    import dataclasses
+
+    from optimization_tpu_torch import CompositeProblem
+    from optimization_tpu_torch.core.driver import drive, drive_admm
+    from optimization_tpu_torch.core.tree import tree_leaves
+    from optimization_tpu_torch.solvers import admm, prox
+    from optimization_tpu_torch.solvers import proximal_gradient as pg
+
+    m, n, mu = 60, 200, 0.1
+    gen = torch.Generator(device=dev).manual_seed(0)
+    A = torch.randn((m, n), generator=gen, device=dev) / m ** 0.5
+    xt = torch.where(torch.rand(n, generator=gen, device=dev) < 0.05,
+                     torch.randn(n, generator=gen, device=dev),
+                     torch.zeros(n, device=dev))
+    b = A @ xt + 0.01 * torch.randn(m, generator=gen, device=dev)
+    problem = CompositeProblem(
+        f=lambda x, d: 0.5 * torch.sum((d[0] @ x - d[1]) ** 2),
+        g=lambda x, d: mu * torch.sum(torch.abs(x)),
+        prox_g=lambda x, lam, d: prox.soft_threshold(x, lam * mu))
+    params = pg.ProximalGradientParams(
+        max_iterations=300, composite_gradient_tolerance=1e-3,
+        relative_composite_gradient_tolerance=1e-6)
+    x0 = torch.zeros(n, device=dev)
+    res = pg.solve(problem, x0, params, (A, b))
+    assert int(res.status) == 1
+    assert all(t.device.type == "cuda" for t in tree_leaves(res))
+    chunked = drive(pg, problem, x0, params, (A, b), chunk_iterations=7)
+    assert torch.equal(chunked.x, res.x) and chunked.x.device.type == "cuda"
+
+    AtA, Atb = A.T @ A, A.T @ b
+    chol = torch.linalg.cholesky(AtA + torch.eye(n, device=dev))
+    lasso = admm.ADMMProblem(
+        minLx=lambda y, lam, rho, d: torch.cholesky_solve(
+            (Atb + rho * y - lam)[:, None], chol)[:, 0],
+        minLy=lambda x, lam, rho, d: prox.soft_threshold(x + lam / rho,
+                                                         mu / rho),
+        A=lambda x, d: x, B=lambda y, d: -y, At=lambda r, d: r)
+    ap = admm.ADMMParams(max_iterations=250, eps_rel=1e-4, eps_abs_pri=1e-3,
+                         eps_abs_dual=1e-3, mode=admm.ADMMMode.ACCELERATED)
+    z = torch.zeros(n, device=dev)
+    ares = admm.solve(lasso, z, z, z, ap)
+    assert int(ares.status) == 1
+    assert all(t.device.type == "cuda" for t in tree_leaves(ares))
+    ach = drive_admm(lasso, z, z, z, ap, chunk_iterations=9)
+    assert torch.equal(ach.x, ares.x) and torch.equal(ach.y, ares.y)
+    assert float(torch.linalg.vector_norm(ares.y - res.x)) <= \
+        5e-2 * float(torch.linalg.vector_norm(res.x))
+    assert dataclasses.is_dataclass(ap)

@@ -1,6 +1,6 @@
 """The port's host driver ``core.driver.drive`` == the JAX package's, on the
 cases of ``tests/test_driver.py`` for gradient descent, TNT and TNLS (the
-ADMM and proximal-gradient cases wait for the convex solvers).
+ADMM and proximal-gradient cases are in ``test_torch_drive_convex.py``).
 
 - chunked == monolithic in the port: status, iteration count, x bit for
   bit, every stitched trace (NaN padding included), at chunk sizes that
@@ -12,7 +12,7 @@ ADMM and proximal-gradient cases wait for the convex solvers).
   "<Solver> terminated: <reason>" report equal to JAX's character for
   character once the wall-clock fields are masked, observers per chunk
   and per iteration, checkpoints, time interpolation;
-- ``max_iterations=0``, and ``proximal_gradient`` raising.
+- ``max_iterations=0``, and a solver module without an adapter raising.
 """
 
 import re
@@ -273,11 +273,18 @@ def test_fill_times_and_interpolation():
 
 
 def test_unported_solver_raises():
+    """Every solver module of the package has an adapter now (the convex
+    one since ``proximal_gradient`` was ported); a module without one
+    raises."""
     from types import ModuleType
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        TD.drive(ModuleType("optimization_tpu_torch.solvers."
-                            "proximal_gradient"), None, None,
-                 tgd.GradientDescentParams())
+
+    from optimization_tpu_torch import CompositeProblem
+    from optimization_tpu_torch.solvers import proximal_gradient as tpg
+    res = TD.drive(tpg, CompositeProblem(
+        f=lambda x, d: torch.sum(x * x), g=lambda x, d: 0.0 * torch.sum(x),
+        prox_g=lambda x, lam, d: x), torch.ones(2, dtype=torch.float64),
+        tpg.ProximalGradientParams(max_iterations=3), chunk_iterations=2)
+    assert int(res.num_iterations) >= 1
     with pytest.raises(ValueError, match="No driver adapter"):
         TD.drive(ModuleType("lbfgs"), None, None,
                  tgd.GradientDescentParams())

@@ -115,3 +115,36 @@ def test_quadratic_model_seam():
     model = (torch.zeros(2), lambda v: v)
     tp = TProblem(f=f_t, quadratic_model=lambda x, d: model)
     assert tp.qm(torch.ones(2)) is model
+
+
+def test_composite_problem_matches_jax():
+    """``CompositeProblem``: value_f / value_g / value / prox, and the
+    gradient of f by autodiff (``torch.func.grad`` against ``jax.grad``)
+    or from ``grad_f``."""
+    from optimization_tpu import CompositeProblem as JComposite
+    from optimization_tpu_torch import CompositeProblem as TComposite
+
+    rng = np.random.default_rng(4)
+    A, b, x = rng.normal(size=(5, 3)), rng.normal(size=5), rng.normal(size=3)
+    jp = JComposite(f=lambda x, d: 0.5 * jnp.sum((d @ x - b) ** 2),
+                    g=lambda x, d: 0.3 * jnp.sum(jnp.abs(x)),
+                    prox_g=lambda x, lam, d: x / (1.0 + lam))
+    tb = torch.from_numpy(b)
+    tp = TComposite(f=lambda x, d: 0.5 * torch.sum((d @ x - tb) ** 2),
+                    g=lambda x, d: 0.3 * torch.sum(torch.abs(x)),
+                    prox_g=lambda x, lam, d: x / (1.0 + lam))
+    jx, jA, tx, tA = jnp.asarray(x), jnp.asarray(A), torch.from_numpy(x), \
+        torch.from_numpy(A)
+    for name in ("value_f", "value_g", "value"):
+        np.testing.assert_allclose(float(getattr(tp, name)(tx, tA)),
+                                   float(getattr(jp, name)(jx, jA)),
+                                   rtol=1e-14)
+    np.testing.assert_allclose(tp.gradient_f(tx, tA).numpy(),
+                               np.asarray(jp.gradient_f(jx, jA)), rtol=1e-12)
+    np.testing.assert_allclose(tp.prox(tx, 0.5, tA).numpy(),
+                               np.asarray(jp.prox(jx, 0.5, jA)), rtol=1e-15)
+    import dataclasses
+    tq = dataclasses.replace(tp, grad_f=lambda x, d: torch.full_like(x, 7.0))
+    assert torch.equal(tq.gradient_f(tx, tA), torch.full_like(tx, 7.0))
+    assert [f.name for f in dataclasses.fields(tp)] == \
+        [f.name for f in dataclasses.fields(jp)]

@@ -264,7 +264,7 @@ def _prec_forms(form, b, rq, n=N):
 
         pv = torch.rsqrt(1.0 + 0.25 * (torch.arange(n) % 13).float())
         pfull = pj(jnp.arange(n, dtype=jnp.int32))
-        return chunk, (lambda v: v * pfull), pv, (lambda v: v * pv)
+        return chunk, (lambda v: v * pfull), pv, T.stored_prec_map(pv)
     c, e = {"jacobi": (1.0, 0.5), "quarter": (1.0, 0.25),
             "exact": (0.0, 0.5)}[form]
 
@@ -393,3 +393,60 @@ def test_prec_validation():
         call(prec_chunk=T.JacobiPower(1.0, 1.0), prec=pmap)
     with pytest.raises(ValueError, match="stored preconditioner"):
         call(prec_chunk=torch.ones(3), prec=pmap)
+
+
+def test_prec_must_be_the_descriptors_own_map():
+    """The kernel un-transforms its step from ``prec_chunk`` and never calls
+    ``prec``; the plain version un-transforms with ``prec``.  So a ``prec``
+    that is not recognisably the descriptor's own map is refused on both
+    routes: a bare callable, the map of another descriptor, diagonal or aux
+    scalar, a stored p's map beside a generated descriptor.  The matching
+    map (another object of equal descriptor, diagonal and aux value) still
+    gives the Pallas kernel's s."""
+    g, x, rq, B, b, kw = _fixture("pd")
+    tg, tx = torch.from_numpy(g), torch.from_numpy(x)
+    diag = T.AffineDiagonal(1.0, b)
+    a0c, weights, _ = T.sphere_rayleigh_streamed(diag)
+    desc = T.JacobiPower(1.0, 0.25)
+    aux = (torch.tensor(rq),)
+    p = torch.rsqrt(1.0 + 0.25 * (torch.arange(N) % 13).float())
+
+    def call(fn, prec_chunk, prec):
+        return fn(tg, tx, torch.from_numpy(B), 0.5, aux, a0_chunk=a0c,
+                  weights=weights, prec_chunk=prec_chunk, prec=prec, **kw)
+
+    good = desc.map(diag, torch.tensor(rq), N, "cpu")
+    assert isinstance(good, T.PrecMap)
+    pv = good.values()
+    wrong = [
+        lambda v: v * pv,                                   # a bare callable
+        T.JacobiPower(1.0, 0.5).map(diag, aux[0], N, "cpu"),
+        T.JacobiPower(2.0, 0.25).map(diag, aux[0], N, "cpu"),
+        desc.map(T.AffineDiagonal(1.0, 2 * b), aux[0], N, "cpu"),
+        desc.map(diag, torch.tensor(rq + 1.0), N, "cpu"),
+        desc.map(diag.values(N, "cpu"), aux[0], N, "cpu"),  # another diagonal
+        T.stored_prec_map(p),
+    ]
+    for fn in (T.stpcg_flat_streamed, T.stpcg_flat_streamed_reference):
+        for prec in wrong:
+            with pytest.raises(ValueError, match="own|itself"):
+                call(fn, desc, prec)
+        for prec in (good, lambda v: v * p, T.stored_prec_map(p.clone())):
+            with pytest.raises(ValueError, match="itself"):
+                call(fn, p, prec)
+        call(fn, p, T.stored_prec_map(p))
+
+    # the matching map: equal values, not the same objects
+    jpc, jpf, _, _ = _prec_forms("quarter", b, rq)
+    ja0, jw, _ = J.sphere_rayleigh_streamed(_a_chunk(b))
+    jr = J.stpcg_flat_streamed(
+        jnp.asarray(g), jnp.asarray(x), jnp.asarray(B), 0.5,
+        aux_scalars=(jnp.float32(rq),), a0_chunk=ja0, weights=jw,
+        chunk_rows=CR, interpret=True, prec_chunk=jpc, prec=jpf, **kw)
+    tr = call(T.stpcg_flat_streamed, T.JacobiPower(1.0, 0.25),
+              T.JacobiPower(1.0, 0.25).map(T.AffineDiagonal(1.0, b),
+                                           torch.tensor(rq), N, "cpu"))
+    assert abs(int(tr.num_iterations) - int(jr.num_iterations)) <= 1
+    s_j = np.asarray(jr.s, np.float32)
+    np.testing.assert_allclose(tr.s.numpy(), s_j,
+                               atol=3e-4 * float(np.linalg.norm(s_j)))

@@ -10,8 +10,9 @@ non-zero exit and no result line:
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` and
    turns TF32 off;
 2. build: compiles ``optimization_tpu_torch/csrc/streamed_cg.cu``,
-   ``csrc/fused.cu`` and ``csrc/probes.cu`` with nvcc from this checkout,
-   all at once, and prints each build's seconds;
+   ``csrc/fused.cu`` and ``csrc/probes.cu`` (the two residency probes and
+   the chunk reader) with nvcc from this checkout, all at once, and prints
+   each build's seconds;
 3. kernel parity: ``stpcg_flat_streamed`` on the card against its plain
    PyTorch version on the same inputs, at n = 2^20 and a ragged n, over
    storage dtype x body x init x Delta x fixture, then its preconditioned
@@ -34,7 +35,8 @@ non-zero exit and no result line:
    the agreement of f checked; then each fused kernel timed against its
    plain version at n = 2^24 f32;
 7. ``gram_pair`` against its plain version (and a float64 product) at
-   100,000 x 48, 999 x 30, 16 x 10,000 x 48 and 5,000 x 96 (the k cap),
+   100,000 x 48, 999 x 30, 16 x 10,000 x 48, 5,000 x 96 (the k cap) and
+   30,000 x 16 and 24 (rotation sync's spectral init and certificate),
    with BS distinct and with BS = S (the route that reads S once),
    ``stream3_probe`` at n = 2^24, 999,999 and 100, f32 and bf16, bitwise
    repeats; gram_pair timed at 100,000 x 48 (BS distinct and BS = S, the
@@ -86,7 +88,38 @@ non-zero exit and no result line:
    accelerated, gated on their statuses and on agreeing with FISTA;
    ``drive(proximal_gradient)`` and ``drive_admm`` bitwise equal to the
    monolithic runs; host reads counted;
-15. each streaming kernel's GB/s as a fraction of the measured ceiling, the
+15. the chunk reader (``kernels.chunk_reader``, ``csrc/probes.cu``) and its
+   plain version against a float64 sum of the same chunks, at v of 2^19
+   rows (N = 2^26) and 1,001 rows, integer-valued (bit for bit) and normal,
+   gr = 1, 8, 64, 512, 2048 rows of 128 words, contiguous and LCG-random
+   offsets, n_fetch 1, 3, 2048 (past nch on the small v) and nch, a bitwise
+   repeat, and the fetch whose LCG value is INT32_MIN;
+16. the graph probe (what ``probe_graph_stream.py`` prints): the chunk
+   reader's arms over N = 2^26 f32 words, microseconds a chunk by the
+   two-point slope over nch / 4 and nch fetches (L2 evicted before every
+   call), GB/s over the ceiling and 3.35 TB/s, the random arms' share of
+   re-reads within the L2's reach, its launches counted; each arm's two
+   calls and the kernels line's call bit for bit equal to the plain
+   version and the f64 sum (v holds integers); that call timed beside its
+   plain version and its bound; then
+   ``connection_laplacian_op`` at n_rot = 2^21 for each scatter_method,
+   ms an apply against the probe's floor, peak memory, gated within 1e-5
+   of an f64 apply and of each other;
+17. rotation sync at config6's rotation graph (n = 10,000, odometry chain
+   + 20,000 random closures, noise 0.01), f32, made on the card: spectral
+   init, TNT through ``make_problem()``, ``(preconditioned=True)`` and
+   ``(flat=True)`` from one R0, ``solve_staircase`` with its certificate;
+   gated on GRADIENT, f within 1e-4 across the routes, mean rotation error
+   < 4 noise, certified, R on SO(3)^n, gram_pair launches = 1 +
+   iterations for every LOBPCG solve;
+18. a staircase lift on the card: the ring of tests/test_rotation_sync.py
+   in f64 from an R0 whose level-d certificate fails; gated on p_final >
+   d, certified, rank_gap < 1e-6;
+19. matrix completion at config9's width (5000 x 4000, k = 10, 10 %
+   observed, noise 0.01, its TNT params), f32, made on the card; gated on
+   the relative error over all entries < 5 noise; its f32 gain ratios, and
+   the same solve in float64 as a witness, gated on GRADIENT;
+20. each streaming kernel's GB/s as a fraction of the measured ceiling, the
    kernel table as one JSON line (each kernel's launches on its path, its
    error, its time, its plain version's, its bound and the library call's,
    null where no single PyTorch call computes the function), then the
@@ -100,6 +133,7 @@ type (67 TFLOP/s f32, 495 TF32, 989 bf16; NVIDIA's H100 SXM data sheet).
 """
 
 import collections
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -772,7 +806,8 @@ GRAM_TOLERANCES = """\
       order); bf16 2^-6 |(d+2) v scale| -- the plain version rounds after
       each bf16 operation, the kernel once on store.
 """
-GRAM_SHAPES = ((100_000, 48), (999, 30), (16, 10_000, 48), (5_000, 96))
+GRAM_SHAPES = ((100_000, 48), (999, 30), (16, 10_000, 48), (5_000, 96),
+               (30_000, 16), (30_000, 24))
 # the timed shapes: config3's Gram stage with BS distinct and BS = S (the
 # LOBPCG call without B, the path's; its entry in the kernels line), and
 # config10's fleet
@@ -1430,11 +1465,11 @@ def probe_parity_phase(torch, dev):
           f"bitwise equal", flush=True)
 
 
-def slope_ms(torch, call, reps=3):
-    """Milliseconds an iteration by the two-point slope over PROBE_K (as
+def slope_ms(torch, call, reps=3, ks=PROBE_K):
+    """Milliseconds an iteration by the two-point slope over ``ks`` (as
     the JAX probes time: the fixed cost of a call cancels), the best of
     ``reps``; each point is ``time_ms`` of one call."""
-    k_lo, k_hi = PROBE_K
+    k_lo, k_hi = ks
     best = math.inf
     for _ in range(reps):
         lo = time_ms(torch, lambda: call(k_lo), 1)
@@ -1828,6 +1863,575 @@ def convex_phase(torch, dev, label):
           "of FISTA's x and F within 1e-2, the chunked drives bitwise equal",
           flush=True)
 
+# ---- the graph probe's chunk reader (csrc/probes.cu) ----
+
+GRAPH_N = 1 << 26                   # the graph probe's source vector, f32 words
+GRAPH_GR = (1, 8, 64, 512, 2048)    # rows of 128 words a chunk: 512 B .. 1 MiB
+GRAPH_N_ROT = 1 << 21               # rotations of the operator arms
+CHUNK_ROWS = (1 << 19, 1001)        # parity: v of N = 2^26 and a ragged v
+CHUNK_FETCHES = (1, 3, 2048, None)  # 2048 wraps past nch on the small v;
+                                    # None: nch, one sweep of v
+LCG_INT32_MIN_T = 2_088_216_195     # the fetch whose LCG value is INT32_MIN
+ENTRY_GR = 8                        # the kernels line: 4 KiB random chunks
+CHUNK_TOLERANCES = """\
+  tolerances, chunk_reader and its plain version against the float64 sum of
+  the same chunks: on integer-valued v (uniform in [-8, 8]) every partial
+  sum is an integer below 2^24, exact in f32, so both equal the f64 sum bit
+  for bit (a piece left out or read twice shows); on normal v, |sum - f64|
+  <= 1e-7 * sum|values read| (both sum in f32, in other orders; the sum of
+  normal data is near 0 and no scale for the error); two runs of the
+  kernel bit for bit; at the fetch whose LCG value is INT32_MIN, the offset
+  is the floor-mod Python's % gives.
+"""
+
+
+def chunk_fetches(gr):
+    """(lo, hi) n_fetch of the two-point slope at gr rows a chunk: hi = nch,
+    one sweep of the GRAPH_N-word vector (256 MiB), lo = hi / 4; a
+    contiguous sweep then reads no chunk twice."""
+    hi = GRAPH_N // 128 // gr
+    return hi // 4, hi
+
+
+def l2_rereads(torch, off, window):
+    """The share of fetches whose chunk was fetched within the ``window``
+    fetches before (the chunks the L2 can still hold)."""
+    t = torch.arange(off.numel(), device=off.device)
+    order = torch.argsort(off * off.numel() + t)
+    o, ts = off[order], t[order]
+    same = o[1:] == o[:-1]
+    return float((same & (ts[1:] - ts[:-1] <= window)).sum()) / off.numel()
+
+
+def integer_v(torch, rows, gen):
+    """A (rows, 128) f32 tensor of integers uniform in [-8, 8], on the
+    generator's device: every f32 partial sum of its chunks is exact."""
+    return torch.randint(-8, 9, (rows, 128), generator=gen,
+                         device=gen.device).float()
+
+
+def check_chunk_reader(torch, tag, v, f64, gr, rnd, nf, start=0):
+    """Hold one chunk_reader call, a repeat and the plain version against
+    the float64 sum of the same chunks (``f64`` = (v, |v|) in float64):
+    bit for bit when v holds integers, else within 1e-7 sum|values read|
+    (CHUNK_TOLERANCES).  Returns (the kernel's |error|, that over
+    sum|values read|, the kernel's result)."""
+    from optimization_tpu_torch.kernels import probes as P
+
+    got = P.chunk_reader(v, gr, rnd, nf, start=start)
+    again = P.chunk_reader(v, gr, rnd, nf, start=start)
+    plain = P.chunk_reader_reference(v, gr, rnd, nf, start=start)
+    ref, scale = (float(P.chunk_reader_reference(x, gr, rnd, nf, start=start))
+                  for x in f64)
+    exact = bool((v == v.round()).all())
+    e_k, e_p = abs(float(got) - ref), abs(float(plain) - ref)
+    tol = 0.0 if exact else 1e-7 * scale
+    ok = (e_k <= tol and e_p <= tol and torch.equal(got, again)
+          and got.shape == (1, 1) and got.device == v.device
+          and (not exact or abs(ref) < 2 ** 24))
+    if not ok:
+        print(f"  FAIL {tag}: kernel {float(got)!r}, repeat "
+              f"{float(again)!r}, plain {float(plain)!r}, f64 {ref!r}, "
+              f"sum|v| {scale!r}", flush=True)
+        raise AssertionError(f"chunk_reader disagrees: {tag}")
+    return e_k, e_k / scale, got
+
+
+def chunk_parity_phase(torch, dev):
+    """Phase 15: chunk_reader and its plain version against a float64 sum,
+    at v of 2^19 rows (N = 2^26) and a ragged 1,001 rows, integer-valued
+    and normal, every granularity, both offset modes, n_fetch 1, 3, 2048
+    and nch, and at the LCG's INT32_MIN."""
+    from optimization_tpu_torch.kernels import probes as P
+
+    print("phase 15: chunk_reader vs its plain version and a float64 sum on "
+          "the card", flush=True)
+    print(CHUNK_TOLERANCES, end="", flush=True)
+    cases = 0
+    for rows, kind in itertools.product(CHUNK_ROWS, ("integer", "normal")):
+        gen = torch.Generator(device=dev).manual_seed(rows % 1009)
+        v = (integer_v(torch, rows, gen) if kind == "integer" else
+             torch.randn((rows, 128), generator=gen, device=dev))
+        f64 = (v.double(), v.double().abs())
+        worst = 0.0
+        for gr, rnd, nf in itertools.product(GRAPH_GR, (False, True),
+                                             CHUNK_FETCHES):
+            if gr > rows:
+                continue
+            nf = nf or rows // gr
+            _, rel, _ = check_chunk_reader(
+                torch, f"{kind} rows={rows} gr={gr} "
+                f"{'random' if rnd else 'contiguous'} n_fetch={nf}", v, f64,
+                gr, rnd, nf)
+            worst = max(worst, rel)
+            cases += 1
+        print(f"  ok   {kind} v, rows = {rows}: max |err| / sum|v| kernel "
+              f"{worst:.2e}, the plain version within the same limit; two "
+              f"runs bitwise equal", flush=True)
+    # the INT32_MIN fetch, reached by start= on the small v
+    for gr in (1, 8):
+        nch = CHUNK_ROWS[1] // gr
+        start = LCG_INT32_MIN_T - 1
+        off = P.chunk_offsets(torch.arange(start, start + 3, device=dev), nch)
+        want = (-(1 << 31)) % nch
+        check_chunk_reader(torch, f"INT32_MIN fetch, gr={gr}", v, f64, gr,
+                           True, 3, start)
+        if int(off[1]) != want or not bool(((off >= 0) & (off < nch)).all()):
+            raise AssertionError(f"chunk_offsets at INT32_MIN: {off.tolist()}"
+                                 f", want {want} in the middle")
+        print(f"  ok   INT32_MIN fetch t = {LCG_INT32_MIN_T}, gr = {gr}: "
+              f"offsets {off.tolist()} (floor-mod {want})", flush=True)
+        cases += 1
+    print(f"phase 15: {cases} cases passed", flush=True)
+
+
+def chunk_reader_arms(torch, dev, label, ceiling):
+    """Time chunk_reader at every GRAPH_GR, contiguous and random, over v
+    of GRAPH_N f32 words (256 MiB, above the 50 MB L2): microseconds a chunk
+    by the two-point slope over ``chunk_fetches``, each call after a pass
+    over a 256 MiB scratch tensor that evicts v from L2 (its time cancels in
+    the slope); GB/s of the chunks' bytes over the measured ceiling and
+    over 3.35 TB/s, with the share of random fetches that re-read a chunk
+    still within the L2's reach.  Prints one line an arm (what
+    ``probe_graph_stream.py`` prints); returns (v, {(gr, random): (ms a
+    chunk, GB/s)})."""
+    from optimization_tpu_torch.kernels import probes as P
+
+    v = integer_v(torch, GRAPH_N // 128,
+                  torch.Generator(device=dev).manual_seed(0))
+    scratch = torch.zeros(GRAPH_N, device=dev)
+    l2 = P.card_capacity(dev)["l2_bytes"]
+    spec = HBM_BYTES_PER_S / 1e9
+    out = {}
+    for gr in GRAPH_GR:
+        lo, hi = chunk_fetches(gr)
+        for rnd in (False, True):
+            def call(k):
+                scratch.add_(1.0)
+                return P.chunk_reader(v, gr, rnd, k)
+
+            ms = slope_ms(torch, call, ks=(lo, hi))
+            gbs = gr * 512 / ms / 1e6
+            line = (f"  {'rnd' if rnd else 'ctg'}[{gr}]: {ms * 1e3:.4f} us a "
+                    f"chunk = {gbs:.0f} GB/s = {gbs / ceiling:.3f} of the "
+                    f"measured ceiling, {gbs / spec:.3f} of 3.35 TB/s, at "
+                    f"{gr * 512 / 1024:g} KiB chunks (slope over n_fetch {lo}"
+                    f" and {hi})")
+            if rnd:
+                off = P.chunk_offsets(torch.arange(hi, device=dev), hi)
+                line += (f"; {l2_rereads(torch, off, l2 // (gr * 512)):.3f} "
+                         f"of the fetches re-read a chunk within the L2's "
+                         f"reach")
+            if (lo, hi) != (2048, 8192):
+                t_hi = time_ms(torch, lambda: P.chunk_reader(v, gr, rnd, 8192),
+                               3)
+                if t_hi >= 0.05:
+                    # past nch the JAX pair reads v again: L2 may serve a
+                    # part of the rereads
+                    ms_j = slope_ms(torch, call, ks=(2048, 8192))
+                    line += (f"; over the JAX probe's 2048 and 8192 (v read "
+                             f"{8192 // hi} times): {ms_j * 1e3:.4f} us = "
+                             f"{gr * 512 / ms_j / 1e6:.0f} GB/s")
+                else:
+                    line += (f"; the JAX probe's 8192 fetches take "
+                             f"{t_hi:.4f} ms, under the timing noise")
+            print(f"{line} [{label}]", flush=True)
+            out[(gr, rnd)] = (ms, gbs)
+    print("  random / contiguous time a chunk: " + ", ".join(
+        f"gr {gr}: {out[(gr, True)][0] / out[(gr, False)][0]:.3f}"
+        for gr in GRAPH_GR), flush=True)
+    return v, out
+
+
+def random_rotations(torch, gen, E, dtype=None):
+    """E Haar-random rotations from unit quaternions, on the generator's
+    device: the measurement blocks of the operator arms (elementwise, where
+    a batched QR of E = 6.3e6 blocks is not)."""
+    q = torch.randn((E, 4), generator=gen, device=gen.device, dtype=dtype)
+    q = q / torch.linalg.vector_norm(q, dim=1, keepdim=True)
+    w, x, y, z = q.unbind(1)
+    return torch.stack([
+        1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y),
+        2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x),
+        2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
+        dim=1).reshape(E, 3, 3)
+
+
+LAPLACIAN_METHODS = ("scatter", "gather", "sort", "adjacency")
+
+
+def laplacian_arms(torch, dev, label, ceiling, n=GRAPH_N_ROT):
+    """The connection-Laplacian apply (``rotation_sync.connection_
+    laplacian_op``) at n rotations, d = 3, f32, with the graph probe's edge
+    set (odometry chain + 2n random closures from a seeded generator,
+    self-loops dropped), one arm a ``scatter_method``: ms an apply against
+    the probe's floor (2 n d^2 + 3 E d^2) 4 bytes, GB/s over the ceiling,
+    peak memory.  Gate: every method within 1e-5 (relative Frobenius) of
+    an f64 apply of the same operator and of the scatter arm.  Returns
+    {method: (ms, GB/s)}."""
+    from optimization_tpu_torch.models import rotation_sync as rs
+
+    d = 3
+    gen = torch.Generator(device=dev).manual_seed(1)
+    src = torch.cat([torch.arange(n - 1, device=dev),
+                     torch.randint(0, n, (2 * n,), generator=gen, device=dev)])
+    dst = torch.cat([torch.arange(1, n, device=dev),
+                     torch.randint(0, n, (2 * n,), generator=gen, device=dev)])
+    keep = src != dst
+    src, dst = src[keep], dst[keep]
+    E = int(src.numel())
+    # locality: edges within a 1 MiB chunk window (2048 x 128 f32 words /
+    # d^2 = 29,127 rotation indices)
+    win = (2048 * 128) // (d * d)
+    loc = float(((src - dst).abs() <= win).double().mean())
+    data = rs.RotationSyncData(src=src, dst=dst,
+                               Rij=random_rotations(torch, gen, E))
+    V = torch.randn((n * d, d), generator=gen, device=dev)
+    ref = rs.connection_laplacian_op(
+        data._replace(Rij=data.Rij.double()), n, d)(V.double())
+    ref_norm = float(torch.linalg.vector_norm(ref))
+    floor = (2 * n * d * d + 3 * E * d * d) * 4
+    print(f"  connection Laplacian, n = {n} rotations, E = {E} edges, "
+          f"{100 * loc:.1f} % of the edges within a 1 MiB chunk window; floor "
+          f"{floor / 1e6:.0f} MB an apply", flush=True)
+    outs, res = {}, {}
+    for method in LAPLACIAN_METHODS:
+        torch.cuda.synchronize(dev)
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        L = rs.connection_laplacian_op(data, n, d, scatter_method=method)
+        outs[method] = L(V)
+        torch.cuda.synchronize(dev)
+        build_s = time.perf_counter() - t0
+        ms = time_ms(torch, lambda: L(V), 5)
+        peak = (torch.cuda.max_memory_allocated(dev) - base) / 2 ** 30
+        rel = float(torch.linalg.vector_norm(outs[method].double() - ref)
+                    ) / ref_norm
+        gbs = floor / ms / 1e6
+        print(f"  {method}: {ms:.3f} ms an apply = {gbs:.0f} GB/s of the floor "
+              f"= {gbs / ceiling:.3f} of the measured ceiling; built and "
+              f"applied once in {build_s:.2f} s; peak memory {peak:.2f} GiB "
+              f"above the data; |L V - f64| / |f64| = {rel:.2e} [{label}]",
+              flush=True)
+        res[method] = (ms, gbs, rel)
+        del L
+    pair = max(float(torch.linalg.vector_norm(outs[m] - outs["scatter"]))
+               / ref_norm for m in LAPLACIAN_METHODS)
+    if not (max(r[2] for r in res.values()) <= 1e-5 and pair <= 1e-5):
+        raise AssertionError(f"connection Laplacian arms disagree: "
+                             f"{ {m: r[2] for m, r in res.items()} }, "
+                             f"pairwise {pair:.2e}")
+    print(f"  gate passed: the four methods within 1e-5 of the f64 apply "
+          f"and of each other (max pairwise {pair:.2e})", flush=True)
+    return {m: r[:2] for m, r in res.items()}
+
+
+def graph_probe_phase(torch, dev, label, ceiling):
+    """Phase 16: the graph probe (``probe_graph_stream.py``): the chunk
+    reader's arms, then each arm's two calls and the kernels line's call
+    held against the plain version and the float64 sum (v holds integers:
+    bit for bit), its entry of the kernels line, the operator arms.
+    Returns (the entry, {arm: GB/s})."""
+    from optimization_tpu_torch.kernels import probes as P
+
+    print(f"phase 16: graph probe, chunk_reader over N = 2^26 f32 words, "
+          f"slope over n_fetch (hi reads the 256 MiB once) [{label}]",
+          flush=True)
+    # ---- the probe's run: the count starts at 0 here ----
+    P.chunk_reader.launches = 0
+    v, arms = chunk_reader_arms(torch, dev, label, ceiling)
+    launches = P.chunk_reader.launches
+    # ---- end of the probe's run ----
+    print(f"  chunk_reader launches in the probe's run: {launches}",
+          flush=True)
+    if launches <= 0:
+        raise AssertionError("chunk_reader was not launched")
+    f64 = (v.double(), v.double().abs())
+    for gr, rnd in arms:
+        for nf in chunk_fetches(gr):
+            check_chunk_reader(torch, f"arm gr={gr} random={rnd} n_fetch="
+                               f"{nf}", v, f64, gr, rnd, nf)
+    print(f"  ok   each arm's calls (n_fetch nch / 4 and nch) equal to the "
+          f"plain version and the f64 sum bit for bit", flush=True)
+    n_fetch = chunk_fetches(ENTRY_GR)[1]
+    err, _, got = check_chunk_reader(torch, "the kernels line's call", v, f64,
+                                     ENTRY_GR, True, n_fetch)
+    err = max(err, float((got - P.chunk_reader_reference(
+        v, ENTRY_GR, True, n_fetch)).abs()))
+    del f64
+    ms = time_ms(torch, lambda: P.chunk_reader(v, ENTRY_GR, True, n_fetch),
+                 20)
+    plain_ms = time_ms(torch, lambda: P.chunk_reader_reference(
+        v, ENTRY_GR, True, n_fetch), 3)
+    nch = v.shape[0] // ENTRY_GR
+    distinct = int(torch.unique(P.chunk_offsets(
+        torch.arange(n_fetch, device=dev), nch)).numel())
+    # the distinct chunks read once each, one add a word
+    bound_ms, bound_by = bound(distinct * ENTRY_GR * 512 + 4,
+                               n_fetch * ENTRY_GR * 128)
+    print(f"  chunk_reader, one call (gr = {ENTRY_GR}, random, n_fetch = "
+          f"{n_fetch}, {distinct} distinct chunks; |error| {err!r} against "
+          f"the f64 sum and the plain version): kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: the "
+          f"distinct chunks' bytes; {bound_ms / ms:.3f} of it); no single "
+          f"PyTorch call computes it [{label}]", flush=True)
+    entry = {"name": "chunk_reader", "route": "cuda",
+             "source": "optimization_tpu_torch/csrc/probes.cu",
+             "replaces": "benchmarks/probe_graph_stream.py:116",
+             "launches": launches, "max_abs_err": err, "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": bound_ms,
+             "bound_by": bound_by, "library_ms": None}
+    ops = laplacian_arms(torch, dev, label, ceiling)
+    rates = {f"chunk_reader ctg[{GRAPH_GR[-1]}]":
+             arms[(GRAPH_GR[-1], False)][1],
+             f"chunk_reader rnd[{ENTRY_GR}]": arms[(ENTRY_GR, True)][1],
+             **{f"connection Laplacian {m}": ops[m][1] for m in ops}}
+    return entry, rates
+
+
+# ---- rotation synchronization and matrix completion on the card ----
+
+ROTSYNC = dict(n=10_000, extra=20_000, noise=0.01)   # config6's rotations
+COMPLETION = dict(m=5000, n=4000, k=10, frac=0.10, noise=0.01)   # config9
+RING_SEED = 3          # a CPU generator's ring instance and R0 that get stuck
+
+
+@contextlib.contextmanager
+def lobpcg_log():
+    """Record (iterations, gram_pair launches) of every LOBPCG solve made in
+    the block: the models import ``linalg.lobpcg.lobpcg`` when they call
+    it, so the wrapper sees each solve."""
+    import importlib
+
+    from optimization_tpu_torch.kernels import fused as F
+
+    # the module (the package's ``linalg.lobpcg`` is the function)
+    M = importlib.import_module("optimization_tpu_torch.linalg.lobpcg")
+    inner, log = M.lobpcg, []
+
+    def wrapped(*args, **kwargs):
+        before = F.gram_pair.launches
+        res = inner(*args, **kwargs)
+        log.append((int(res.num_iterations), F.gram_pair.launches - before))
+        return res
+
+    M.lobpcg = wrapped
+    try:
+        yield log
+    finally:
+        M.lobpcg = inner
+
+
+def on_so_d(torch, R, atol):
+    """Max |R_i' R_i - I| and whether every block is orthonormal within
+    ``atol`` with det > 0."""
+    eye = torch.eye(R.shape[-1], dtype=R.dtype, device=R.device)
+    dev_ = float((R.mT @ R - eye).abs().max())
+    return dev_, dev_ <= atol and bool((torch.linalg.det(R) > 0).all())
+
+
+def rotation_sync_phase(torch, dev, label):
+    """Phase 17: rotation sync at config6's rotation graph, f32, made on
+    the card: spectral init, TNT on three routes from one R0, the
+    staircase with its certificate; gates as printed."""
+    from optimization_tpu_torch.core.types import TNTStatus
+    from optimization_tpu_torch.models import rotation_sync as rs
+    from optimization_tpu_torch.solvers import tnt
+
+    n, extra, noise = ROTSYNC["n"], ROTSYNC["extra"], ROTSYNC["noise"]
+    gen = torch.Generator(device=dev).manual_seed(6)
+    R_true, full = rs.random_instance(gen, n, 3, extra_edges=extra,
+                                      noise=noise)
+    keep = full.src != full.dst
+    data = rs.RotationSyncData(src=full.src[keep], dst=full.dst[keep],
+                               Rij=full.Rij[keep])
+    print(f"phase 17: rotation sync, config6's rotation graph (n = {n}, "
+          f"odometry chain + {extra} random closures, {int(data.src.numel())}"
+          f" edges without self-loops, noise {noise}), f32 on the card "
+          f"[{label}]", flush=True)
+    params = tnt.TNTParams(max_iterations=100, gradient_tolerance=2e-3,
+                           relative_decrease_tolerance=0.0,
+                           stepsize_tolerance=0.0,
+                           preconditioned_gradient_tolerance=0.0)
+    routes = (("plain", rs.make_problem()),
+              ("preconditioned", rs.make_problem(preconditioned=True)),
+              ("flat", rs.make_problem(flat=True)))
+    init = lambda: rs.spectral_init(  # noqa: E731
+        data, n, 3, generator=torch.Generator(device=dev).manual_seed(7))
+    rs.spectral_init(data, n, 3, max_iterations=2)                # warm-up
+    for _, prob in routes:
+        tnt.solve(prob, R_true, dataclasses.replace(params, max_iterations=1),
+                  data=data)
+    with lobpcg_log() as log:
+        R0, secs = timed_solve(torch, dev, init)
+    (it0, l0), = log
+    print(f"  spectral_init (chol RR): {it0} LOBPCG iterations, gram_pair "
+          f"launches {l0}, mean rotation error "
+          f"{float(rs.mean_rotation_error(R0, R_true)):.4f}, {secs:.3f} s "
+          f"[{label}]", flush=True)
+    fs = {}
+    for name, prob in routes:
+        res, secs, reads = host_reads(
+            torch, lambda: tnt.solve(prob, R0, params, data=data))
+        outer, cg = counts(res)
+        err = float(rs.mean_rotation_error(res.x, R_true))
+        orth, on = on_so_d(torch, res.x, 1e-4)
+        print(f"  TNT {name}: {TNTStatus(int(res.status)).name}, {outer} outer"
+              f" / {cg} CG iterations in {secs:.3f} s, f = {float(res.f):.6f}"
+              f", |grad| = {float(res.gradfx_norm):.3e}, mean rotation error "
+              f"{err:.4f}, max |R'R - I| {orth:.1e}, host reads {reads} "
+              f"[{label}]", flush=True)
+        if not (int(res.status) == TNTStatus.GRADIENT and err < 4 * noise
+                and on and res.x.device.type == dev.type):
+            raise AssertionError(f"rotation sync TNT {name}: the gate failed")
+        fs[name] = float(res.f)
+    spread = (max(fs.values()) - min(fs.values())) / abs(fs["plain"])
+    if spread > 1e-4:
+        raise AssertionError(f"rotation sync: the routes' f differ by "
+                             f"{spread:.2e} relative")
+    with lobpcg_log() as log:
+        st, secs = timed_solve(torch, dev, lambda: rs.solve_staircase(
+            data, n, 3, R0=R0,
+            generator=torch.Generator(device=dev).manual_seed(8)))
+    cert = st.cert
+    err = float(rs.mean_rotation_error(st.R, R_true))
+    orth, on = on_so_d(torch, st.R, 1e-4)
+    print(f"  solve_staircase from R0: p_final {st.p_final}, certified "
+          f"{bool(st.certified)}, lam_min {float(cert.lam_min):.3e} >= -eta "
+          f"= {-float(cert.eta):.3e}, stationarity "
+          f"{float(cert.stationarity):.2e}, LOBPCG (iterations, gram_pair "
+          f"launches) {log}, mean rotation error {err:.4f}, {secs:.3f} s "
+          f"[{label}]", flush=True)
+    if not (bool(st.certified) and err < 4 * noise and on
+            and all(k == 1 + it for it, k in [(it0, l0)] + log)):
+        raise AssertionError("rotation sync staircase: the gate failed")
+    print(f"  gates passed: three routes GRADIENT with f within {spread:.1e}"
+          f" (<= 1e-4) relative, mean rotation error < 4 noise, certified, "
+          f"R on SO(3)^n, gram_pair launches = 1 + iterations for every "
+          f"LOBPCG solve", flush=True)
+
+
+def ring_instance(torch, rs, gen, n=12, d=3, noise=0.3):
+    """``tests/test_rotation_sync.py``'s weakly connected ring at noise 0.3
+    in f64, drawn from ``gen``: truth, then the perturbations."""
+    R_true, _ = rs.random_instance(gen, n, d, extra_edges=0, noise=0.0,
+                                   dtype=torch.float64)
+    src = torch.cat([torch.arange(n - 1), torch.tensor([n - 1])])
+    dst = torch.cat([torch.arange(1, n), torch.tensor([0])])
+    w = noise * torch.randn((n, d, d), generator=gen, dtype=torch.float64)
+    skew = 0.5 * (w - w.mT)
+    pert = rs._orthonormalize(torch.eye(d, dtype=torch.float64) + skew
+                              + 0.5 * (skew @ skew))
+    return R_true, rs.RotationSyncData(
+        src=src, dst=dst, Rij=pert @ (R_true[src] @ R_true[dst].mT))
+
+
+def staircase_lift_phase(torch, dev, label):
+    """Phase 18: the staircase climbs on the card: the ring instance in f64
+    with an R0 whose level-d critical point is not certified (drawn from a
+    CPU generator, so the instance is the same on any machine, then moved
+    to the card); the lifted St(p, d)^n solves and ``round_lifted`` run on
+    the card."""
+    from optimization_tpu_torch.models import rotation_sync as rs
+    from optimization_tpu_torch.solvers import tnt
+
+    n, d = 12, 3
+    gen = torch.Generator().manual_seed(RING_SEED)
+    _, data = ring_instance(torch, rs, gen, n, d)
+    R0 = rs.ROTATIONS.rand(gen, n, d, d, dtype=torch.float64).to(dev)
+    data = rs.RotationSyncData(*(t.to(dev) for t in data[:3]))
+    params = tnt.TNTParams(max_iterations=200, gradient_tolerance=1e-10,
+                           relative_decrease_tolerance=0.0,
+                           stepsize_tolerance=0.0,
+                           preconditioned_gradient_tolerance=0.0)
+    print(f"phase 18: staircase lift on the card, ring n = {n}, noise 0.3, "
+          f"f64, R0 from seed {RING_SEED} [{label}]", flush=True)
+    with lobpcg_log() as log:
+        st, secs = timed_solve(torch, dev, lambda: rs.solve_staircase(
+            data, n, d, params=params, R0=R0, cert_tau=1e-6))
+    orth, on = on_so_d(torch, st.R, 1e-9)
+    levels = ", ".join(f"p {p}: f {f:.6f}, lam_min {lam:.3e}, "
+                       f"{'certified' if c else 'not certified'}"
+                       for p, f, lam, c in st.levels)
+    print(f"  levels: {levels}; p_final {st.p_final}, rank_gap "
+          f"{st.rank_gap:.2e}, certified {bool(st.certified)}, final f "
+          f"{float(st.result.f):.6f}, max |R'R - I| {orth:.1e}, LOBPCG "
+          f"iterations {[it for it, _ in log]}, {secs:.3f} s [{label}]",
+          flush=True)
+    if not (st.p_final > d and bool(st.certified) and st.rank_gap < 1e-6
+            and not st.levels[0][3] and on and st.R.device.type == dev.type
+            and all(k == 0 for _, k in log)):
+        raise AssertionError("staircase lift: the gate failed")
+    print("  gates passed: p_final > d, certified, rank_gap < 1e-6, R on "
+          "SO(3)^n (f64 LOBPCG takes torch.matmul: no gram_pair launch)",
+          flush=True)
+
+
+def completion_phase(torch, dev, label):
+    """Phase 19: matrix completion at config9's width
+    (``benchmarks/config9_matrix_completion.py``: 5000 x 4000, k = 10, 10 %
+    observed, noise 0.01, lam = 1e-8, its TNT params), f32 on the card,
+    then float64 from the same data and start: where f32 ends on
+    TRUST_REGION above the tolerance (the gain ratio is round-off of f; JAX
+    in f32 stops so too, ``tests/test_torch_matrix_completion.py``), float64
+    reaches GRADIENT."""
+    from optimization_tpu_torch.core.types import TNTStatus
+    from optimization_tpu_torch.models import matrix_completion as mc
+    from optimization_tpu_torch.solvers import tnt
+
+    m, n, k, frac, noise = (COMPLETION[key]
+                            for key in ("m", "n", "k", "frac", "noise"))
+    print(f"phase 19: matrix completion, config9 ({m} x {n}, k = {k}, "
+          f"{frac:.0%} observed, noise {noise}), f32 on the card [{label}]",
+          flush=True)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    M_true, data = mc.random_instance(gen, m, n, k, frac=frac, noise=noise,
+                                      lam=1e-8)
+    params = tnt.TNTParams(
+        max_iterations=60, gradient_tolerance=1e-3,
+        relative_decrease_tolerance=0.0, stepsize_tolerance=0.0,
+        preconditioned_gradient_tolerance=0.0, max_TPCG_iterations=100)
+    problem = mc.make_problem()
+    U0, secs_init = timed_solve(torch, dev, lambda: mc.spectral_init(data, k))
+    tnt.solve(problem, U0, dataclasses.replace(params, max_iterations=1),
+              data=data)                                      # warm-up
+    res, secs, reads = host_reads(
+        torch, lambda: tnt.solve(problem, U0, params, data=data))
+    outer, cg = counts(res)
+    M_hat = mc.predict(res.x, data)
+    rel = float(torch.linalg.vector_norm(M_hat - M_true)
+                / torch.linalg.vector_norm(M_true))
+    print(f"  spectral_init {secs_init:.3f} s; TNT "
+          f"{TNTStatus(int(res.status)).name}, {outer} outer / {cg} CG "
+          f"iterations in {secs:.3f} s, f = {float(res.f):.4f}, |grad| = "
+          f"{float(res.gradfx_norm):.3e}, relative error over all entries "
+          f"{rel:.3e}, host reads {reads} [{label}]", flush=True)
+    rho = ", ".join(f"{float(r):.3g}" for r in res.gain_ratios[:outer])
+    print(f"  f32 gain ratios by outer iteration: {rho}", flush=True)
+    # the f64 witness: the same data and start in float64, to the same
+    # tolerance; f32 stops where the gain ratio is round-off of f
+    d64 = mc.CompletionData(*(a.double() for a in data))
+    res64, secs64 = timed_solve(torch, dev, lambda: tnt.solve(
+        problem, U0.double(), params, data=d64))
+    outer64, cg64 = counts(res64)
+    rel64 = float(torch.linalg.vector_norm(mc.predict(res64.x, d64)
+                                           - M_true.double())
+                  / torch.linalg.vector_norm(M_true.double()))
+    print(f"  float64 witness from the same data and U0: "
+          f"{TNTStatus(int(res64.status)).name}, {outer64} outer / {cg64} CG"
+          f" iterations in {secs64:.3f} s, f = {float(res64.f):.6f}, |grad| "
+          f"= {float(res64.gradfx_norm):.3e}, relative error {rel64:.3e} "
+          f"[{label}]", flush=True)
+    if not (rel < 5 * noise and res.x.shape == (m, k)
+            and bool(torch.isfinite(res.x).all())
+            and res.x.device.type == dev.type
+            and int(res64.status) == TNTStatus.GRADIENT
+            and rel64 < 5 * noise):
+        raise AssertionError("matrix completion: the gate failed")
+    print(f"  gates passed: relative error {rel:.3e} < 5 noise; float64 "
+          f"reaches GRADIENT (|grad| <= 1e-3)", flush=True)
+
 
 def ceiling_summary(ceiling, rates, label):
     print(f"bandwidth ceiling: stream3_probe {ceiling:.0f} GB/s at n = 2^24 "
@@ -1882,9 +2486,14 @@ def main():
     probe_parity_phase(torch, dev)
     probe_kernels = probe_timing_phase(torch, dev, label, ceiling)
     convex_phase(torch, dev, label)
+    chunk_parity_phase(torch, dev)
+    chunk_kernel, graph_rates = graph_probe_phase(torch, dev, label, ceiling)
+    rotation_sync_phase(torch, dev, label)
+    staircase_lift_phase(torch, dev, label)
+    completion_phase(torch, dev, label)
     ceiling_summary(ceiling, {"stpcg_flat_streamed": streamed_gbs,
                               "stpcg_flat_streamed[prec]": prec_gbs,
-                              **rates}, label)
+                              **rates, **graph_rates}, label)
 
     launches = {"gram_pair": gram_launches, "stream3_probe": stream3_launches}
     new_kernels = [{
@@ -1895,7 +2504,7 @@ def main():
         **times7[name]}
         for name in ("gram_pair", "stream3_probe")]
     print(json.dumps({"kernels": [kernel] + fused_kernels + new_kernels
-                      + [prec_kernel] + probe_kernels}))
+                      + [prec_kernel] + probe_kernels + [chunk_kernel]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -25,10 +25,15 @@ operators), ``solvers.proximal_gradient`` (ISTA / FISTA on a
 ``CompositeProblem``) and ``solvers.admm`` (simple, accelerated, residual
 balancing); the host-chunked drivers ``driver.drive`` (gradient descent,
 TNT, TNLS, proximal gradient) / ``drive_admm`` / ``drive_lobpcg`` /
-``drive_lobpcg_fleet`` on the ``Stopwatch`` clock; and the two residency
-probe kernels ``kernels.pinned_stream`` / ``kernels.resident_body``
-(``csrc/probes.cu``; ``probe_pinned_stream.py`` and
-``probe_resident_body.py`` at the repository root time them).
+``drive_lobpcg_fleet`` on the ``Stopwatch`` clock; the matrix manifolds
+(``manifolds.stiefel`` / ``rotations`` / ``grassmann`` / ``product``) and
+the models ``models.graph``, ``models.rotation_sync`` (spectral init,
+TNT, the SE-Sync certificate and staircase) and
+``models.matrix_completion``; and the probe kernels
+``kernels.pinned_stream`` / ``kernels.resident_body`` /
+``kernels.chunk_reader`` (``csrc/probes.cu``; ``probe_pinned_stream.py``,
+``probe_resident_body.py`` and ``probe_graph_stream.py`` at the
+repository root time them).
 """
 
 from . import core, kernels, linalg, manifolds, solvers

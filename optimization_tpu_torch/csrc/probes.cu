@@ -1,6 +1,8 @@
-// The two CG-body residency probes for the H100 (sm_90a): what does it buy
-// to keep a loop-invariant vector, or the loop's own state, on chip across
-// the iterations of a streamed CG-like loop?
+// The probe kernels for the H100 (sm_90a).  The two CG-body residency
+// probes: what does it buy to keep a loop-invariant vector, or the loop's
+// own state, on chip across the iterations of a streamed CG-like loop?  And
+// the graph probe's chunk reader: what rate does the card deliver when a
+// kernel gathers chunks of a vector at random offsets?
 //
 // pinned_stream replaces benchmarks/probe_pallas_stream.py:mk_pallas (the
 // Pallas TPU kernel that pins x in VMEM and streams r, p (and s) in place):
@@ -43,6 +45,22 @@
 // - the held and the not-held arm of a kernel use ONE geometry (grid,
 //   regions, thread-to-element map) and differ only in where an operand is
 //   read from, so their results are bitwise equal too.
+//
+// chunk_reader replaces benchmarks/probe_graph_stream.py:mk_chunk_reader (the
+// Pallas TPU kernel that DMAs n_fetch chunks of gr x 128 f32 words from device
+// memory at contiguous or LCG-random chunk offsets and sums them): the gather
+// primitive any chunked graph-operator kernel would be built from.  It is
+// bound by device-memory bytes (one add a word) and, at small chunks, by how
+// many independent requests are in flight.  The TPU kernel double-buffers
+// whole-chunk DMAs; here the fetch stream is cut into 512-byte rows, the
+// grid's warps (eight blocks on every SM) take consecutive rows, compute
+// each chunk offset themselves and read a row with one 16-byte non-coherent
+// load a lane, four rows in flight a warp: thousands of independent requests
+// at every granularity.  Each lane sums in f32 in a fixed order, each warp
+// writes one partial, and a second kernel adds the partials in double in a
+// fixed order: two runs are bitwise equal.  (cp.async.bulk / TMA with an
+// mbarrier, the direct counterpart of the TPU's async copies, is later
+// work.)
 //
 // Plain C interface for ctypes; see optimization_tpu_torch/kernels/probes.py
 // for the wrappers and the plain PyTorch versions.
@@ -477,6 +495,94 @@ cudaError_t launch(const void* fn, void** args, int grid, int smem_bytes,
   return cudaGetLastError();
 }
 
+// ------------------------------------------------------------- chunk_reader
+
+constexpr int kReadThreads = 256;
+constexpr int kReadBlocksPerSM = 8;      // 64 warps, the SM's full complement
+constexpr int kReadWarps = kReadThreads / 32;
+constexpr int kReadUnroll = 4;           // pieces a warp has in flight
+
+// The offset of fetch t: t mod nch, or the JAX probe's int32 LCG
+// h = t * 1103515245 + 12345 wrapping at 32 bits, then |h| mod nch the way
+// jnp computes them: |INT32_MIN| stays INT32_MIN, and % is a floor-mod
+// (C's truncating % would give a negative offset there).  nch < 2^31.
+__device__ __forceinline__ long long chunk_offset(long long t, long long nch,
+                                                  int random) {
+  if (!random) return t % nch;
+  const int32_t h = (int32_t)((uint32_t)t * 1103515245u + 12345u);
+  const int32_t a = (h == INT32_MIN) ? h : (h < 0 ? -h : h);
+  const int32_t m = a % (int32_t)nch;
+  return m < 0 ? (long long)m + nch : (long long)m;
+}
+
+// The fetch stream is cut into 512-byte pieces, one row of 128 words each:
+// piece i is row i mod gr of the chunk of fetch start + i / gr.  Warp w
+// reads pieces w, w + W, w + 2W, ... (W warps in the grid), kReadUnroll of
+// them in flight, one 16-byte load a lane each: consecutive warps read
+// consecutive rows of a chunk, whatever its size, so every granularity runs
+// at the same parallelism, and the window read at one time (a few MB) is far
+// below the vector, so a chunk read again (n_fetch > nch) comes from device
+// memory as on the TPU, not from another warp's lines in L2.
+__global__ void __launch_bounds__(kReadThreads)
+    chunk_reader_kernel(const float4* __restrict__ v, long long gr,
+                        long long nch, long long start, long long n_fetch,
+                        int random, float* __restrict__ part) {
+  const int lane = threadIdx.x & 31;
+  const long long w = (long long)blockIdx.x * kReadWarps + (threadIdx.x >> 5);
+  const long long W = (long long)gridDim.x * kReadWarps;
+  const long long step_t = W / gr, step_r = W % gr;
+  long long t = w / gr, r = w % gr;          // this warp's next piece
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  while (t < n_fetch) {
+    float4 x[kReadUnroll];
+    int m = 0;
+#pragma unroll
+    for (int u = 0; u < kReadUnroll; ++u) {
+      if (t < n_fetch) {
+        const long long row = chunk_offset(start + t, nch, random) * gr + r;
+        x[u] = __ldg(v + row * 32 + lane);
+        m = u + 1;
+        t += step_t;
+        r += step_r;
+        if (r >= gr) {
+          r -= gr;
+          ++t;
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kReadUnroll; ++u) {
+      if (u < m) {
+        acc.x += x[u].x;
+        acc.y += x[u].y;
+        acc.z += x[u].z;
+        acc.w += x[u].w;
+      }
+    }
+  }
+  float s = (acc.x + acc.y) + (acc.z + acc.w);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) s += __shfl_down_sync(0xffffffffu, s, off);
+  if (lane == 0) part[w] = s;
+}
+
+// One block adds the warps' partials in double, in a fixed order.
+__global__ void __launch_bounds__(kReadThreads)
+    chunk_finish_kernel(const float* __restrict__ part, int n, float* out) {
+  __shared__ double red[kReadWarps];
+  double v = 0.0;
+  for (int i = threadIdx.x; i < n; i += kReadThreads) v += (double)part[i];
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    double t = 0.0;
+    for (int w = 0; w < kReadWarps; ++w) t += red[w];
+    out[0] = (float)t;
+  }
+}
+
 template <typename T>
 const void* body_kernel() { return (const void*)resident_body_kernel<T>; }
 
@@ -647,6 +753,30 @@ int probes_resident_body(int bf16, const void* r_in, const void* p_in,
   const void* fn = bf16 ? body_kernel<__nv_bfloat16>() : body_kernel<float>();
   return (int)launch(fn, args, grid, resident ? smem_bytes : 0, nullptr,
                      (cudaStream_t)stream);
+}
+
+// The sum of fetches [start, start + n_fetch) of gr-row chunks of v (rows of
+// 128 f32 words, 16-byte aligned; nch = rows / gr chunks) into out[0], on
+// `stream`: the reader on kReadBlocksPerSM blocks on each of `sms` SMs (fewer
+// when there are fewer pieces, n_fetch * gr rows, than warps), then the
+// finishing kernel.  `part` holds `part_len` floats, one a warp of the grid
+// (sms * 64 always suffices).  Returns a cudaError_t.
+int probes_chunk_reader(const float* v, long long gr, long long nch,
+                        long long start, long long n_fetch, int random,
+                        int sms, float* part, long long part_len, float* out,
+                        void* stream) {
+  const long long want = ceil_div(n_fetch * gr, kReadWarps);
+  const long long cap = (long long)sms * kReadBlocksPerSM;
+  const int grid = (int)(want < cap ? want : cap);
+  if (sms < 1 || (long long)grid * kReadWarps > part_len)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  chunk_reader_kernel<<<grid, kReadThreads, 0, st>>>(
+      (const float4*)v, gr, nch, start, n_fetch, random, part);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  chunk_finish_kernel<<<1, kReadThreads, 0, st>>>(part, grid * kReadWarps, out);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -5,8 +5,9 @@ The ported problems have no learned weights: their state is the params
 ``ProximalGradientParams``, ``ADMMParams`` and their bases), the initial
 point, the data (for the convex solvers A, b, c), and the ``warm_start``
 carry of a LOBPCG, proximal-gradient or ADMM solve.
-These functions carry them without importing JAX (arrays arrive through
-numpy's array protocol).
+The model data (``RotationSyncData``, ``CompletionData``) crosses the same
+way.  These functions carry them without importing JAX (arrays arrive
+through numpy's array protocol).
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ import torch
 
 from .core.tree import tree_map
 from .core.types import OptimizerParams, SmoothOptimizerParams
+from .models.matrix_completion import CompletionData
+from .models.rotation_sync import RotationSyncData
 from .solvers import admm as _admm
 from .solvers import proximal_gradient as _pg
 from .solvers.gradient_descent import GradientDescentParams
@@ -27,7 +30,8 @@ from .solvers.tnt import TNTParams
 __all__ = ["params_from_jax", "tensor_from_numpy", "result_to_numpy",
            "lobpcg_warm_start_from_jax",
            "proximal_gradient_warm_start_from_jax",
-           "admm_warm_start_from_jax"]
+           "admm_warm_start_from_jax", "rotation_sync_data_from_jax",
+           "completion_data_from_jax"]
 
 _PARAMS = {cls.__name__: cls
            for cls in (OptimizerParams, SmoothOptimizerParams,
@@ -113,3 +117,22 @@ def admm_warm_start_from_jax(ws, device="cuda"):
     conv = lambda a: tensor_from_numpy(a, device)
     return (tree_map(conv, lam), conv(rho),
             {key: tree_map(conv, v) for key, v in carry.items()})
+
+
+def rotation_sync_data_from_jax(data, device="cuda") -> RotationSyncData:
+    """The port's ``RotationSyncData`` from the JAX package's: the edge
+    indices as int64, ``Rij`` and ``kappa`` in their dtype, all on
+    ``device`` (the card unless told ``device="cpu"``); a ``kappa`` of None
+    stays None."""
+    idx = lambda a: tensor_from_numpy(a, device, torch.int64)
+    return RotationSyncData(
+        src=idx(data.src), dst=idx(data.dst),
+        Rij=tensor_from_numpy(data.Rij, device),
+        kappa=(None if data.kappa is None
+               else tensor_from_numpy(data.kappa, device)))
+
+
+def completion_data_from_jax(data, device="cuda") -> CompletionData:
+    """The port's ``CompletionData`` from the JAX package's, every array on
+    ``device`` (the card unless told ``device="cpu"``) in its dtype."""
+    return CompletionData(*(tensor_from_numpy(a, device) for a in data))

@@ -12,14 +12,13 @@
   ``gram_pair`` is the LOBPCG Gram stage (``linalg/lobpcg.py``),
   ``stream3_probe`` the measured bandwidth ceiling of ``chip_smoke.py``.
 
-- :mod:`probes` — ``pinned_stream`` and ``resident_body``, CUDA C++ in
-  ``csrc/probes.cu``; replace the Pallas kernels (``mk_pallas``) of the JAX
-  package's ``benchmarks/probe_pallas_stream.py`` and
-  ``benchmarks/probe_resident_kernel.py``: the two measurements behind the
-  streamed CG kernel's residency design.
-
-The Pallas chunk reader of ``benchmarks/probe_graph_stream.py`` is not
-ported yet (see ROADMAP.md, Queue 2): it belongs with the graph operators.
+- :mod:`probes` — ``pinned_stream``, ``resident_body`` and
+  ``chunk_reader``, CUDA C++ in ``csrc/probes.cu``; replace the Pallas
+  kernels of the JAX package's ``benchmarks/probe_pallas_stream.py`` and
+  ``benchmarks/probe_resident_kernel.py`` (``mk_pallas``: the two
+  measurements behind the streamed CG kernel's residency design) and
+  ``benchmarks/probe_graph_stream.py`` (``mk_chunk_reader``: the chunked
+  gather behind the graph operators' verdict).
 """
 
 from .streamed_cg import (AffineDiagonal, JacobiPower, PrecMap,
@@ -32,7 +31,8 @@ from .fused import (GRAM_MAX_K, affine_stencil_matvec,
                     diag_stencil_matvec, diag_stencil_matvec_reference,
                     gram_pair, gram_pair_reference, stream3_probe,
                     stream3_probe_reference)
-from .probes import (pinned_stream, pinned_stream_reference, resident_body,
+from .probes import (chunk_offsets, chunk_reader, chunk_reader_reference,
+                     pinned_stream, pinned_stream_reference, resident_body,
                      resident_body_reference)
 
 __all__ = ["AffineDiagonal", "JacobiPower", "PrecMap", "ScaledDiagonal",
@@ -45,4 +45,5 @@ __all__ = ["AffineDiagonal", "JacobiPower", "PrecMap", "ScaledDiagonal",
            "GRAM_MAX_K", "gram_pair", "gram_pair_reference", "stream3_probe",
            "stream3_probe_reference", "pinned_stream",
            "pinned_stream_reference", "resident_body",
-           "resident_body_reference"]
+           "resident_body_reference", "chunk_reader",
+           "chunk_reader_reference", "chunk_offsets"]

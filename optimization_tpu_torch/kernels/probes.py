@@ -1,4 +1,5 @@
-"""The two CG-body residency probes: Hopper kernels and their plain versions.
+"""The probe kernels for Hopper, each beside its plain version: the two
+CG-body residency probes and the graph probe's chunk reader.
 
 Counterparts of the Pallas kernels of the JAX package's
 ``benchmarks/probe_pallas_stream.py`` (``mk_pallas``: x pinned on chip, r, p
@@ -19,9 +20,15 @@ across CG iterations, instead of streaming everything every iteration as
   arithmetic, r and p rounded to storage at the end of every iteration;
   returns r and ``dots[0] + dots[3]``.
 
-On a CUDA tensor each wrapper launches its kernel of ``csrc/probes.cu`` (one
-persistent cooperative launch for all K iterations; counted in
-``.launches``) or raises; on a CPU tensor it runs its plain version
+- :func:`chunk_reader` — the sum of ``n_fetch`` chunks of ``gr`` rows of a
+  (rows, 128) f32 tensor, read at contiguous or LCG-random chunk offsets
+  (:func:`chunk_offsets`): the counterpart of ``mk_chunk_reader`` of the JAX
+  package's ``benchmarks/probe_graph_stream.py``, the gather primitive a
+  chunked graph-operator kernel would be built from.
+
+On a CUDA tensor each wrapper launches its kernel of ``csrc/probes.cu``
+(for the residency probes one persistent cooperative launch for all K
+iterations; counted in ``.launches``) or raises; on a CPU tensor it runs its plain version
 (``*_reference``); any other device raises.  ``hold_x`` / ``resident``
 choose between the arm that keeps data on chip and the arm that streams
 everything; both arms of a kernel run one geometry and give bitwise equal
@@ -41,7 +48,8 @@ import torch
 from .streamed_cg import _STORAGE, _aligned
 
 __all__ = ["pinned_stream", "pinned_stream_reference", "resident_body",
-           "resident_body_reference", "card_capacity"]
+           "resident_body_reference", "card_capacity", "chunk_reader",
+           "chunk_reader_reference", "chunk_offsets"]
 
 
 def _affine(n: int, device) -> torch.Tensor:
@@ -115,6 +123,38 @@ def resident_body_reference(r: torch.Tensor, p: torch.Tensor, x: torch.Tensor,
     return r, dots[0] + dots[3]
 
 
+# The JAX probe's LCG: h = t * 1103515245 + 12345 in int32 arithmetic.
+_LCG_A, _LCG_C = 1103515245, 12345
+_INT32_MIN = -(1 << 31)
+# The most warps an SM holds: the reader's partials, one a warp of its grid.
+_WARPS_PER_SM = 64
+
+
+def chunk_offsets(t: torch.Tensor, nch: int) -> torch.Tensor:
+    """Chunk offsets of the random mode for fetch indices ``t`` (int64,
+    0 <= t < 2^31): h = int32(t * 1103515245 + 12345), wrapping at 32 bits,
+    then |h| mod nch computed as ``jnp.abs`` and jnp's floor-``%`` compute
+    them — |INT32_MIN| stays INT32_MIN (h = INT32_MIN at t = 2,088,216,195),
+    and the floor-mod of that negative value lies in [0, nch)."""
+    t = torch.as_tensor(t, dtype=torch.int64)
+    h = (t * _LCG_A + _LCG_C) & 0xFFFFFFFF
+    h = torch.where(h >= (1 << 31), h - (1 << 32), h)
+    a = torch.where(h == _INT32_MIN, h, h.abs())
+    return torch.remainder(a, nch)
+
+
+def chunk_reader_reference(v: torch.Tensor, gr: int, random_offsets: bool,
+                           n_fetch: int, *, start: int = 0) -> torch.Tensor:
+    """The plain PyTorch version of :func:`chunk_reader`: gathers the
+    chunks as rows of ``v[:nch gr].view(nch, gr 128)`` and sums them in
+    f32; a (1, 1) tensor on v's device."""
+    nch = v.shape[0] // gr
+    t = torch.arange(start, start + n_fetch, device=v.device)
+    off = chunk_offsets(t, nch) if random_offsets else t % nch
+    chunks = v[:nch * gr].reshape(nch, gr * v.shape[1])[off]
+    return torch.sum(chunks).reshape(1, 1)
+
+
 # ---------------------------------------------------------------------------
 # the kernels
 # ---------------------------------------------------------------------------
@@ -145,6 +185,9 @@ def _lib() -> ctypes.CDLL:
             i32, vp, vp, vp, vp, vp, vp, vp, i64, i32, i32, i32, i32, i64,
             i64, vp]
         lib.probes_resident_body.restype = i32
+        lib.probes_chunk_reader.argtypes = [vp, i64, i64, i64, i64, i32, i32,
+                                            vp, i64, vp, vp]
+        lib.probes_chunk_reader.restype = i32
         lib._argtypes_set = True
     return lib
 
@@ -298,8 +341,63 @@ def resident_body(r: torch.Tensor, p: torch.Tensor, x: torch.Tensor, *,
     return r_out, acc.reshape(())
 
 
+def chunk_reader(v: torch.Tensor, gr: int, random_offsets: bool,
+                 n_fetch: int, *, start: int = 0) -> torch.Tensor:
+    """The sum, as a (1, 1) f32 tensor on v's device, of the chunks read by
+    fetches t = start, ..., start + n_fetch - 1 of the (rows, 128) f32
+    tensor v: chunk ``off(t)`` is rows ``[off gr, off gr + gr)``, with
+    nch = rows // gr chunks (rows past nch gr are never read) and off(t) =
+    t mod nch, or :func:`chunk_offsets` with ``random_offsets``.  The JAX
+    probe's fetches start at t = 0; ``start`` reaches any t below 2^31
+    (where the LCG's INT32_MIN lies) without reading all the fetches
+    before it.
+
+    On a CUDA tensor it launches ``csrc/probes.cu``'s reader (a reader and
+    a finishing kernel, counted once in ``.launches``; two runs are bitwise
+    equal) or raises; on a CPU tensor it runs
+    :func:`chunk_reader_reference`."""
+    if v.dim() != 2 or v.shape[1] != 128:
+        raise ValueError(f"chunk_reader: v must be (rows, 128), got "
+                         f"{tuple(v.shape)}")
+    if v.dtype != torch.float32:
+        raise ValueError(f"chunk_reader takes f32, got {v.dtype}")
+    if not v.is_contiguous():
+        raise ValueError("chunk_reader: v must be contiguous")
+    gr, n_fetch, start = int(gr), int(n_fetch), int(start)
+    if not 1 <= gr <= v.shape[0]:
+        raise ValueError(f"chunk_reader: need 1 <= gr <= rows, got gr = {gr} "
+                         f"for {v.shape[0]} rows")
+    if n_fetch < 1 or start < 0 or start + n_fetch > (1 << 31):
+        raise ValueError(f"chunk_reader: need n_fetch >= 1 and fetches in "
+                         f"[0, 2^31) (an int32 LCG), got start {start}, "
+                         f"n_fetch {n_fetch}")
+    if v.device.type == "cpu":
+        return chunk_reader_reference(v, gr, random_offsets, n_fetch,
+                                      start=start)
+    if v.device.type != "cuda":
+        raise ValueError(f"chunk_reader runs on CUDA tensors (the kernel) or "
+                         f"CPU tensors (the plain version), not "
+                         f"{v.device.type}")
+    v = _aligned(v)
+    dev = v.device
+    lib = _lib()
+    with torch.cuda.device(dev):
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        part = torch.empty(sms * _WARPS_PER_SM, dtype=torch.float32,
+                           device=dev)
+        out = torch.empty((1, 1), dtype=torch.float32, device=dev)
+        code = lib.probes_chunk_reader(
+            v.data_ptr(), gr, v.shape[0] // gr, start, n_fetch,
+            int(bool(random_offsets)), sms, part.data_ptr(), part.numel(),
+            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        _raise_on(lib, code, "chunk_reader launch")
+    chunk_reader.launches += 1
+    return out
+
+
 # Kernel launches made by this process (the plain versions do not count).
 pinned_stream.launches = 0
 resident_body.launches = 0
+chunk_reader.launches = 0
 pinned_stream.last_held = None
 resident_body.last_held = None

@@ -179,8 +179,7 @@ def test_solve_info_matches_jax():
 # the TPU-only platform switch and gets no counterpart.
 STILL_MISSING = {
     "": {"io"},
-    "manifolds": {"GRASSMANN", "ROTATIONS", "STIEFEL", "grassmann", "product",
-                  "rotations", "stiefel"},
+    "manifolds": set(),
     "kernels": {"on_tpu"},
     "solvers": set(),
     "core": set(),

@@ -21,8 +21,11 @@ held within 3.  Tolerances of the
 fused kernels: those of ``chip_smoke.FUSED_TOLERANCES`` and
 ``chip_smoke.GRAM_TOLERANCES``, reasons there.  The two residency probe
 kernels (``csrc/probes.cu``): ``chip_smoke.PROBE_TOLERANCES``, and every arm
-of a kernel bit for bit equal to its other arms.  The last tests hold the
-convex solvers and the ``prec`` check of the streamed kernel on the card.
+of a kernel bit for bit equal to its other arms.  The chunk reader:
+``chip_smoke.CHUNK_TOLERANCES``.  Further tests hold the convex solvers, the
+``prec`` check of the streamed kernel, the matrix manifolds, the connection
+Laplacian (within f32 tolerance of the CPU: ``index_add`` sums with atomics
+in a varying order) and the models' card defaults.
 """
 
 import pytest
@@ -683,3 +686,159 @@ def test_convex_solvers_live_on_the_card(dev):
     assert float(torch.linalg.vector_norm(ares.y - res.x)) <= \
         5e-2 * float(torch.linalg.vector_norm(res.x))
     assert dataclasses.is_dataclass(ap)
+
+
+# ---- the chunk reader (csrc/probes.cu) and the rotation-sync models ----
+
+
+def _chunk_check(v, gr, rnd, n_fetch, start=0):
+    """chunk_reader's result, after holding it and the plain version
+    against the float64 sum of the chunks read (chip_smoke.CHUNK_TOLERANCES):
+    bit for bit on integer-valued v, within 1e-7 sum|values read| else."""
+    from optimization_tpu_torch.kernels import probes as P
+
+    out = P.chunk_reader(v, gr, rnd, n_fetch, start=start)
+    plain = P.chunk_reader_reference(v, gr, rnd, n_fetch, start=start)
+    vd = v.double()
+    ref, scale = (float(P.chunk_reader_reference(x, gr, rnd, n_fetch,
+                                                 start=start))
+                  for x in (vd, vd.abs()))
+    tol = 0.0 if bool((v == v.round()).all()) else 1e-7 * scale
+    assert abs(float(out) - ref) <= tol
+    assert abs(float(plain) - ref) <= tol
+    return out
+
+
+def _chunk_v(rows, kind, seed, dev):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if kind == "integer":
+        return torch.randint(-8, 9, (rows, 128), generator=gen,
+                             device=dev).float()
+    return torch.randn((rows, 128), generator=gen, device=dev)
+
+
+@pytest.mark.parametrize("kind", ["integer", "normal"])
+@pytest.mark.parametrize("n_fetch", [1, 3, 2048, None])
+@pytest.mark.parametrize("random_offsets", [False, True],
+                         ids=["contiguous", "random"])
+@pytest.mark.parametrize("gr", [1, 8, 64, 512])
+@pytest.mark.parametrize("rows", [1 << 16, 1001])
+def test_chunk_reader_matches_plain_version(dev, rows, gr, random_offsets,
+                                            n_fetch, kind):
+    """chunk_reader and its plain version equal to the float64 sum on
+    integer-valued v, within 1e-7 of sum|values read| on normal v, at
+    n_fetch 1, 3, 2048 and nch (None: one sweep, many pieces a warp); one
+    launch a call."""
+    from optimization_tpu_torch.kernels import probes as P
+
+    v = _chunk_v(rows, kind, rows + gr, dev)
+    before = P.chunk_reader.launches
+    out = _chunk_check(v, gr, random_offsets, n_fetch or rows // gr)
+    torch.cuda.synchronize()
+    assert P.chunk_reader.launches == before + 1
+    assert out.shape == (1, 1) and out.device == v.device
+
+
+def test_chunk_reader_int32_min_offset_and_repeat(dev):
+    """The fetch whose LCG value is INT32_MIN (t = 2,088,216,195), reached
+    with start= on a small v: the floor-mod offset, as in the plain
+    version; two runs bitwise equal; 65,536 random 4 KiB fetches over 2^26
+    words equal to the float64 sum."""
+    from optimization_tpu_torch.kernels import probes as P
+
+    v = _chunk_v(1001, "integer", 1, dev)
+    for gr in (1, 8):
+        nch = 1001 // gr
+        start = 2_088_216_194
+        off = P.chunk_offsets(torch.arange(start, start + 3, device=dev), nch)
+        assert int(off[1]) == (-(1 << 31)) % nch
+        out = _chunk_check(v, gr, True, 3, start)
+        assert torch.equal(out, P.chunk_reader(v, gr, True, 3, start=start))
+    big = _chunk_v(1 << 19, "integer", 2, dev)
+    a = _chunk_check(big, 8, True, 65536)
+    assert torch.equal(a, P.chunk_reader(big, 8, True, 65536))
+
+
+def test_chunk_reader_rejects_on_the_card(dev):
+    from optimization_tpu_torch.kernels import probes as P
+
+    v = torch.ones(16, 128, device=dev)
+    before = P.chunk_reader.launches
+    with pytest.raises(ValueError, match="f32"):
+        P.chunk_reader(v.half(), 1, False, 1)
+    with pytest.raises(ValueError, match="gr <= rows"):
+        P.chunk_reader(v, 32, False, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        P.chunk_reader(torch.ones(128, 16, device=dev).t(), 1, False, 1)
+    assert P.chunk_reader.launches == before
+
+
+@pytest.mark.parametrize("name,shape", [("stiefel", (1000, 3)),
+                                        ("rotations", (5000, 3, 3)),
+                                        ("grassmann", (1000, 4))])
+def test_matrix_manifolds_on_card_match_cpu(dev, name, shape):
+    """proj and the polar retraction (batched eigh) on the card within f32
+    tolerance of the CPU; retracted points orthonormal, det > 0 for SO(3).
+    The retraction takes a tangent step, so X + V has singular values >= 1
+    (an ambient step can make a block nearly singular, where the inverse
+    square root amplifies the two eigh's last-bit differences)."""
+    from optimization_tpu_torch import manifolds as Mf
+
+    M = getattr(Mf, name)()
+    gen = torch.Generator(device=dev).manual_seed(2)
+    x = M.rand(gen, *shape)
+    assert x.device.type == "cuda" and x.dtype == torch.float32
+    a = 0.3 * torch.randn(shape, generator=gen, device=dev)
+    v = M.proj(x, a)
+    torch.testing.assert_close(v.cpu(), M.proj(x.cpu(), a.cpu()), rtol=1e-5,
+                               atol=1e-5)
+    y = M.retract(x, v)
+    torch.testing.assert_close(y.cpu(), M.retract(x.cpu(), v.cpu()),
+                               rtol=1e-5, atol=1e-5)
+    eye = torch.eye(shape[-1], device=dev)
+    assert float((y.mT @ y - eye).abs().max()) < 1e-5
+    if name == "rotations":
+        assert bool((torch.linalg.det(y) > 0).all())
+
+
+@pytest.mark.parametrize("method", ["scatter", "gather", "sort",
+                                    "adjacency"])
+def test_connection_laplacian_on_card_matches_cpu(dev, method):
+    """Each scatter_method on the card within f32 tolerance of the CPU
+    apply (the atomics of scatter/sort sum in a varying order)."""
+    from optimization_tpu_torch.models import rotation_sync as rs
+
+    gen = torch.Generator().manual_seed(3)
+    _, data = rs.random_instance(gen, 2000, 3, extra_edges=4000, noise=0.05)
+    X = torch.randn((6000, 5), generator=gen)
+    ref = rs.connection_laplacian_op(data, 2000, 3,
+                                     scatter_method=method)(X)
+    card = rs.RotationSyncData(*(t.to(dev) for t in data[:3]))
+    L = rs.connection_laplacian_op(card, 2000, 3, scatter_method=method)
+    got = L(X.to(dev))
+    assert got.device.type == "cuda"
+    torch.testing.assert_close(got.cpu(), ref, rtol=1e-5, atol=1e-4)
+
+
+def test_model_defaults_are_the_card(dev):
+    """random_instance with no generator and no device draws and places on
+    the card, as do the completion instance and the default certificate."""
+    from optimization_tpu_torch.models import matrix_completion as mc
+    from optimization_tpu_torch.models import rotation_sync as rs
+    from optimization_tpu_torch.solvers import tnt
+
+    R_true, data = rs.random_instance(None, 200, 3, extra_edges=400,
+                                      noise=0.01)
+    assert R_true.device.type == "cuda" and data.src.device.type == "cuda"
+    assert data.src.dtype == torch.int64
+    R0 = rs.spectral_init(data, 200, 3)
+    res = tnt.solve(rs.make_problem(), R0, tnt.TNTParams(
+        max_iterations=50, gradient_tolerance=2e-3,
+        relative_decrease_tolerance=0.0, stepsize_tolerance=0.0,
+        preconditioned_gradient_tolerance=0.0), data=data)
+    assert res.x.device.type == "cuda"
+    assert float(rs.mean_rotation_error(res.x, R_true)) < 0.04
+    cert = rs.certify(res.x, data)
+    assert bool(cert.certified)
+    M_true, cdata = mc.random_instance(None, 50, 40, 2)
+    assert M_true.device.type == "cuda" and cdata.lam.device.type == "cuda"

@@ -1,0 +1,150 @@
+"""The port's graph operators (``models/graph.py``) == the JAX package's.
+
+The same numpy multigraphs (self-loops, parallel edges, isolated vertices, a
+hub that sends ``"gather"`` to its ``"sort"`` fallback, one-sided ``sides``)
+and contributions go through both; every method agrees with JAX's same
+method within 1e-12 in float64 (sums in another order), and the gradient
+and the jvp of the gradient (TNT's Hessian-vector product) pass through
+every method.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from optimization_tpu.models import graph as jgraph
+from optimization_tpu_torch.models import graph as tgraph
+
+torch.set_num_threads(1)
+
+METHODS = ["scatter", "gather", "sort"]
+CPU = torch.device("cpu")
+
+
+def _random_graph(seed, n, E, hub=False):
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, n - 1, E)      # vertex n - 1 stays isolated
+    dst = rng.integers(0, n - 1, E)
+    src[0] = dst[0] = 3              # self-loop
+    src[1] = src[2] = dst[2] = 5     # parallel + another self-loop
+    if hub:
+        dst[: E // 2] = 0            # hub vertex
+    return src, dst
+
+
+def _contrib(E, trailing, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((E,) + trailing),
+            rng.standard_normal((E,) + trailing))
+
+
+@pytest.mark.parametrize("method", METHODS)
+@pytest.mark.parametrize("trailing", [(), (4,), (3, 2)])
+def test_methods_match_jax(method, trailing):
+    n, E = 23, 60
+    src, dst = _random_graph(0, n, E)
+    a, b = _contrib(E, trailing, 1)
+    out = tgraph.edge_accumulator(src, dst, n, method=method, device=CPU)(
+        torch.from_numpy(a), torch.from_numpy(b))
+    ref = jgraph.edge_accumulator(src, dst, n, method=method)(
+        jnp.asarray(a), jnp.asarray(b))
+    assert out.shape == (n,) + trailing and out.device == CPU
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-12,
+                               atol=1e-12)
+    touched = np.zeros(n, bool)
+    touched[src] = touched[dst] = True
+    assert not touched.all()
+    np.testing.assert_array_equal(out.numpy()[~touched], 0.0)
+
+
+@pytest.mark.parametrize("method", METHODS)
+@pytest.mark.parametrize("side", ["src", "dst"])
+def test_one_sided_matches_jax(method, side):
+    n, E = 11, 30
+    src, dst = _random_graph(2, n, E)
+    a, _ = _contrib(E, (5,), 3)
+    args = (a, None) if side == "src" else (None, a)
+    out = tgraph.edge_accumulator(src, dst, n, method=method, sides=(side,),
+                                  device=CPU)(
+        *(None if x is None else torch.from_numpy(x) for x in args))
+    ref = jgraph.edge_accumulator(src, dst, n, method=method, sides=(side,))(
+        *(None if x is None else jnp.asarray(x) for x in args))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-12,
+                               atol=1e-12)
+
+
+def test_gather_hub_fallback_matches_jax():
+    n, E = 400, 500
+    src, dst = _random_graph(4, n, E, hub=True)
+    a, b = _contrib(E, (), 5)
+    out = tgraph.edge_accumulator(src, dst, n, method="gather",
+                                  pad_factor=2.0, device=CPU)(
+        torch.from_numpy(a), torch.from_numpy(b))
+    ref = jgraph.edge_accumulator(src, dst, n, method="gather",
+                                  pad_factor=2.0)(jnp.asarray(a),
+                                                  jnp.asarray(b))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-12,
+                               atol=1e-12)
+
+
+def test_unknown_method_raises():
+    with pytest.raises(ValueError, match="unknown method"):
+        tgraph.edge_accumulator(np.array([0]), np.array([1]), 2,
+                                method="magic", device=CPU)
+
+
+@pytest.mark.parametrize("method", METHODS)
+def test_grad_and_jvp_of_grad_match_jax(method):
+    """loss(a) = sum acc(a, 2a)^3: its gradient and the jvp of the gradient
+    along a direction, through each method, equal JAX's."""
+    n, E = 9, 20
+    src, dst = _random_graph(7, n, E)
+    a, u = _contrib(E, (3,), 8)
+    tacc = tgraph.edge_accumulator(src, dst, n, method=method, device=CPU)
+    jacc = jgraph.edge_accumulator(src, dst, n, method=method)
+    tloss = lambda x: torch.sum(tacc(x, 2.0 * x) ** 3)  # noqa: E731
+    jloss = lambda x: jnp.sum(jacc(x, 2.0 * x) ** 3)  # noqa: E731
+    ta, tu = torch.from_numpy(a), torch.from_numpy(u)
+    g, hv = torch.func.jvp(torch.func.grad(tloss), (ta,), (tu,))
+    jg, jhv = jax.jvp(jax.grad(jloss), (jnp.asarray(a),), (jnp.asarray(u),))
+    np.testing.assert_allclose(g.numpy(), np.asarray(jg), rtol=1e-10,
+                               atol=1e-12)
+    np.testing.assert_allclose(hv.numpy(), np.asarray(jhv), rtol=1e-10,
+                               atol=1e-12)
+
+
+def test_adjacency_tables_match_jax():
+    n, E = 17, 40
+    src, dst = _random_graph(9, n, E)
+    nb, eid, fwd, deg_max = tgraph.adjacency_tables(src, dst, n, device=CPU)
+    jnb, jeid, jfwd, jdeg = jgraph.adjacency_tables(src, dst, n)
+    assert deg_max == jdeg and nb.dtype == eid.dtype == torch.int64
+    np.testing.assert_array_equal(nb.numpy(), np.asarray(jnb))
+    np.testing.assert_array_equal(eid.numpy(), np.asarray(jeid))
+    np.testing.assert_array_equal(fwd.numpy(), np.asarray(jfwd))
+
+
+@pytest.mark.parametrize("method", METHODS + ["adjacency"])
+def test_laplacian_apply_matches_jax(method):
+    n, E = 15, 45
+    src, dst = _random_graph(10, n, E)
+    rng = np.random.default_rng(11)
+    tau = rng.uniform(0.5, 2.0, E)
+    z = rng.standard_normal((n, 4))
+    out = tgraph.laplacian_apply(src, dst, torch.from_numpy(tau), n,
+                                 method=method)(torch.from_numpy(z))
+    ref = jgraph.laplacian_apply(src, dst, jnp.asarray(tau), n,
+                                 method=method)(jnp.asarray(z))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-12,
+                               atol=1e-12)
+
+
+def test_tensor_indices_stay_on_their_device():
+    src = torch.tensor([0, 1, 2])
+    dst = torch.tensor([1, 2, 0])
+    acc = tgraph.edge_accumulator(src, dst, 3, method="sort")
+    out = acc(torch.ones(3), torch.ones(3))
+    assert out.device == CPU
+    np.testing.assert_array_equal(out.numpy(), [2.0, 2.0, 2.0])

@@ -1,7 +1,9 @@
-"""The port's sphere and Euclidean manifolds == the JAX package's.
+"""The port's manifolds == the JAX package's.
 
-float64 inputs from a numpy seed go through both; the elementwise formulas
-are the same, so results agree to 1e-14 relative (reduction order differs).
+float64 inputs from a numpy seed go through both.  Sphere and Euclidean: the
+elementwise formulas are the same, so results agree to 1e-14 relative
+(reduction order differs).  Stiefel, SO(d), Grassmann: the products and the
+3x3 eigendecompositions of the polar retraction agree within 1e-12.
 The bf16-storage / f32-accumulate rule (``sphere._acc``) is checked on bf16
 inputs: outputs stay bf16 and agree with JAX to one bf16 rounding (2^-8
 relative), since the f32 sums feeding the final cast are taken in another
@@ -13,10 +15,23 @@ import numpy as np
 import pytest
 import torch
 
+from optimization_tpu.core.problem import RiemannianProblem as JProblem
+from optimization_tpu.core.types import TNTStatus as JTNTStatus
 from optimization_tpu.manifolds import euclidean as jeuclidean
+from optimization_tpu.manifolds import grassmann as jgrassmann
+from optimization_tpu.manifolds import product as jproduct
+from optimization_tpu.manifolds import rotations as jrotations
 from optimization_tpu.manifolds import sphere as jsphere
-from optimization_tpu_torch.manifolds import EUCLIDEAN, euclidean, sphere
+from optimization_tpu.manifolds import stiefel as jstiefel
+from optimization_tpu.solvers import tnt as jtnt
+from optimization_tpu_torch import RiemannianProblem
+from optimization_tpu_torch.core.types import TNTStatus
+from optimization_tpu_torch.manifolds import (EUCLIDEAN, GRASSMANN, ROTATIONS,
+                                              STIEFEL, euclidean, grassmann,
+                                              product, rotations, sphere,
+                                              stiefel)
 from optimization_tpu_torch.manifolds.base import Manifold
+from optimization_tpu_torch.solvers import tnt
 
 torch.set_num_threads(1)
 
@@ -121,3 +136,137 @@ def test_euclidean_ops_on_pytrees():
     assert E.proj(ta, tb) is tb and E.egrad_to_rgrad(ta, tb) is tb
     r = E.rand(torch.Generator().manual_seed(0), 3, dtype=torch.float64)
     assert r.shape == (3,) and r.dtype == torch.float64
+
+
+# ---- the matrix manifolds (Stiefel, SO(d), Grassmann) and products ----
+
+MATRIX = [("stiefel", (10, 3)), ("rotations", (4, 3, 3)),
+          ("grassmann", (10, 3))]
+PAIRS = {"stiefel": (stiefel, jstiefel), "rotations": (rotations, jrotations),
+         "grassmann": (grassmann, jgrassmann)}
+
+
+def _orthonormal(shape, seed, rotation=False):
+    """Orthonormal (..., n, p) points from a numpy seed (det > 0 for
+    rotations), and a Gaussian ambient direction."""
+    rng = np.random.default_rng(seed)
+    q, _ = np.linalg.qr(rng.normal(size=shape))
+    if rotation:
+        q[..., :, 0] *= np.sign(np.linalg.det(q))[..., None]
+    return q, rng.normal(size=shape)
+
+
+@pytest.mark.parametrize("name,shape", MATRIX)
+@pytest.mark.parametrize("tangent", [True, False], ids=["tangent", "ambient"])
+def test_matrix_manifold_ops_match(name, shape, tangent):
+    """proj, inner and the polar retraction agree with JAX within 1e-12,
+    for tangent and for ambient (unprojected) steps."""
+    T, J = (f() for f in PAIRS[name])
+    x, a = _orthonormal(shape, 10, rotation=name == "rotations")
+    jx, ja = jnp.asarray(x), jnp.asarray(0.3 * a)
+    tx, ta = torch.from_numpy(x), torch.from_numpy(0.3 * a)
+    np.testing.assert_allclose(T.proj(tx, ta).numpy(),
+                               np.asarray(J.proj(jx, ja)), atol=1e-12)
+    np.testing.assert_allclose(T.egrad_to_rgrad(tx, ta).numpy(),
+                               np.asarray(J.egrad_to_rgrad(jx, ja)),
+                               atol=1e-12)
+    tv = T.proj(tx, ta) if tangent else ta
+    jv = J.proj(jx, ja) if tangent else ja
+    y = T.retract(tx, tv).numpy()
+    np.testing.assert_allclose(y, np.asarray(J.retract(jx, jv)), atol=1e-12)
+    eye = np.swapaxes(y, -1, -2) @ y
+    np.testing.assert_allclose(eye, np.broadcast_to(np.eye(shape[-1]),
+                                                    eye.shape), atol=1e-12)
+    if name == "rotations":
+        assert (np.linalg.det(y) > 0).all()
+    np.testing.assert_allclose(float(T.inner(tx, tv, ta)),
+                               float(J.inner(jx, jv, ja)), rtol=1e-12)
+
+
+@pytest.mark.parametrize("name,shape", MATRIX)
+def test_matrix_manifold_bf16_tier(name, shape):
+    """bf16 in, bf16 out; the retraction is orthonormal within one bf16
+    rounding (tests/test_manifolds.py's 0.08 at p = 3) and within one bf16
+    ulp of JAX (the f32 work before the last cast sums in another order)."""
+    T, J = (f() for f in PAIRS[name])
+    x, a = _orthonormal(shape, 11, rotation=name == "rotations")
+    tx = torch.from_numpy(x).to(torch.bfloat16)
+    ta = torch.from_numpy(0.3 * a).to(torch.bfloat16)
+    jx = jnp.asarray(tx.float().numpy()).astype(jnp.bfloat16)
+    ja = jnp.asarray(ta.float().numpy()).astype(jnp.bfloat16)
+    for op in ("retract", "proj"):
+        out = getattr(T, op)(tx, ta)
+        ref = np.asarray(getattr(J, op)(jx, ja), np.float32)
+        assert out.dtype == torch.bfloat16
+        got = out.float().numpy()
+        # one bf16 ulp of |ref| is 2^-8..2^-7 of it
+        assert (np.abs(got - ref) <= 2 ** -7 * np.abs(ref) + 1e-6).all(), op
+    y = T.retract(tx, ta).double().numpy()
+    gram = np.swapaxes(y, -1, -2) @ y
+    np.testing.assert_allclose(gram, np.broadcast_to(np.eye(shape[-1]),
+                                                     gram.shape), atol=0.08)
+    assert T.inner(tx, ta, ta).dtype == torch.float32
+
+
+def test_matrix_manifold_rand():
+    gen = torch.Generator().manual_seed(3)
+    X = STIEFEL.rand(gen, 10, 3, dtype=torch.float64)
+    np.testing.assert_allclose((X.mT @ X).numpy(), np.eye(3), atol=1e-14)
+    R = ROTATIONS.rand(gen, 50, 3, 3, dtype=torch.float64)
+    assert (torch.linalg.det(R) > 0).all()
+    np.testing.assert_allclose((R.mT @ R).numpy(),
+                               np.broadcast_to(np.eye(3), (50, 3, 3)),
+                               atol=1e-14)
+    G = GRASSMANN.rand(torch.Generator().manual_seed(3), 10, 3,
+                       dtype=torch.float64)
+    assert torch.equal(G, STIEFEL.rand(torch.Generator().manual_seed(3), 10,
+                                       3, dtype=torch.float64))
+    assert ROTATIONS.rand(gen, 2, 3, 3, dtype=torch.bfloat16).dtype == \
+        torch.bfloat16
+    # a product draws its factors one after another from the one generator
+    P = product((sphere(), STIEFEL))
+    s, st = P.rand(torch.Generator().manual_seed(4), (5,), (6, 2),
+                   dtype=torch.float64)
+    g = torch.Generator().manual_seed(4)
+    assert torch.equal(s, sphere().rand(g, 5, dtype=torch.float64))
+    assert torch.equal(st, STIEFEL.rand(g, 6, 2, dtype=torch.float64))
+    assert P.name == "spherexstiefel"
+
+
+def test_product_manifold_tnt_matches_jax():
+    """TNT over sphere x euclidean (tests/test_manifolds.py's
+    test_product_manifold_tnt) in both packages: same status and counts, x
+    within 1e-10."""
+    P_np, c_np = np.array([0.0, 0.0, 1.0]), np.array([2.0, -1.0])
+    params = dict(max_iterations=100, gradient_tolerance=1e-9,
+                  relative_decrease_tolerance=0.0, stepsize_tolerance=0.0,
+                  preconditioned_gradient_tolerance=0.0)
+
+    def jf(xb, data):
+        x, b = xb
+        return jnp.sum((x - P_np) ** 2) + jnp.sum((b - c_np) ** 2)
+
+    P_t, c_t = torch.from_numpy(P_np), torch.from_numpy(c_np)
+
+    def tf(xb, data):
+        x, b = xb
+        return torch.sum((x - P_t) ** 2) + torch.sum((b - c_t) ** 2)
+
+    jres = jtnt.solve(JProblem(f=jf, manifold=jproduct((jsphere(),
+                                                        jeuclidean()))),
+                      (jnp.array([1.0, 0.0, 0.0]), jnp.zeros(2)),
+                      jtnt.TNTParams(**params))
+    tres = tnt.solve(RiemannianProblem(f=tf, manifold=product((sphere(),
+                                                               euclidean()))),
+                     (torch.tensor([1.0, 0.0, 0.0], dtype=torch.float64),
+                      torch.zeros(2, dtype=torch.float64)),
+                     tnt.TNTParams(**params))
+    assert int(tres.status) == TNTStatus.GRADIENT == int(jres.status) == \
+        JTNTStatus.GRADIENT
+    k = int(tres.num_iterations)
+    assert k == int(jres.num_iterations)
+    np.testing.assert_array_equal(tres.inner_iterations[:k].numpy(),
+                                  np.asarray(jres.inner_iterations[:k]))
+    for t, j in zip(tres.x, jres.x):
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=1e-10)
+    np.testing.assert_allclose(tres.x[0].numpy(), P_np, atol=1e-8)

@@ -1,11 +1,13 @@
-"""The plain versions of the two residency probe kernels == the JAX probes.
+"""The plain versions of the probe kernels == the JAX probes.
 
-``benchmarks/probe_pallas_stream.py`` and ``probe_resident_kernel.py`` are
-loaded as the JAX package's own test mode runs them (``PROBE_TEST=1``:
-N = 2^13, the Pallas kernels in interpret mode), and the same numpy inputs
-go through ``mk_pallas`` / ``mk_xla`` there and through the port's wrappers,
-which on CPU tensors run the plain versions (the CUDA kernels are held
-against these on the card: ``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+``benchmarks/probe_pallas_stream.py``, ``probe_resident_kernel.py`` and
+``probe_graph_stream.py`` are loaded as the JAX package's own test mode runs
+them (``PROBE_TEST=1``: N = 2^13, 2^15 for the graph probe, the Pallas
+kernels in interpret mode), and the same numpy inputs go through
+``mk_pallas`` / ``mk_xla`` / ``mk_chunk_reader`` there and through the
+port's wrappers, which on CPU tensors run the plain versions (the CUDA
+kernels are held against these on the card: ``tests/test_torch_cuda.py``,
+``chip_smoke.py``).
 
 Tolerances: acc at the probes' own gates, 1e-5 relative for
 ``pinned_stream`` (f32 sums in other orders; the Pallas kernel starts acc
@@ -14,7 +16,9 @@ for ``resident_body`` (a sum of order -6e9 with large cancellation between
 the dots, bf16 storage); the returned vectors against a float64 numpy
 transcription, norm to norm, 1e-6 in f32 and 1e-3 in bf16 (one storage
 rounding, 2^-8 relative, flipped in a few elements an iteration; a
-rounding left out altogether would show as ~4e-3).
+rounding left out altogether would show as ~4e-3).  The chunk reader:
+within 1e-6 of the sum of |values read| (f32 sums of chunks in another
+order), its LCG offsets equal to jnp's int32 expression.
 """
 
 import importlib.util
@@ -213,3 +217,96 @@ def test_wrappers_validate_and_never_take_a_silent_route():
     with pytest.raises(ValueError, match="iterations"):
         K.resident_body(v, v, v, iterations=0)
     assert P.pinned_stream.launches == 0 and P.resident_body.launches == 0
+
+
+# ---- the graph probe's chunk reader ----
+
+
+@pytest.fixture(scope="module")
+def graph_probe():
+    mp = pytest.MonkeyPatch()
+    try:
+        mp.setenv("PROBE_TEST", "1")
+        spec = importlib.util.spec_from_file_location(
+            "_probe_probe_graph_stream", BENCH / "probe_graph_stream.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+    finally:
+        mp.undo()
+    assert mod.TEST and mod.ROWS == 256
+    return mod
+
+
+@pytest.mark.parametrize("n_fetch", [1, 16])
+@pytest.mark.parametrize("random_offsets", [False, True],
+                         ids=["contiguous", "random"])
+@pytest.mark.parametrize("gr", [8, 64])
+def test_chunk_reader_matches_the_jax_probe(graph_probe, gr, random_offsets,
+                                            n_fetch):
+    v = np.random.default_rng(gr + n_fetch).standard_normal(
+        (graph_probe.ROWS, 128)).astype(np.float32)
+    want = float(np.asarray(graph_probe.mk_chunk_reader(
+        gr, random_offsets, n_fetch)(jnp.asarray(v)))[0, 0])
+    out = K.chunk_reader(torch.from_numpy(v), gr, random_offsets, n_fetch)
+    assert out.shape == (1, 1) and out.dtype == torch.float32
+    nch = graph_probe.ROWS // gr
+    t = np.arange(n_fetch)
+    off = ((np.abs((t * 1103515245 + 12345).astype(np.int32)) % nch)
+           if random_offsets else t % nch)
+    scale = np.abs(v.reshape(nch, -1)[off]).sum()
+    assert abs(float(out) - want) <= 1e-6 * scale
+    assert K.chunk_reader.launches == 0
+
+
+def test_chunk_offsets_match_jnp_int32_lcg():
+    """The LCG over a range of fetches holding t = 2,088,216,195, where
+    h = INT32_MIN: jnp.abs keeps it negative and jnp's floor-% maps it into
+    [0, nch) (3967 for nch = 4095)."""
+    t0 = 2_088_216_195
+    t = np.concatenate([np.arange(0, 2000),
+                        np.arange(t0 - 1000, t0 + 1000),
+                        np.arange((1 << 31) - 1000, 1 << 31)])
+    for nch in (1, 7, 4095, 1 << 19):
+        jt = jnp.asarray(t, jnp.int32)
+        h = jt * jnp.int32(1103515245) + jnp.int32(12345)
+        want = np.asarray(jnp.abs(h) % jnp.int32(nch))
+        got = K.chunk_offsets(torch.from_numpy(t), nch).numpy()
+        np.testing.assert_array_equal(got, want)
+        assert ((got >= 0) & (got < nch)).all()
+    got = K.chunk_offsets(torch.tensor([t0]), 4095)
+    assert int(got) == 3967
+
+
+def test_chunk_reader_start_and_ragged_rows():
+    """Rows past nch * gr are never read; ``start`` continues the fetch
+    sequence (the INT32_MIN fetch on a small v)."""
+    v = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (1001, 128)).astype(np.float32))
+    full = K.chunk_reader(v, 8, False, 125)
+    np.testing.assert_allclose(float(full), float(v[:1000].sum()),
+                               rtol=1e-5, atol=1e-3)
+    a = K.chunk_reader(v, 1, True, 5,
+                       start=2_088_216_193)
+    off = K.chunk_offsets(torch.arange(2_088_216_193, 2_088_216_198), 1001)
+    assert int(off[2]) == (-(1 << 31)) % 1001
+    np.testing.assert_allclose(float(a), float(v[off].sum()), rtol=1e-6)
+
+
+def test_chunk_reader_rejects_what_it_does_not_take():
+    v = torch.ones(16, 128)
+    with pytest.raises(ValueError, match="f32"):
+        K.chunk_reader(v.double(), 1, False, 1)
+    with pytest.raises(ValueError, match="rows, 128"):
+        K.chunk_reader(torch.ones(16, 64), 1, False, 1)
+    with pytest.raises(ValueError, match="gr <= rows"):
+        K.chunk_reader(v, 17, False, 1)
+    with pytest.raises(ValueError, match="gr <= rows"):
+        K.chunk_reader(v, 0, False, 1)
+    with pytest.raises(ValueError, match="n_fetch"):
+        K.chunk_reader(v, 1, False, 0)
+    with pytest.raises(ValueError, match="2\\^31"):
+        K.chunk_reader(v, 1, True, 2, start=(1 << 31) - 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        K.chunk_reader(torch.ones(128, 16).t(), 1, False, 1)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        K.chunk_reader(torch.ones(16, 128, device="meta"), 1, False, 1)

@@ -35,8 +35,9 @@ non-zero exit and no result line:
    the agreement of f checked; then each fused kernel timed against its
    plain version at n = 2^24 f32;
 7. ``gram_pair`` against its plain version (and a float64 product) at
-   100,000 x 48, 999 x 30, 16 x 10,000 x 48, 5,000 x 96 (the k cap) and
-   30,000 x 16 and 24 (rotation sync's spectral init and certificate),
+   100,000 x 48, 999 x 30, 16 x 10,000 x 48, 5,000 x 96 (the k cap),
+   30,000 x 8, 16 and 24 and 3,000 x 8 and 24 (the pose path's spectral
+   inits and certificates at n = 10^4 and 1,000: nx = 8, then S of 3 nx),
    with BS distinct and with BS = S (the route that reads S once),
    ``stream3_probe`` at n = 2^24, 999,999 and 100, f32 and bf16, bitwise
    repeats; gram_pair timed at 100,000 x 48 (BS distinct and BS = S, the
@@ -119,7 +120,34 @@ non-zero exit and no result line:
    observed, noise 0.01, its TNT params), f32, made on the card; gated on
    the relative error over all entries < 5 noise; its f32 gain ratios, and
    the same solve in float64 as a witness, gated on GRADIENT;
-20. each streaming kernel's GB/s as a fraction of the measured ceiling, the
+20. SE(d) pose synchronization at config6's width
+   (``benchmarks/config6_pose_graph_10k.py``: 10^4 SE(3) poses, odometry
+   chain + 20,000 random closures, noise 0.01, t at scale 5), the graph
+   made on the host from a seed and written by ``io.g2o.save_g2o``, solved
+   through the CLI in-process (``cli.main(["solve", path,
+   "--marginalized", "--certify", "--json", "--out", npz])``, f32);
+   gated on rc 0, certified, rotation error < 4 noise; the loader and its
+   ms, each stage's wall, TNT outer / CG, LSQR and certificate iterations,
+   the inner PCG iterations a solve, host reads; then the certificate at
+   the solved point with the loose (60 iterations, rtol 1e-4) and the
+   optimizer-grade inner operator, gated on the same decision and
+   |lam_min loose - lam_min tight| < eta, with the loose operator's largest
+   relative inner residual;
+21. the other pose routes in f32: the chordal two-stage and the staircase
+   pipelines on config6's graph (certified, rotation error < 4 noise),
+   ``solve_robust_se`` on ``tests/test_pose_sync.py:TestRobustSE``'s
+   fixture shape at n = 1,000 (chain + 4n closures, 20 % corrupted, half
+   full SE(3), half translation-only; the test's gates, adapted to the
+   larger graph: every vertex with a corrupted majority flagged, the errors
+   and the translation weights on the identifiable vertices, the rotation
+   weights of the full outliers that lie more than 0.25 rad from the truth),
+   ``rotation_sync.solve_robust`` on its rotations, one inner Laplacian
+   solve per engine (``cg``, ``flat`` at s = 2) on config6's graph, k = 3,
+   edge differences within 1e-4 relative; ``gram_pair``'s launches over
+   phases 20-21 join its count on the kernels line, and each of them is
+   held against the plain version on its own S, AS, BS (phase 7's
+   tolerance), its error joining the kernels line's;
+22. each streaming kernel's GB/s as a fraction of the measured ceiling, the
    kernel table as one JSON line (each kernel's launches on its path, its
    error, its time, its plain version's, its bound and the library call's,
    null where no single PyTorch call computes the function), then the
@@ -807,7 +835,8 @@ GRAM_TOLERANCES = """\
       each bf16 operation, the kernel once on store.
 """
 GRAM_SHAPES = ((100_000, 48), (999, 30), (16, 10_000, 48), (5_000, 96),
-               (30_000, 16), (30_000, 24))
+               (30_000, 8), (30_000, 16), (30_000, 24), (3_000, 8),
+               (3_000, 24))
 # the timed shapes: config3's Gram stage with BS distinct and BS = S (the
 # LOBPCG call without B, the path's; its entry in the kernels line), and
 # config10's fleet
@@ -958,6 +987,49 @@ def gram_stream3_phase(torch, dev, label):
           f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) "
           f"[{label}]", flush=True)
     return errs, times, ceiling, launches
+
+
+@contextlib.contextmanager
+def held_gram_pair(torch):
+    """Hold every ``gram_pair`` launch of the block against its plain
+    version on the same S, AS, BS, with phase 7's tolerance (1e-5 sum_r
+    |S[r,i] X[r,j]| per entry).  The LOBPCG Gram stage (``linalg/lobpcg.py
+    _gram``, the kernel's one caller) is wrapped through its module
+    attribute; the errors stay on the card until the block ends, so the
+    check adds no host read.  Yields a dict that then holds ``calls``, the
+    distinct ``shapes`` (with whether BS is S), ``err`` (the largest
+    |kernel - plain|), ``scale`` (the largest |plain| entry) and ``ratio``
+    (the largest |kernel - plain| / tolerance, <= 1 when every entry is
+    within it; an entry whose tolerance is 0 must agree exactly)."""
+    import importlib
+
+    from optimization_tpu_torch.kernels import fused as F
+
+    L = importlib.import_module("optimization_tpu_torch.linalg.lobpcg")
+    gram, errs, held = L._gram, [], {"shapes": set()}
+
+    def checked(S, AS, BS):
+        got = gram(S, AS, BS)
+        if S.dtype in (torch.float32, torch.bfloat16):
+            held["shapes"].add((tuple(S.shape), BS is S))
+            ref = F.gram_pair_reference(S, AS, BS)
+            Sd = S.double().abs().mT
+            for g, r, X in zip(got, ref, (AS, BS)):
+                d = (g.double() - r.double()).abs()
+                tol = 1e-5 * (Sd @ X.double().abs())
+                ratio = torch.where(tol > 0, d / tol,
+                                    torch.where(d == 0, 0.0, math.inf))
+                errs.append(torch.stack((d.max(), r.abs().max(),
+                                         ratio.nan_to_num(math.inf).max())))
+        return got
+
+    L._gram = checked
+    try:
+        yield held
+    finally:
+        L._gram = gram
+    e = torch.stack(errs).amax(0).tolist() if errs else [0.0] * 3
+    held.update(calls=len(errs) // 2, err=e[0], scale=e[1], ratio=e[2])
 
 
 def lobpcg_phase(torch, dev, label):
@@ -2433,6 +2505,427 @@ def completion_phase(torch, dev, label):
           f"reaches GRADIENT (|grad| <= 1e-3)", flush=True)
 
 
+# ---- SE(d) pose synchronization: the full SE-Sync pipeline ----
+
+POSE = dict(n=10_000, extra=20_000, noise=0.01, t_scale=5.0)   # config6
+ROBUST_SE = dict(n=1000, noise=0.01, frac=0.2)   # TestRobustSE's shape
+ANGLE_FAR = 0.25   # rad: full outliers whose rotation weight is gated
+
+
+def perturbed(torch, rs, gen, E, noise):
+    """E small rotations exp(noise * skew) (the 2nd-order expansion,
+    re-orthonormalized), drawn from ``gen`` in float64."""
+    w = noise * torch.randn((E, 3, 3), generator=gen, dtype=torch.float64)
+    skew = 0.5 * (w - w.mT)
+    return rs._orthonormalize(torch.eye(3, dtype=torch.float64) + skew
+                              + 0.5 * (skew @ skew))
+
+
+def pose_graph_tensors(torch, gen, n, extra, noise, t_scale):
+    """A pose graph in the g2o convention (M_e = R_i' R_j, t_e = R_i'
+    (t_j - t_i)) drawn from ``gen`` on the host in float64, as
+    ``benchmarks/config6_pose_graph_10k.py:39-71`` makes config6's: truth,
+    an odometry chain plus ``extra`` random closures with self-loops
+    dropped, rotation and translation noise.  Returns ``(R_true, t_true,
+    src, dst, Mij, tij)``."""
+    from optimization_tpu_torch.models import rotation_sync as rs
+
+    f64 = torch.float64
+    R_true = rs.ROTATIONS.rand(gen, n, 3, 3, dtype=f64)
+    t_true = t_scale * torch.randn((n, 3), generator=gen, dtype=f64)
+    src = torch.cat([torch.arange(n - 1),
+                     torch.randint(0, n, (extra,), generator=gen)])
+    dst = torch.cat([torch.arange(1, n),
+                     torch.randint(0, n, (extra,), generator=gen)])
+    keep = src != dst
+    src, dst = src[keep], dst[keep]
+    Rt = R_true.mT
+    Mij = perturbed(torch, rs, gen, src.numel(), noise) @ (Rt[src]
+                                                          @ R_true[dst])
+    tij = (Rt[src] @ (t_true[dst] - t_true[src])[..., None])[..., 0]
+    tij = tij + noise * torch.randn(tij.shape, generator=gen, dtype=f64)
+    return R_true, t_true, src, dst, Mij, tij
+
+
+def pose_graph(torch, n, extra, noise, t_scale, seed):
+    """:func:`pose_graph_tensors` from ``seed`` as ``(PoseGraph, R_true,
+    t_true)``, the graph's arrays numpy as the loaders give them."""
+    from optimization_tpu_torch.io import g2o
+
+    R_true, t_true, src, dst, Mij, tij = pose_graph_tensors(
+        torch, torch.Generator().manual_seed(seed), n, extra, noise, t_scale)
+    graph = g2o.PoseGraph(n_vertices=n, dim=3,
+                          src=src.numpy().astype("int32"),
+                          dst=dst.numpy().astype("int32"),
+                          Rij=Mij.numpy(), tij=tij.numpy(), kappa=None)
+    return graph, R_true, t_true
+
+
+@contextlib.contextmanager
+def pose_stages(torch, residuals=False):
+    """Record the stages of the pose pipelines run in the block: each
+    ``spectral_init``, TNT solve, LSQR and certificate with its host-clock
+    seconds (every stage ends in a host read) and result, and the
+    iterations of every inner Laplacian solve keyed by its iteration cap
+    (400: the optimizer's operator, 60: the loose certificate operator).
+    With ``residuals``, each inner solve's relative residual |L z - r| /
+    |r| is kept too (one more Laplacian apply a solve).  The models call
+    these through their module attributes, so the wrappers see each
+    call."""
+    import importlib
+
+    ps = importlib.import_module("optimization_tpu_torch.models.pose_sync")
+    rs = importlib.import_module(
+        "optimization_tpu_torch.models.rotation_sync")
+    tnt = importlib.import_module("optimization_tpu_torch.solvers.tnt")
+    log = {"stages": [], "inner": collections.defaultdict(list),
+           "residuals": collections.defaultdict(list)}
+    saved = []
+
+    def timed(stage):
+        def make(inner):
+            def wrapped(*args, **kwargs):
+                t0 = time.perf_counter()
+                res = inner(*args, **kwargs)
+                log["stages"].append((stage, time.perf_counter() - t0, res))
+                return res
+            return wrapped
+        return make
+
+    def inner_solver(inner):
+        def make(src, dst, tau, n, **kwargs):
+            cap = kwargs.get("max_iterations", 400)
+            want = kwargs.pop("with_iters", False)
+            solve = inner(src, dst, tau, n, with_iters=True, **kwargs)
+            L = (ps.laplacian_apply(src, dst, tau, n) if residuals
+                 else None)
+
+            def recorded(r):
+                z, it = solve(r)
+                log["inner"][cap].append(it)
+                if L is not None:
+                    log["residuals"][cap].append(
+                        torch.linalg.vector_norm(L(z) - r)
+                        / torch.linalg.vector_norm(r))
+                return (z, it) if want else z
+            return recorded
+        return make
+
+    for mod, name, make in (
+            (rs, "spectral_init", timed("spectral init")),
+            (tnt, "solve", timed("TNT")),
+            (ps, "lsqr", timed("translation LSQR")),
+            (rs, "certify", timed("certificate")),
+            (ps, "_weighted_laplacian_solver", inner_solver)):
+        saved.append((mod, name, getattr(mod, name)))
+        setattr(mod, name, make(getattr(mod, name)))
+    try:
+        yield log
+    finally:
+        for mod, name, inner in saved:
+            setattr(mod, name, inner)
+
+
+def stage_lines(log, label):
+    """The recorded stages, one line each, then the inner solves."""
+    from optimization_tpu_torch.core.types import TNTStatus
+
+    lines = []
+    for stage, secs, res in log["stages"]:
+        if stage == "TNT":
+            outer, cg = counts(res)
+            what = (f"{TNTStatus(int(res.status)).name}, {outer} outer / {cg}"
+                    f" CG, |grad| {float(res.gradfx_norm):.3e}")
+        elif stage == "translation LSQR":
+            what = f"{int(res.num_iterations)} iterations"
+        elif stage == "certificate":
+            what = (f"{int(res.num_iterations)} LOBPCG iterations, lam_min "
+                    f"{float(res.lam_min):.3e}, eta {float(res.eta):.3e}, "
+                    f"certified {bool(res.certified)}")
+        else:
+            what = ""
+        lines.append(f"    {stage}: {secs:.3f} s {what} [{label}]")
+    for cap, its in sorted(log["inner"].items(), reverse=True):
+        lines.append(f"    inner Laplacian PCG (cap {cap}): {len(its)} "
+                     f"solves, iterations mean {sum(its) / len(its):.1f}, "
+                     f"max {max(its)}")
+    return "\n".join(lines)
+
+
+def pose_cli_phase(torch, dev, label):
+    """Phase 20: config6 through the port's CLI, f32 on the card: the g2o
+    file written by ``save_g2o``, ``cli.main(["solve", path,
+    "--marginalized", "--certify", "--json", "--out", npz])`` in-process,
+    the poses held against the truth; then the loose and the tight
+    certificate operators at the solved point.  Returns the pieces phase 21
+    reuses."""
+    import io
+    import tempfile
+    import warnings
+
+    from optimization_tpu_torch import cli
+    from optimization_tpu_torch.io import g2o
+    from optimization_tpu_torch.models import pose_sync as ps
+    from optimization_tpu_torch.models import rotation_sync as rs
+
+    n, extra, noise = POSE["n"], POSE["extra"], POSE["noise"]
+    graph, R_true, t_true = pose_graph(torch, n, extra, noise,
+                                       POSE["t_scale"], seed=0)
+    E = len(graph.src)
+    print(f"phase 20: config6 through the CLI, {n} SE(3) poses, odometry "
+          f"chain + {extra} random closures, {E} edges without self-loops, "
+          f"noise {noise}, t at scale {POSE['t_scale']:g}, f32 on the card "
+          f"[{label}]", flush=True)
+    tmp = tempfile.TemporaryDirectory(prefix="pose_")
+    path = os.path.join(tmp.name, "config6.g2o")
+    npz = os.path.join(tmp.name, "sol.npz")
+    t0 = time.perf_counter()
+    g2o.save_g2o(path, graph)
+    print(f"  save_g2o: {os.path.getsize(path) / 2**20:.1f} MiB in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    argv = ["solve", path, "--marginalized", "--certify", "--json",
+            "--out", npz]
+    out = io.StringIO()
+    with pose_stages(torch) as log:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                with contextlib.redirect_stdout(out):
+                    t0 = time.perf_counter()
+                    rc = cli.main(argv)
+                    secs = time.perf_counter() - t0
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+    reads = sum("synchroniz" in str(w.message) for w in caught)
+    summary = json.loads(out.getvalue().strip().splitlines()[-1])
+    print(f"  python -m optimization_tpu_torch {' '.join(argv[:1])} <file> "
+          f"{' '.join(argv[2:5])} ...: rc {rc}, {secs:.3f} s in-process; "
+          f"summary {json.dumps(summary)}", flush=True)
+    import numpy as np
+
+    with np.load(npz) as f:
+        R = torch.as_tensor(f["R"], device=dev).double()
+        t = torch.as_tensor(f["t"], device=dev).double()
+    tmp.cleanup()
+    rot_err, t_err = ps.alignment_errors(R, t, R_true, t_true)
+    rot_err, t_err = float(rot_err), float(t_err)
+    print(f"  loader {summary['loader']} ({summary['load_s'] * 1e3:.0f} ms)"
+          f"; solve {summary['solve_s']:.3f} s; stages:", flush=True)
+    print(stage_lines(log, label), flush=True)
+    print(f"  host reads in the CLI run: {reads}; rotation error "
+          f"{rot_err:.5f} (gate < {4 * noise:g}), max translation error "
+          f"{t_err:.4f} [{label}]", flush=True)
+    if not (rc == 0 and summary.get("certified") is True
+            and rot_err < 4 * noise and math.isfinite(t_err)
+            and R.shape == (n, 3, 3)):
+        raise AssertionError("config6 through the CLI: the gate failed")
+
+    # the loose certificate operator against the optimizer-grade one
+    X = next(res for stage, _, res in log["stages"] if stage == "TNT").x
+    f32 = torch.float32
+    src = torch.as_tensor(graph.src, device=dev)
+    dst = torch.as_tensor(graph.dst, device=dev)
+    Mij = torch.as_tensor(graph.Rij, dtype=f32, device=dev)
+    tij = torch.as_tensor(graph.tij, dtype=f32, device=dev)
+    kappa = torch.ones(E, dtype=f32, device=dev)      # save_g2o's kappa
+    rot_data = ps._transposed_rotation_data(src, dst, Mij, kappa)
+    certs, walls = {}, {}
+    with pose_stages(torch, residuals=True) as clog:
+        for name, kw in (("tight", {}),
+                         ("loose", dict(cg_iterations=60, cg_rtol=1e-4))):
+            _, Q, _ = ps.marginalized_problem(src, dst, Mij, tij,
+                                              kappa=kappa, n=n, **kw)
+            t0 = time.perf_counter()
+            certs[name] = rs.certify(X, rot_data, operator=Q,
+                                     rr_method="chol")
+            walls[name] = time.perf_counter() - t0
+    ct, cl = certs["tight"], certs["loose"]
+    gap = abs(float(cl.lam_min) - float(ct.lam_min))
+    worst = {cap: max(float(x) for x in r)
+             for cap, r in clog["residuals"].items()}
+    print(f"  certificate at the solved point: tight operator (cap 400, rtol"
+          f" 50 eps) lam_min {float(ct.lam_min):.4e}, {int(ct.num_iterations)}"
+          f" iterations, {walls['tight']:.3f} s; loose (cap 60, rtol 1e-4) "
+          f"lam_min {float(cl.lam_min):.4e}, {int(cl.num_iterations)} "
+          f"iterations, {walls['loose']:.3f} s; |difference| {gap:.3e} "
+          f"< eta {float(ct.eta):.3e}; largest relative inner residual: "
+          f"loose {worst.get(60, float('nan')):.3e}, tight "
+          f"{worst.get(400, float('nan')):.3e} [{label}]", flush=True)
+    print(stage_lines(clog, label), flush=True)
+    if not (bool(ct.certified) and bool(cl.certified)
+            and gap < float(ct.eta)):
+        raise AssertionError("loose vs tight certificate: the gate failed")
+    print(f"  gates passed: rc 0, certified, rotation error {rot_err:.5f} < "
+          f"{4 * noise:g}; the loose and tight certificates agree "
+          f"(|d lam_min| {gap:.2e} < eta)", flush=True)
+    return graph, R_true, t_true
+
+
+def robust_se_graph(torch, rs, n, noise, frac, seed):
+    """``tests/test_pose_sync.py:TestRobustSE``'s fixture shape at n poses:
+    a chain + 4n random closures (t at scale 2), then ``frac`` of the edges
+    corrupted, half full SE(3) outliers (a random rotation and offset), half
+    translation-only (a random offset at scale 10).  float64 on the host
+    from ``seed``."""
+    gen = torch.Generator().manual_seed(seed)
+    R_true, t_true, src, dst, Mij, tij = pose_graph_tensors(
+        torch, gen, n, 4 * n, noise, 2.0)
+    E = src.numel()
+    n_out = int(frac * E)
+    out_idx = torch.randperm(E, generator=gen)[:n_out]
+    full_out = out_idx[: n_out // 2]
+    Mij[full_out] = rs.ROTATIONS.rand(gen, len(full_out), 3, 3,
+                                      dtype=torch.float64)
+    tij[out_idx] = 10.0 * torch.randn((n_out, 3), generator=gen,
+                                      dtype=torch.float64)
+    return R_true, t_true, src, dst, Mij, tij, out_idx, full_out
+
+
+def pose_routes_phase(torch, dev, label, graph, R_true, t_true):
+    """Phase 21: the other routes on the card in f32: the chordal two-stage
+    and the staircase pipelines on config6's graph (certified, rotation
+    error < 4 noise), ``solve_robust_se`` on TestRobustSE's fixture shape at
+    n = 1,000 (its gates adapted to the larger graph, below),
+    ``rotation_sync.solve_robust`` on its
+    rotations, and one inner Laplacian solve per engine on config6's
+    graph."""
+    from optimization_tpu_torch.models import pose_sync as ps
+    from optimization_tpu_torch.models import rotation_sync as rs
+
+    noise = POSE["noise"]
+    print(f"phase 21: the other pose routes, f32 on the card [{label}]",
+          flush=True)
+    for name, kw in (("chordal", {}), ("staircase", dict(staircase=True))):
+        with pose_stages(torch) as log:
+            res, secs, reads = host_reads(torch, lambda: ps.solve_pose_graph(
+                graph, certify=True, **kw))
+        rot_err, t_err = (float(x) for x in ps.alignment_errors(
+            res.R.double(), res.t.double(), R_true, t_true))
+        print(f"  {name}: {secs:.3f} s, host reads {reads}, certified "
+              f"{bool(res.certificate.certified)}, rotation error "
+              f"{rot_err:.5f}, max translation error {t_err:.4f} [{label}]",
+              flush=True)
+        print(stage_lines(log, label), flush=True)
+        if not (bool(res.certificate.certified) and rot_err < 4 * noise
+                and res.R.device.type == dev.type):
+            raise AssertionError(f"pose route {name}: the gate failed")
+
+    n, rnoise, frac = (ROBUST_SE[k] for k in ("n", "noise", "frac"))
+    R_t, t_t, src, dst, Mij, tij, out_idx, full_out = robust_se_graph(
+        torch, rs, n, rnoise, frac, seed=9)
+    E = src.numel()
+    f32 = torch.float32
+    with pose_stages(torch) as log:
+        rob, secs, reads = host_reads(torch, lambda: ps.solve_robust_se(
+            src.to(dev), dst.to(dev), Mij.to(dev, f32), tij.to(dev, f32), n))
+    # TestRobustSE's gates, adapted to n = 1,000.  At its n = 30 every
+    # vertex keeps an inlier majority; here some lose it by chance (about
+    # 1.5 %), sit between equal-cost robust basins, and must be flagged.
+    # So: every strict corrupted-majority vertex flagged, the flag rare, and
+    # the error and translation-weight gates on the identifiable vertices
+    # and the edges between them.  Among ~500 full outliers a few random
+    # rotations fall near the truth, where no robust cost can tell them
+    # from inliers: at mu = 1 an edge's weight (c^2 / (c^2 + r))^2 reaches
+    # 0.05 only at chordal residual r = 4 (1 - cos a) > 3.5 c^2 (c^2 the
+    # start's median residual).  The rotation-weight gate takes the full
+    # outliers more than ANGLE_FAR from the truth, all of them; the nearer
+    # ones are printed with their weights.
+    ones = torch.ones(E, dtype=torch.float64)
+    bad = torch.zeros(E, dtype=torch.float64)
+    bad[out_idx] = 1.0
+    deg = torch.zeros(n, dtype=torch.float64).index_add(0, src, ones)
+    deg = deg.index_add(0, dst, ones)
+    nbad = torch.zeros(n, dtype=torch.float64).index_add(0, src, bad)
+    nbad = nbad.index_add(0, dst, bad)
+    majority_bad = nbad > deg / 2
+    ident = rob.identifiable.cpu()
+    rot_err, t_err = (float(x) for x in ps.alignment_errors(
+        rob.R.double().cpu()[ident], rob.t.double().cpu()[ident],
+        R_t[ident], t_t[ident]))
+    inlier = torch.ones(E, dtype=torch.bool)
+    inlier[out_idx] = False
+    full = torch.zeros(E, dtype=torch.bool)
+    full[full_out] = True
+    between = ident[src] & ident[dst]
+    w_rot, w_tr = rob.w_rot.double().cpu(), rob.w_tr.double().cpu()
+    cos = ((R_t[src].mT @ R_t[dst]) * Mij).sum((-2, -1))
+    angle = torch.arccos(((cos - 1) / 2).clamp(-1, 1))
+    far = full & (angle > ANGLE_FAR)
+    near = ", ".join(f"{float(angle[e]):.3f} rad: {float(w_rot[e]):.2e}"
+                     for e in torch.nonzero(full & ~far)[:, 0].tolist())
+    stats = dict(flagged=int((~ident).sum()),
+                 majority_bad=int(majority_bad.sum()),
+                 missed=int((majority_bad & ident).sum()),
+                 w_tr_out=float(w_tr[~inlier & between].max()),
+                 w_rot_full=float(w_rot[far].max()),
+                 med_rot_in=float(w_rot[inlier].median()),
+                 med_tr_in=float(w_tr[inlier].median()))
+    print(f"  solve_robust_se, n = {n}, {E} edges, {len(out_idx)} corrupted "
+          f"({len(full_out)} full SE(3), the rest translation-only): "
+          f"{secs:.3f} s, host reads {reads}; {stats['flagged']} vertices "
+          f"flagged, {stats['majority_bad']} with a corrupted majority "
+          f"({stats['missed']} of them unflagged); on the identifiable "
+          f"vertices rotation error {rot_err:.5f}, max translation error "
+          f"{t_err:.4f}; between them max w_tr of corrupted edges "
+          f"{stats['w_tr_out']:.2e}; max w_rot of the {int(far.sum())} full "
+          f"outliers more than {ANGLE_FAR} rad from the truth "
+          f"{stats['w_rot_full']:.2e} (the nearer ones, angle: w_rot: "
+          f"{near or 'none'}); inlier medians w_rot "
+          f"{stats['med_rot_in']:.3f} w_tr {stats['med_tr_in']:.3f} "
+          f"[{label}]", flush=True)
+    tnts = [r for stage, _, r in log["stages"] if stage == "TNT"]
+    print(f"    GNC stages (outer / CG): {[counts(r) for r in tnts]}; "
+          + stage_lines(log, label).splitlines()[-1].strip(), flush=True)
+    if not (stats["missed"] == 0 and stats["flagged"] <= 0.05 * n
+            and rot_err < 0.05 and t_err < 0.1
+            and stats["w_tr_out"] < 0.05 and stats["w_rot_full"] < 0.05
+            and stats["med_rot_in"] > 0.5 and stats["med_tr_in"] > 0.5):
+        raise AssertionError("solve_robust_se: the gate failed")
+
+    data = ps._transposed_rotation_data(src.to(dev), dst.to(dev),
+                                        Mij.to(dev, f32))
+    rrob, secs, reads = host_reads(torch, lambda: rs.solve_robust(data, n, 3))
+    err = float(rs.mean_rotation_error(rrob.R.double(),
+                                       R_t.mT.to(dev)))
+    w = rrob.weights.double().cpu()
+    ratio = float(w[full_out].median() / w[inlier].median())
+    print(f"  rotation_sync.solve_robust on its rotations: {secs:.3f} s, "
+          f"host reads {reads}, mean rotation error {err:.5f}, median weight"
+          f" of the full outliers over the inliers' {ratio:.2e}, last stage "
+          f"{counts(rrob.result)} (outer / CG) [{label}]", flush=True)
+    if not (err < 0.05 and ratio < 0.1):
+        raise AssertionError("rotation_sync.solve_robust: the gate failed")
+
+    # one inner Laplacian solve per engine on config6's graph, k = 3
+    n6 = graph.n_vertices
+    src6 = torch.as_tensor(graph.src, device=dev)
+    dst6 = torch.as_tensor(graph.dst, device=dev)
+    tau = torch.ones(src6.numel(), dtype=f32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    r = torch.randn((n6, 3), generator=gen, device=dev)
+    r = r - r.mean(dim=0, keepdim=True)
+    zs = {}
+    for engine, kw in (("cg", {}), ("flat", dict(s_steps=2))):
+        solve = ps._weighted_laplacian_solver(src6, dst6, tau, n6,
+                                              engine=engine, with_iters=True,
+                                              **kw)
+        solve(r)                                               # warm-up
+        (z, it), secs = timed_solve(torch, dev, lambda: solve(r))
+        zs[engine] = z[dst6] - z[src6]
+        print(f"  inner Laplacian solve, engine {engine}{kw or ''}: {it} "
+              f"iterations, {secs * 1e3:.2f} ms [{label}]", flush=True)
+    rel = float(torch.linalg.vector_norm(zs["flat"] - zs["cg"])
+                / torch.linalg.vector_norm(zs["cg"]))
+    if not rel < 1e-4:
+        raise AssertionError(f"the inner engines disagree: {rel:.2e}")
+    print(f"  gates passed: chordal and staircase certified at rotation "
+          f"error < {4 * noise:g}; every corrupted-majority vertex flagged "
+          f"and TestRobustSE's gates adapted to n = {n}; "
+          f"solve_robust's; the engines' edge differences within {rel:.1e}"
+          f" (< 1e-4) relative", flush=True)
+
+
 def ceiling_summary(ceiling, rates, label):
     print(f"bandwidth ceiling: stream3_probe {ceiling:.0f} GB/s at n = 2^24 "
           f"f32 [{label}]", flush=True)
@@ -2491,11 +2984,33 @@ def main():
     rotation_sync_phase(torch, dev, label)
     staircase_lift_phase(torch, dev, label)
     completion_phase(torch, dev, label)
+    # ---- the pose path's gram_pair runs: the count starts at 0 here ----
+    from optimization_tpu_torch.kernels import fused as F
+    F.gram_pair.launches = 0
+    with held_gram_pair(torch) as held:
+        pose = pose_cli_phase(torch, dev, label)
+        pose_routes_phase(torch, dev, label, *pose)
+    pose_launches = F.gram_pair.launches
+    # ---- end of the pose path's gram_pair runs ----
+    shapes = ", ".join(f"{'x'.join(map(str, shape))}{' BS = S' * same}"
+                       for shape, same in sorted(held["shapes"]))
+    print(f"gram_pair launches on the pose path (phases 20-21): "
+          f"{pose_launches}, each held against the plain version on its "
+          f"inputs ({held['calls']} calls at {shapes}): max |err| "
+          f"{held['err']:.3e} (entries up to {held['scale']:.3e}), at most "
+          f"{held['ratio']:.3f} of the tolerance (<= 1)", flush=True)
+    if pose_launches == 0:
+        raise AssertionError("the pose path launched no gram_pair")
+    if held["calls"] != pose_launches or not held["ratio"] <= 1:
+        raise AssertionError("gram_pair on the pose path: a launch was not "
+                             "held, or disagrees with its plain version")
+    errs7["gram_pair"] = max(errs7["gram_pair"], held["err"])
     ceiling_summary(ceiling, {"stpcg_flat_streamed": streamed_gbs,
                               "stpcg_flat_streamed[prec]": prec_gbs,
                               **rates, **graph_rates}, label)
 
-    launches = {"gram_pair": gram_launches, "stream3_probe": stream3_launches}
+    launches = {"gram_pair": gram_launches + pose_launches,
+                "stream3_probe": stream3_launches}
     new_kernels = [{
         "name": name, "route": "cuda",
         "source": "optimization_tpu_torch/csrc/fused.cu",

@@ -28,15 +28,19 @@ TNT, TNLS, proximal gradient) / ``drive_admm`` / ``drive_lobpcg`` /
 ``drive_lobpcg_fleet`` on the ``Stopwatch`` clock; the matrix manifolds
 (``manifolds.stiefel`` / ``rotations`` / ``grassmann`` / ``product``) and
 the models ``models.graph``, ``models.rotation_sync`` (spectral init,
-TNT, the SE-Sync certificate and staircase) and
-``models.matrix_completion``; and the probe kernels
+TNT, the SE-Sync certificate and staircase, GNC-robust ``solve_robust``),
+``models.pose_sync`` (the full SE-Sync pipeline: chordal, marginalized or
+staircase rotations, LSQR translations, the certificate, GNC-robust SE(d))
+and ``models.matrix_completion``; the g2o loader and writer ``io.g2o``
+and the pose-graph command line ``python -m optimization_tpu_torch solve
+graph.g2o`` (``cli.py``); and the probe kernels
 ``kernels.pinned_stream`` / ``kernels.resident_body`` /
 ``kernels.chunk_reader`` (``csrc/probes.cu``; ``probe_pinned_stream.py``,
 ``probe_resident_body.py`` and ``probe_graph_stream.py`` at the
 repository root time them).
 """
 
-from . import core, kernels, linalg, manifolds, solvers
+from . import core, io, kernels, linalg, manifolds, solvers
 from .core import driver
 from .core.host import Stopwatch
 from .core.problem import (CompositeProblem, LeastSquaresProblem,

@@ -5,8 +5,8 @@ The ported problems have no learned weights: their state is the params
 ``ProximalGradientParams``, ``ADMMParams`` and their bases), the initial
 point, the data (for the convex solvers A, b, c), and the ``warm_start``
 carry of a LOBPCG, proximal-gradient or ADMM solve.
-The model data (``RotationSyncData``, ``CompletionData``) crosses the same
-way.  These functions carry them without importing JAX (arrays arrive
+The model data (``RotationSyncData``, ``CompletionData``, a g2o
+``PoseGraph``) crosses the same way.  These functions carry them without importing JAX (arrays arrive
 through numpy's array protocol).
 """
 
@@ -19,6 +19,7 @@ import torch
 
 from .core.tree import tree_map
 from .core.types import OptimizerParams, SmoothOptimizerParams
+from .io.g2o import PoseGraph
 from .models.matrix_completion import CompletionData
 from .models.rotation_sync import RotationSyncData
 from .solvers import admm as _admm
@@ -31,7 +32,7 @@ __all__ = ["params_from_jax", "tensor_from_numpy", "result_to_numpy",
            "lobpcg_warm_start_from_jax",
            "proximal_gradient_warm_start_from_jax",
            "admm_warm_start_from_jax", "rotation_sync_data_from_jax",
-           "completion_data_from_jax"]
+           "completion_data_from_jax", "pose_graph_from_jax"]
 
 _PARAMS = {cls.__name__: cls
            for cls in (OptimizerParams, SmoothOptimizerParams,
@@ -136,3 +137,17 @@ def completion_data_from_jax(data, device="cuda") -> CompletionData:
     """The port's ``CompletionData`` from the JAX package's, every array on
     ``device`` (the card unless told ``device="cpu"``) in its dtype."""
     return CompletionData(*(tensor_from_numpy(a, device) for a in data))
+
+
+def pose_graph_from_jax(graph) -> PoseGraph:
+    """The port's ``PoseGraph`` from the JAX package's (or any object with
+    its fields): the arrays as numpy in the loaders' dtypes (int32 indices,
+    float64 measurements), ``kappa`` of None kept.  Host arrays, as the
+    loaders return them; ``solve_pose_graph`` moves them to its device."""
+    f64 = lambda a: np.array(a, dtype=np.float64)
+    return PoseGraph(
+        n_vertices=int(graph.n_vertices), dim=int(graph.dim),
+        src=np.array(graph.src, dtype=np.int32),
+        dst=np.array(graph.dst, dtype=np.int32),
+        Rij=f64(graph.Rij), tij=f64(graph.tij),
+        kappa=None if graph.kappa is None else f64(graph.kappa))

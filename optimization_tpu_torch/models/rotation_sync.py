@@ -26,12 +26,16 @@ What differs from the JAX module:
 - Indices are int64 on the data's device; ``random_instance`` and
   ``random_fleet`` make their data on the card unless told otherwise.
 - ``random_fleet`` makes the data only (a fleet solve waits for batched
-  TNT); ``solve_robust`` / ``RobustResult`` are not ported yet.
+  TNT).
+- ``jnp.median`` averages the two middle values of an even count where
+  ``torch.median`` returns the lower one; the GNC scales go through
+  :func:`_median`, which matches ``jnp.median``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, NamedTuple, Optional
 
 import torch
@@ -43,7 +47,7 @@ from .graph import adjacency_tables, edge_accumulator
 __all__ = ["RotationSyncData", "CertificateResult", "certify",
            "make_problem", "random_instance", "random_fleet",
            "solve_staircase", "StaircaseResult", "round_lifted",
-           "mean_rotation_error"]
+           "mean_rotation_error", "solve_robust", "RobustResult"]
 
 
 class RotationSyncData(NamedTuple):
@@ -263,6 +267,103 @@ def spectral_init(data: RotationSyncData, n: int, d: int = 3,
     # by diag(-1, 1, ..), so per-block flips stay consistent up to gauge
     det = torch.linalg.det(R)
     return _flip_first_column(R, torch.where(det < 0, -1.0, 1.0).to(dtype))
+
+
+def _median(a: torch.Tensor) -> torch.Tensor:
+    """``jnp.median`` of all entries: the mean of the two middle values of
+    the sorted entries for an even count (``torch.median`` returns the lower
+    one), NaN when any entry is NaN."""
+    flat = a.reshape(-1)
+    s = torch.sort(flat).values
+    n = s.numel()
+    mid = (s[(n - 1) // 2] + s[n // 2]) * 0.5
+    return torch.where(torch.isnan(flat).any(), flat.new_full((), math.nan),
+                       mid)
+
+
+def _gnc_schedule(mu0: float, steps: int, dtype, device):
+    """The GNC annealing values ``jnp.logspace(log10(mu0), 0, steps)`` as 0-d
+    tensors of ``dtype``: 10 ** (start (1 - i/(steps-1)) + 0 i/(steps-1))
+    in float64, the last exactly 10 ** 0 (the JAX package's linspace
+    formula)."""
+    start = math.log10(mu0)
+    if steps > 1:
+        step = torch.arange(steps - 1, dtype=torch.float64) / (steps - 1)
+        lin = torch.cat([start * (1 - step) + 0.0 * step,
+                         torch.zeros(1, dtype=torch.float64)])
+    else:
+        lin = torch.full((steps,), start, dtype=torch.float64)
+    return list(torch.pow(10.0, lin).to(dtype=dtype, device=device))
+
+
+class RobustResult(NamedTuple):
+    R: torch.Tensor            # (n, d, d) robust rotations
+    weights: torch.Tensor      # (E,) final GNC weights (outliers -> ~0)
+    result: Any                # TNTResult of the last GNC stage
+    identifiable: torch.Tensor  # (n,) per-vertex inlier-majority flag
+    all_identifiable: torch.Tensor
+
+
+def solve_robust(data: RotationSyncData, n: int, d: int = 3, *,
+                 params=None, gnc_steps: int = 6, mu0: float = 64.0,
+                 c2: Optional[float] = None,
+                 generator: Optional[torch.Generator] = None
+                 ) -> RobustResult:
+    """Outlier-robust rotation synchronization: Geman-McClure by graduated
+    non-convexity (GNC), as reweighted chordal solves over the per-edge
+    ``kappa`` seam.  Each stage solves the weighted chordal problem with
+    TNT, then sets
+
+        w_e = ( mu c^2 / (mu c^2 + r_e) )^2,      r_e = |R_i - M_e R_j|_F^2,
+
+    annealing ``mu`` from ``mu0`` down to 1 (mu -> inf is the convex
+    quadratic, mu = 1 Geman-McClure).  ``c2`` is the inlier scale (a squared
+    residual); default: the median residual of the spectral start
+    (``generator`` draws its LOBPCG block).
+
+    Returns a :class:`RobustResult` ``(R, weights, result, identifiable,
+    all_identifiable)``: the estimate, the final per-edge weights, the last
+    TNT result, and ``pose_sync.gnc_identifiability``'s per-vertex flag at
+    the final weights.
+    """
+    from ..solvers import tnt as _tnt
+
+    dtype = data.Rij.dtype
+    if params is None:
+        f32 = dtype == torch.float32
+        params = _tnt.TNTParams(
+            max_iterations=50,
+            gradient_tolerance=(2e-3 if f32 else 1e-8),
+            relative_decrease_tolerance=0.0, stepsize_tolerance=0.0,
+            preconditioned_gradient_tolerance=0.0)
+
+    def residuals(R):
+        diff = R[data.src] - torch.matmul(data.Rij, R[data.dst])
+        return torch.sum(diff * diff, dim=(-1, -2))
+
+    base_kappa = _weights(data, dtype)
+    R = spectral_init(data, n, d, generator=generator).to(dtype)
+    r = residuals(R)
+    c2 = _median(r) if c2 is None else torch.as_tensor(c2, dtype=dtype,
+                                                        device=r.device)
+    c2 = torch.clamp(c2.to(dtype), min=1e-12)
+
+    res = None
+    w = torch.ones_like(r)
+    for mu in _gnc_schedule(mu0, gnc_steps, dtype, r.device):
+        w = ((mu * c2) / (mu * c2 + r)) ** 2
+        wdata = RotationSyncData(src=data.src, dst=data.dst, Rij=data.Rij,
+                                 kappa=base_kappa * w)
+        res = _tnt.solve(make_problem(), R, params, data=wdata)
+        R = res.x
+        r = residuals(R)
+
+    from .pose_sync import gnc_identifiability
+    identifiable, _ = gnc_identifiability(w, data.src, data.dst, n,
+                                          base_kappa)
+    return RobustResult(R=R, weights=w, result=res,
+                        identifiable=identifiable,
+                        all_identifiable=torch.all(identifiable))
 
 
 class CertificateResult(NamedTuple):

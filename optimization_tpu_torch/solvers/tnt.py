@@ -49,8 +49,8 @@ class TNTParams(SmoothOptimizerParams):
     package's extensions (same names, defaults and meanings):
     ``fused_dots`` (generic STPCG on the fused reduction kernels
     ``cg_dots``/``axpy_selfdot``; flat tensor tangents, no
-    preconditioner), ``flat_s_steps`` (s-step flat engine — values above 1
-    raise, not ported yet), ``flat_kernel_check`` and
+    preconditioner), ``flat_s_steps`` (values above 1 take the s-step flat
+    engine), ``flat_kernel_check`` and
     ``floor_acceptance`` (accept a step whose predicted decrease is below
     the objective's resolution when the objective did not measurably
     increase; the radius is then held)."""

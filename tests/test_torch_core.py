@@ -178,7 +178,7 @@ def test_solve_info_matches_jax():
 # explicit list that later slices of the port shrink.  ``kernels.on_tpu`` is
 # the TPU-only platform switch and gets no counterpart.
 STILL_MISSING = {
-    "": {"io"},
+    "": set(),
     "manifolds": set(),
     "kernels": {"on_tpu"},
     "solvers": set(),

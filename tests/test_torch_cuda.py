@@ -25,7 +25,9 @@ of a kernel bit for bit equal to its other arms.  The chunk reader:
 ``chip_smoke.CHUNK_TOLERANCES``.  Further tests hold the convex solvers, the
 ``prec`` check of the streamed kernel, the matrix manifolds, the connection
 Laplacian (within f32 tolerance of the CPU: ``index_add`` sums with atomics
-in a varying order) and the models' card defaults.
+in a varying order), the models' card defaults, the pose-graph CLI on the
+card by default and the inner Laplacian engines on the card against the
+CPU.
 """
 
 import pytest
@@ -842,3 +844,66 @@ def test_model_defaults_are_the_card(dev):
     assert bool(cert.certified)
     M_true, cdata = mc.random_instance(None, 50, 40, 2)
     assert M_true.device.type == "cuda" and cdata.lam.device.type == "cuda"
+
+
+def _pose_graph(n, extra, noise, seed):
+    """``chip_smoke.pose_graph``: a pose graph in the g2o convention, made
+    on the host (t at scale 5)."""
+    import chip_smoke
+
+    return chip_smoke.pose_graph(torch, n, extra, noise, 5.0, seed)
+
+
+def test_pose_cli_runs_on_the_card_by_default(dev, tmp_path, capsys):
+    """``python -m optimization_tpu_torch solve --marginalized --certify``
+    with no --device solves on the card: rc 0, certified, rotation error
+    under 4 noise; ``solve_pose_graph`` with no device returns card
+    tensors."""
+    import json
+
+    import numpy as np
+
+    from optimization_tpu_torch import cli
+    from optimization_tpu_torch.io import g2o
+    from optimization_tpu_torch.models import pose_sync as ps
+
+    graph, R, t = _pose_graph(300, 600, 0.01, seed=4)
+    path = str(tmp_path / "g.g2o")
+    g2o.save_g2o(path, graph)
+    out = str(tmp_path / "sol.npz")
+    rc = cli.main(["solve", path, "--marginalized", "--certify", "--json",
+                   "--out", out])
+    summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rc == 0 and summary["certified"] is True
+    sol = np.load(out)
+    err, _ = ps.alignment_errors(torch.from_numpy(sol["R"]).double(),
+                                 sol["t"], R, t)
+    assert float(err) < 0.04
+    res = ps.solve_pose_graph(graph)
+    assert res.R.device.type == "cuda" and res.t.device.type == "cuda"
+
+
+@pytest.mark.parametrize("engine", ["cg", "flat"])
+def test_laplacian_solver_on_card_matches_cpu(dev, engine):
+    """The inner Laplacian solve on the card (f32) within 1e-4 of the CPU
+    one through the edge differences (atomics change the summation
+    order)."""
+    from optimization_tpu_torch.models import pose_sync as ps
+
+    graph, _, _ = _pose_graph(2000, 4000, 0.01, seed=5)
+    src = torch.as_tensor(graph.src).long()
+    dst = torch.as_tensor(graph.dst).long()
+    tau = torch.rand(src.numel(), generator=torch.Generator().manual_seed(1))
+    tau = tau + 0.5
+    r = torch.randn((2000, 3), generator=torch.Generator().manual_seed(2))
+    r = r - r.mean(dim=0, keepdim=True)
+    zs = []
+    for device in ("cpu", dev):
+        solve = ps._weighted_laplacian_solver(
+            src.to(device), dst.to(device), tau.to(device), 2000,
+            engine=engine)
+        z = solve(r.to(device)).cpu()
+        zs.append(z[dst] - z[src])
+    rel = torch.linalg.vector_norm(zs[1] - zs[0]) / torch.linalg.vector_norm(
+        zs[0])
+    assert float(rel) < 1e-4

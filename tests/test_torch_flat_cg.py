@@ -14,6 +14,10 @@ rounding of the step (2^-8 relative).
 the same rtol 1e-9, and against the port's generic preconditioned
 ``stpcg`` at the tolerances of ``tests/test_flat_cg.py::
 TestPreconditionedFlat`` (iterations equal, s rtol 1e-5, M-norm rtol 1e-6).
+
+The s-step engine (``s_steps`` 2 in every trust-region regime, 3 in one,
+the indefinite and kernel cases) and ``solve_mode`` (s = 1, 2) against
+JAX's at the same tolerances.
 """
 
 import jax
@@ -225,8 +229,64 @@ def test_bf16_storage_matches_jax():
 @pytest.mark.parametrize("kw", [dict(s_steps=2), dict(solve_mode=True)],
                          ids=["s_steps", "solve_mode"])
 def test_unported_engines_raise(kw):
-    with pytest.raises(NotImplementedError):
-        T.stpcg_flat(torch.ones(4), lambda v: v, None, None, 1.0, **kw)
+    """The s-step engine (now ported) refuses the pair engine's options as
+    JAX's does: ``init=`` and ``kernel_check=False`` raise ValueError; it
+    runs without them."""
+    (_, _, _, _), (tg, tA0, tU, tB) = _ops(*_diag_lowrank(seed=9), "stored")
+    init = T.flat_init_dots(tg, tA0, tU, tB)
+    with pytest.raises(ValueError, match="pair engine"):
+        T.stpcg_flat(tg, tA0, tU, tB, 1.0, init=init, **kw)
+    with pytest.raises(ValueError, match="pair-engine"):
+        T.stpcg_flat(tg, tA0, tU, tB, 1.0, kernel_check=False, **kw)
+    res = T.stpcg_flat(tg, tA0, tU, tB, 1.0, max_iterations=50, **kw)
+    assert int(res.num_iterations) > 0 and bool(torch.isfinite(res.s).all())
+
+
+@pytest.mark.parametrize("s,regime", [(2, r) for r in REGIMES]
+                         + [(3, "boundary")])
+def test_sstep_engine_matches_jax(s, regime):
+    """The s-step engine in trust-region mode: iteration counts equal,
+    steps and scalars within 1e-9, the pair engine's rtol.  (JAX compiles
+    the s = 3 body for ~10 s on this CPU: one regime at s = 3, and
+    ``tests/test_torch_pose_sync.py`` runs ``solve_mode`` at s = 3.)"""
+    Delta, kappa, theta = REGIMES[regime]
+    (jg, jA0, jU, jB), (tg, tA0, tU, tB) = _ops(*_diag_lowrank(seed=5),
+                                                "stored")
+    kw = dict(max_iterations=500, kappa_fgr=kappa, theta=theta, s_steps=s)
+    _assert_same(J.stpcg_flat(jg, jA0, jU, jB, Delta, **kw),
+                 T.stpcg_flat(tg, tA0, tU, tB, Delta, **kw))
+
+
+def test_sstep_engine_kernel_and_indefinite_regimes_match_jax():
+    rng = np.random.default_rng(7)
+    d = rng.uniform(-2.0, 5.0, 200)
+    g = rng.normal(size=200)
+    for diag, Delta in ((d, 2.0), (np.zeros(200), 3.0)):
+        jd, td = jnp.asarray(diag), torch.from_numpy(diag)
+        kw = dict(max_iterations=500, kappa_fgr=1e-8, theta=0.999,
+                  s_steps=2)
+        _assert_same(J.stpcg_flat(jnp.asarray(g), lambda v: jd * v, None,
+                                  None, Delta, **kw),
+                     T.stpcg_flat(torch.from_numpy(g), lambda v: td * v,
+                                  None, None, Delta, **kw))
+
+
+@pytest.mark.parametrize("s", [1, 2])
+def test_solve_mode_matches_jax(s):
+    """``solve_mode`` (the plain truncated-CG linear solver of the pose
+    inner solve): H s = rhs with Delta = inf and theta = 0 on an SPD
+    diagonal + low-rank H, to rtol 1e-10 of |rhs|: counts equal, s within
+    1e-9, and H s = rhs to the target."""
+    d, Um, B, g = _diag_lowrank(seed=3)
+    (jg, jA0, jU, jB), (tg, tA0, tU, tB) = _ops(d, Um, B, -g, "stored")
+    kw = dict(max_iterations=500, kappa_fgr=1e-10, theta=0.0, s_steps=s,
+              solve_mode=True)
+    jr = J.stpcg_flat(jg, jA0, jU, jB, np.inf, **kw)
+    tr = T.stpcg_flat(tg, tA0, tU, tB, np.inf, **kw)
+    _assert_same(jr, tr)
+    H = np.diag(d) + Um @ B @ Um.T
+    res = np.linalg.norm(H @ tr.s.numpy() - g) / np.linalg.norm(g)
+    assert res <= 1e-9
 
 
 def test_auto_body_is_pair():

@@ -12,7 +12,9 @@ numbers), so the spectral initialization, the certificate and the
 staircase agree up to convergence and a global gauge: spectral init and
 ``round_lifted`` within 1e-8 (``mean_rotation_error`` between the two),
 the certificate's flag equal, ``lam_min`` within 1e-6 and its stationarity
-(no LOBPCG in it) within 1e-10.
+(no LOBPCG in it) within 1e-10.  ``solve_robust`` (GNC) from one spectral
+start: R within 1e-6 up to gauge, the weights
+within 1e-6, the same rejected edges.
 """
 
 import jax
@@ -233,3 +235,46 @@ def test_random_instance_and_fleet_shapes():
                                      dtype=torch.float64)
     assert R_trues.shape == (3, 10, 3, 3) and fleet.Rij.shape == (3, 14, 3, 3)
     assert (torch.linalg.det(R_trues) > 0).all()
+
+
+def test_solve_robust_matches_jax(monkeypatch):
+    """``tests/test_rotation_sync.py::test_robust_gnc_rejects_outliers``'s
+    instance (N = 24, 20 % of the edges random rotations): both packages
+    from one spectral start (the GNC scale is the median residual of the
+    start).  R within 1e-6 up to gauge, the
+    weights within 1e-6, the same rejected edges and identifiability, and
+    that test's gates."""
+    from test_torch_pose_sync import same_spectral_start
+
+    same_spectral_start(monkeypatch)
+    R_true, data = jrs.random_instance(jax.random.PRNGKey(13), N, D,
+                                       extra_edges=2 * N, noise=0.02,
+                                       dtype=jnp.float64)
+    E = int(data.src.shape[0])
+    n_out = E // 5
+    k1, k2 = jax.random.split(jax.random.PRNGKey(99))
+    out_idx = np.asarray(jax.random.choice(k1, E, (n_out,), replace=False))
+    bad = jrs.ROTATIONS.rand(k2, n_out, D, D).astype(jnp.float64)
+    cdata = data._replace(Rij=data.Rij.at[out_idx].set(bad))
+    params = dict(PARAMS, max_iterations=50)
+    # three GNC stages (of the default six) bound the JAX run's compile
+    # time; the gates hold at three
+    jrob = jrs.solve_robust(cdata, N, D, params=jtnt.TNTParams(**params),
+                            gnc_steps=3)
+    rob = rs.solve_robust(
+        interop.rotation_sync_data_from_jax(cdata, device="cpu"), N, D,
+        params=tnt.TNTParams(**params), gnc_steps=3, generator=_gen())
+    assert isinstance(rob, rs.RobustResult)
+    assert _gauge_err(rob.R.numpy(), jrob.R) <= 1e-6
+    w, jw = rob.weights.numpy(), np.asarray(jrob.weights)
+    np.testing.assert_allclose(w, jw, rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(w < 0.02 * float(rs._median(rob.weights)),
+                                  jw < 0.02 * np.median(jw))
+    np.testing.assert_array_equal(rob.identifiable.numpy(),
+                                  np.asarray(jrob.identifiable))
+    assert bool(rob.all_identifiable)
+    assert float(rs.mean_rotation_error(rob.R, torch.from_numpy(
+        np.array(R_true)))) < 0.05
+    inlier = np.ones(E, bool)
+    inlier[out_idx] = False
+    assert np.median(w[~inlier]) < 0.1 * np.median(w[inlier])

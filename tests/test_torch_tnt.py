@@ -239,11 +239,21 @@ def test_rayleigh_branches_match_jax(engine):
 
 
 def test_unported_options_raise():
-    """The s-step flat engine is not ported: TNT on a flat_qm problem with
-    flat_s_steps=2 raises rather than run another engine."""
-    _, tp, _, tx0 = _rayleigh(engine="flat_qm")
-    with pytest.raises(NotImplementedError, match="s-step"):
-        ttnt.solve(tp, tx0, ttnt.TNTParams(flat_s_steps=2))
+    """The s-step flat engine is ported: TNT on a flat_qm problem with
+    flat_s_steps=2 runs it and matches JAX's run (the init group the
+    step evaluator carries is dropped for it, as in JAX); the pair-engine
+    option flat_kernel_check=False still raises beside it."""
+    jp, tp, jx0, tx0 = _rayleigh(engine="flat_qm")
+    params = jtnt.TNTParams(max_iterations=10, max_TPCG_iterations=50,
+                            gradient_tolerance=1e-5,
+                            relative_decrease_tolerance=0.0,
+                            stepsize_tolerance=0.0,
+                            preconditioned_gradient_tolerance=0.0,
+                            flat_s_steps=2)
+    _assert_results_match(ttnt.solve(tp, tx0, params_from_jax(params)),
+                          jtnt.solve(jp, jx0, params), rtol=1e-7)
+    with pytest.raises(ValueError, match="pair"):
+        ttnt.TNTParams(flat_s_steps=2, flat_kernel_check=False).validate()
 
 
 def test_flat_prec_matches_generic_precon_and_jax():

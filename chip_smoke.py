@@ -147,7 +147,33 @@ non-zero exit and no result line:
    phases 20-21 join its count on the kernels line, and each of them is
    held against the plain version on its own S, AS, BS (phase 7's
    tolerance), its error joining the kernels line's;
-22. each streaming kernel's GB/s as a fraction of the measured ceiling, the
+22. range-aided pose sync (``models/range_sync.py``) in f32 at config6's
+   scale, n = 10^4 SE(3) poses, made on the card: (a) a noisy chain with
+   20,000 ranges (noise 0.01, range noise 0.001) solved with the ranges and
+   with rho = 0, (b) a noiseless instance with 10,000 extra edges and
+   10,000 ranges; each stage's wall (spectral init with its LOBPCG
+   iterations, LSQR, TNT outer / CG) and host reads; gated on the JAX
+   tests' contracts: the ranges tighten the translations by more than
+   1.5x, bearings unit within 1e-5, t[0] == 0 exactly, and (b)'s f,
+   rotation and translation errors under the f32 floors of
+   ``RANGE_FLOORS``;
+23. the ``parallel`` package on one card: an NCCL group of one rank
+   (``initialize_distributed`` over tcp://127.0.0.1), ``pdot`` / ``pnorm``
+   / ``pmean_tree`` at n = 2^24 equal to the local reductions and bitwise
+   repeatable, ``sharded_gram_pair`` at 100,000 x 48 equal to
+   ``gram_pair``, the row-sharded LOBPCG at config3 (theta within 1e-5 of
+   the unsharded solve), the block-partitioned TNT on ``DTensor``s at n =
+   2^24 (run_tier's Rayleigh quotient and caps, automatic derivatives;
+   status and f* within 1e-5 of the unsharded solve), ``batch_sharded_solve``
+   on a config4 LASSO fleet (B = 4, FISTA; each instance bitwise equal to
+   its own solve), consensus ADMM on config4's rows in 4 scenarios
+   (objective within 2% of full-data FISTA); then two ranks sharing the
+   card over gloo (``chip_smoke.py --gloo-rank``; their block TNT capped
+   at ``GLOO_OUTER`` outer iterations, since gloo stages each all-reduce
+   through the host), held to the world-1 results where gloo takes CUDA
+   tensors; every ``gram_pair`` launch of phases 22-23 held against the
+   plain version on its own inputs;
+24. each streaming kernel's GB/s as a fraction of the measured ceiling, the
    kernel table as one JSON line (each kernel's launches on its path, its
    error, its time, its plain version's, its bound and the library call's,
    null where no single PyTorch call computes the function), then the
@@ -2926,6 +2952,423 @@ def pose_routes_phase(torch, dev, label, graph, R_true, t_true):
           f" (< 1e-4) relative", flush=True)
 
 
+# ---- range-aided pose sync and the parallel package ----
+
+# config6's scale (SE-Sync's city10000): 10^4 SE(3) poses, box 10
+RANGE_N = 10_000
+RANGE_A = dict(extra_edges=0, n_ranges=10_000, noise=0.01,
+               range_noise=0.001)        # a noisy chain with ranges
+RANGE_B = dict(extra_edges=10_000, n_ranges=10_000, noise=0.0)
+# instance (b)'s f32 floors, calibrated on the CPU in f32 at n = 2,000
+# (f 1.03e-8, rotation error 7.5e-7, translation error 4.4e-5 there) with
+# a margin for n = 10^4 (PERF.md, §6)
+RANGE_FLOORS = {"f": 1e-5, "rot": 1e-4, "t": 1e-3}
+
+
+def range_solve(torch, dev, data, seed, label, tag):
+    """One ``solve_range_aided`` in f32 on the card: its stages timed
+    (``pose_stages``), its LOBPCG solves and host reads counted."""
+    from optimization_tpu_torch.core.types import TNTStatus
+    from optimization_tpu_torch.models import range_sync as rg
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    with pose_stages(torch) as log, lobpcg_log() as lob:
+        out, secs, reads = host_reads(
+            torch, lambda: rg.solve_range_aided(data, RANGE_N,
+                                                generator=gen))
+    outer, cg = counts(out.result)
+    print(f"  {tag}: {secs:.3f} s, "
+          f"{TNTStatus(int(out.result.status)).name}, {outer} outer / {cg} "
+          f"CG, f {float(out.result.f):.4e}, |grad| "
+          f"{float(out.result.gradfx_norm):.3e}, host reads {reads}, "
+          f"spectral LOBPCG {[it for it, _ in lob]} iterations [{label}]",
+          flush=True)
+    print(stage_lines(log, label), flush=True)
+    return out
+
+
+def range_sync_phase(torch, dev, label):
+    """Phase 22: range-aided pose sync in f32 at config6's scale, made on
+    the card: (a) a noisy chain with ranges, solved with them and with
+    rho = 0; (b) a noiseless instance; the JAX tests' contracts as gates."""
+    from optimization_tpu_torch.models import range_sync as rg
+    from optimization_tpu_torch.models.pose_sync import alignment_errors
+
+    n = RANGE_N
+    print(f"phase 22: range-aided pose sync, f32, n = {n} SE(3) poses: (a) "
+          f"{RANGE_A}, with ranges and with rho = 0; (b) {RANGE_B} "
+          f"[{label}]", flush=True)
+    t_phase = time.perf_counter()
+    errs = {}
+    gen = torch.Generator(device=dev).manual_seed(22)
+    R_a, t_a, data_a = rg.random_instance(gen, n, 3, **RANGE_A)
+    gen = torch.Generator(device=dev).manual_seed(23)
+    R_b, t_b, data_b = rg.random_instance(gen, n, 3, **RANGE_B)
+    print(f"  (a) E = {data_a.src.numel()}, K = {data_a.rsrc.numel()}; (b) "
+          f"E = {data_b.src.numel()}, K = {data_b.rsrc.numel()}; on "
+          f"{data_a.src.device}", flush=True)
+    if data_a.src.device.type != "cuda":
+        raise AssertionError("random_instance did not make its data on the "
+                             "card")
+    rg.solve_range_aided(data_b, n, params=dataclasses.replace(
+        rg.tnt.TNTParams(), max_iterations=1),
+        generator=torch.Generator(device=dev))            # warm-up
+    cases = (("(a) with ranges", data_a, R_a, t_a),
+             ("(a) rho = 0", data_a._replace(
+                 rho=torch.zeros_like(data_a.dists)), R_a, t_a),
+             ("(b) noiseless", data_b, R_b, t_b))
+    for tag, data, R_true, t_true in cases:
+        out = range_solve(torch, dev, data, 1, label, tag)
+        rot, te = alignment_errors(out.R, out.t, R_true,
+                                   t_true - t_true[0][None])
+        unit = float((torch.linalg.vector_norm(out.u, dim=-1) - 1.0).abs()
+                     .max())
+        errs[tag] = (float(rot), float(te), float(out.result.f))
+        print(f"    rotation error {float(rot):.3e}, translation error "
+              f"{float(te):.3e}, max||u| - 1| {unit:.2e}, t[0] "
+              f"{out.t[0].tolist()}", flush=True)
+        finite = all(bool(torch.isfinite(a).all())
+                     for a in (out.R, out.t, out.u))
+        if not (finite and out.R.device.type == "cuda" and unit <= 1e-5
+                and bool((out.t[0] == 0).all())):
+            raise AssertionError(f"phase 22 {tag}: not finite on the card, "
+                                 f"a bearing off the unit sphere, or t[0] "
+                                 f"!= 0")
+    ratio = errs["(a) rho = 0"][1] / errs["(a) with ranges"][1]
+    rot_b, t_b_err, f_b = errs["(b) noiseless"]
+    print(f"  gates: (a) ranges tighten t by {ratio:.2f}x (> 1.5); (b) f "
+          f"{f_b:.3e} < {RANGE_FLOORS['f']:g}, rotation {rot_b:.3e} < "
+          f"{RANGE_FLOORS['rot']:g}, translation {t_b_err:.3e} < "
+          f"{RANGE_FLOORS['t']:g}; phase {time.perf_counter() - t_phase:.1f}"
+          f" s [{label}]", flush=True)
+    if not (ratio > 1.5 and f_b < RANGE_FLOORS["f"]
+            and rot_b < RANGE_FLOORS["rot"] and t_b_err < RANGE_FLOORS["t"]):
+        raise AssertionError("phase 22: a gate failed")
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+GLOO_OUTER = 6      # the two gloo ranks' block TNT: outer iterations
+
+
+def block_tnt(torch, dev, mesh=None, outer=30):
+    """The block-partitioned TNT of phase 23: ``bench.py:run_tier``'s
+    Rayleigh quotient at n = 2^24 f32 (A = 1 + b i stored), automatic
+    derivatives, run_tier's caps (30 outer, 50 CG; ``outer`` cuts the
+    first); on a ``DTensor`` iterate over ``mesh``, or unsharded."""
+    from optimization_tpu_torch import RiemannianProblem
+    from optimization_tpu_torch import headline as H
+    from optimization_tpu_torch.manifolds import sphere
+    from optimization_tpu_torch.parallel.sharding import shard_model_vector
+    from optimization_tpu_torch.solvers import tnt
+
+    n = N_MAIN
+    d = 1.0 + (999.0 / (n - 1)) * torch.arange(n, dtype=torch.float32,
+                                               device=dev)
+    x0 = H.initial_point(n, torch.float32, dev, 3)
+    if mesh is not None:
+        x0, d = shard_model_vector(x0, mesh), shard_model_vector(d, mesh)
+    problem = RiemannianProblem(f=lambda x, dd: torch.dot(x, dd * x),
+                                manifold=sphere())
+    return timed_solve(torch, dev, lambda: tnt.solve(
+        problem, x0, H.tier_params(1e-5, max_iterations=outer), data=d))
+
+
+def parallel_phase(torch, dev, label):
+    """Phase 23: the ``parallel`` package on one card: an NCCL group of one
+    rank, the collectives at n = 2^24, ``sharded_gram_pair`` at config3's
+    Gram shape, a row-sharded LOBPCG at config3, the block-partitioned TNT
+    at n = 2^24, ``batch_sharded_solve`` on a config4 LASSO fleet,
+    consensus ADMM on config4's rows; then two ranks sharing the card over
+    gloo (when gloo takes CUDA tensors).  Returns the world-1 results the
+    two-rank leg is held to."""
+    import importlib
+
+    import torch.distributed as dist
+
+    from optimization_tpu_torch import CompositeProblem
+    from optimization_tpu_torch.core.tree import tree_dot
+    from optimization_tpu_torch.core.types import ADMMStatus, TNTStatus
+    from optimization_tpu_torch.linalg import lobpcg
+    from optimization_tpu_torch.parallel import (batch_mesh, collectives,
+                                                 consensus,
+                                                 initialize_distributed,
+                                                 model_mesh)
+    from optimization_tpu_torch.parallel.mesh import shard, spec
+    from optimization_tpu_torch.parallel.sharding import (batch_sharded_solve,
+                                                          shard_batch)
+    from optimization_tpu_torch.solvers import admm, prox
+    from optimization_tpu_torch.solvers import proximal_gradient as pg
+
+    L = importlib.import_module("optimization_tpu_torch.linalg.lobpcg")
+    print(f"phase 23: the parallel package on one card [{label}]",
+          flush=True)
+    initialize_distributed(coordinator_address=f"127.0.0.1:{free_port()}",
+                           num_processes=1, process_id=0)
+    world = {}
+    try:
+        mm, bm = model_mesh(1), batch_mesh(1)
+        print(f"  group: {dist.get_backend()}, world {dist.get_world_size()}"
+              f", meshes {mm} {bm}", flush=True)
+        if dist.get_backend() != "nccl":
+            raise AssertionError("a CUDA mesh must be served by NCCL")
+
+        # the collectives at n = 2^24 f32: equal to the local reductions,
+        # five repeats bitwise equal
+        gen = torch.Generator(device=dev).manual_seed(23)
+        v, w = (torch.randn(N_MAIN, generator=gen, device=dev)
+                for _ in range(2))
+        dots = torch.stack([collectives.pdot(v, w, mm) for _ in range(5)])
+        norms = torch.stack([collectives.pnorm(v, mm) for _ in range(5)])
+        mean = collectives.pmean_tree((v, w.sum()), mm)
+        same = (bool((dots == tree_dot(v, w)).all())
+                and bool((norms == torch.sqrt(tree_dot(v, v))).all())
+                and torch.equal(mean[0], v) and torch.equal(mean[1], w.sum()))
+        print(f"  pdot {float(dots[0]):.6e}, pnorm {float(norms[0]):.6e}: "
+              f"five repeats and the local reductions bitwise equal: {same}",
+              flush=True)
+        if not same:
+            raise AssertionError("phase 23: a collective left the local "
+                                 "reduction or was not deterministic")
+        world["pdot"] = float(dots[0])
+
+        # sharded_gram_pair at config3's Gram shape == gram_pair alone
+        S, AS, BS = (torch.randn((100_000, 48), generator=gen, device=dev)
+                     for _ in range(3))
+        ga, gb = collectives.sharded_gram_pair(S, AS, BS, mm)
+        ra, rb = L._gram(S, AS, BS)
+        eq = torch.equal(ga, ra) and torch.equal(gb, rb)
+        print(f"  sharded_gram_pair 100,000 x 48 f32 == gram_pair alone: "
+              f"{eq}", flush=True)
+        if not eq:
+            raise AssertionError("phase 23: sharded_gram_pair != gram_pair")
+        world["gram"] = (S, AS, BS, ga, gb)
+
+        # row-sharded LOBPCG at config3
+        m, nx, nev = 100_000, 16, 5
+        dl = torch.linspace(1.0, float(m), m, device=dev)
+
+        def config3(axis, max_iterations=100):
+            g = torch.Generator(device=dev).manual_seed(3)
+            X0 = torch.randn((m, nx), generator=g, device=dev)
+            return lobpcg(lambda S_: dl[:, None] * S_,
+                          T=lambda S_: S_ / dl[:, None], X0=X0, nev=nev,
+                          max_iterations=max_iterations, tau=1e-4,
+                          generator=g, axis=axis)
+
+        config3(None, 2)                                   # warm-up
+        config3(mm, 2)
+        ref, s_ref = timed_solve(torch, dev, lambda: config3(None))
+        sh, s_sh = timed_solve(torch, dev, lambda: config3(mm))
+        rel = float(((sh.theta - ref.theta) / ref.theta).abs().max())
+        print(f"  LOBPCG config3: unsharded {int(ref.num_iterations)} it in "
+              f"{s_ref:.3f} s, row-sharded {int(sh.num_iterations)} it in "
+              f"{s_sh:.3f} s, nc {int(sh.num_converged)}, theta rel diff "
+              f"{rel:.2e} (< 1e-5) [{label}]", flush=True)
+        if not (rel < 1e-5 and int(sh.num_converged) >= nev):
+            raise AssertionError("phase 23: the row-sharded LOBPCG left the "
+                                 "unsharded solve")
+
+        # the block-partitioned TNT at n = 2^24
+        block_tnt(torch, dev)                      # warm-up of the jvp
+        ref, s_ref = block_tnt(torch, dev)
+        sh, s_sh = block_tnt(torch, dev, mm)
+        rel = abs(float(sh.f) - float(ref.f)) / abs(float(ref.f))
+        for tag, res, secs in (("unsharded (jvp hvp)", ref, s_ref),
+                               ("DTensor (reverse hvp)", sh, s_sh)):
+            outer, cg = counts(res)
+            print(f"  block TNT {tag}: {TNTStatus(int(res.status)).name}, "
+                  f"{outer} outer / {cg} CG, f* {float(res.f):.7f}, "
+                  f"{secs:.3f} s = {cg / secs:.0f} CG it/s [{label}]",
+                  flush=True)
+        print(f"  block TNT: |f*_sharded - f*| / f* {rel:.2e} (<= 1e-5)",
+              flush=True)
+        if not (int(sh.status) == int(ref.status) and rel <= 1e-5):
+            raise AssertionError("phase 23: the block TNT left the "
+                                 "unsharded solve")
+        # what the two gloo ranks' shorter block TNT is held to
+        world["block_f"] = float(block_tnt(torch, dev, mm,
+                                           GLOO_OUTER)[0].f)
+
+        # batch_sharded_solve on a config4 LASSO fleet (FISTA)
+        (mr, nc), mu, B = LASSO_SHAPE, 0.1, 4
+        g4 = torch.Generator(device=dev).manual_seed(4)
+        As = torch.randn((B, mr, nc), generator=g4, device=dev) / math.sqrt(mr)
+        xt = torch.where(torch.rand((B, nc), generator=g4, device=dev) < 0.01,
+                         torch.randn((B, nc), generator=g4, device=dev), 0.0)
+        bs = (As @ xt[..., None])[..., 0] + 0.01 * torch.randn(
+            (B, mr), generator=g4, device=dev)
+        lasso = CompositeProblem(
+            f=lambda x, d: 0.5 * torch.sum((d["A"] @ x - d["b"]) ** 2),
+            g=lambda x, d: mu * torch.sum(torch.abs(x)),
+            prox_g=lambda x, lam, d: prox.soft_threshold(x, lam * mu))
+        params = pg.ProximalGradientParams(
+            max_iterations=300, composite_gradient_tolerance=1e-3,
+            relative_composite_gradient_tolerance=1e-6)
+        solve = lambda x0, d: pg.solve(lasso, x0, params, d)
+        x0s = torch.zeros((B, nc), device=dev)
+        fleet, secs = timed_solve(torch, dev, lambda: batch_sharded_solve(
+            solve, bm)(x0s, {"A": As, "b": bs}))
+        alone = [solve(x0s[i], {"A": As[i], "b": bs[i]}) for i in range(B)]
+        eq = all(torch.equal(fleet.x[i], r.x) and torch.equal(fleet.f[i], r.f)
+                 for i, r in enumerate(alone))
+        print(f"  batch_sharded_solve, config4 fleet B = {B} (FISTA): "
+              f"{fleet.num_iterations.tolist()} iterations, {secs:.3f} s, "
+              f"each instance bitwise equal to its own solve: {eq} "
+              f"[{label}]", flush=True)
+        if not eq:
+            raise AssertionError("phase 23: batch_sharded_solve left an "
+                                 "instance's own solve")
+
+        # consensus ADMM: config4's rows in N = 4 scenarios, against FISTA
+        N = 4
+        A, b = As[0], bs[0]
+        Ai, bi = A.reshape(N, mr // N, nc), b.reshape(N, mr // N)
+
+        def local_argmin(z, lam_i, rho, data_i):
+            # (Ai'Ai + rho I)^-1 v by Woodbury through the scenario's rows
+            Aj, bj = data_i
+            v_ = Aj.T @ bj - lam_i + rho * z
+            K = Aj @ Aj.T + rho * torch.eye(Aj.shape[0], device=Aj.device)
+            return (v_ - Aj.T @ torch.linalg.solve(K, Aj @ v_)) / rho
+
+        cproblem = consensus.consensus_problem(
+            local_argmin,
+            prox_g=lambda v_, lam, d: prox.soft_threshold(v_, mu * lam))
+        cparams = admm.ADMMParams(
+            max_iterations=1000, eps_rel=1e-5, eps_abs_pri=1e-4,
+            eps_abs_dual=1e-4, rho=1.0,
+            penalty_adaptation_mode=admm.ADMMPenaltyAdaptation
+            .RESIDUAL_BALANCE,
+            penalty_adaptation_period=2, penalty_adaptation_window=200)
+        zeros = shard_batch(torch.zeros((N, nc), device=dev), bm)
+        cres, secs = timed_solve(torch, dev, lambda: admm.solve(
+            cproblem, zeros, zeros, shard(torch.zeros(nc, device=dev), bm,
+                                          spec()),
+            cparams, data=shard_batch((Ai, bi), bm)))
+        full = pg.solve(lasso, torch.zeros(nc, device=dev), params,
+                        {"A": A, "b": b})
+        obj = lambda x: float(lasso.value(x, {"A": A, "b": b}))
+        y = cres.y.full_tensor()
+        print(f"  consensus ADMM, N = {N} scenarios of config4's rows: "
+              f"{ADMMStatus(int(cres.status)).name} in "
+              f"{int(cres.num_iterations)} iterations, {secs:.3f} s; "
+              f"objective {obj(y):.6f} vs full-data FISTA {obj(full.x):.6f}"
+              f" (<= 1.02x) [{label}]", flush=True)
+        if not obj(y) <= 1.02 * obj(full.x):
+            raise AssertionError("phase 23: consensus ADMM missed FISTA's "
+                                 "objective by more than 2%")
+    finally:
+        dist.destroy_process_group()
+    gloo_two_ranks(torch, dev, label, world)
+
+
+def gloo_two_ranks(torch, dev, label, world):
+    """Two ranks sharing the card over gloo (NCCL refuses two ranks on one
+    GPU): each a ``chip_smoke.py --gloo-rank`` process; pdot,
+    sharded_gram_pair and the block TNT held to the world-1 results."""
+    import tempfile
+
+    S, AS, BS, ga, gb = world["gram"]
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        torch.save({"S": S, "AS": AS, "BS": BS}, os.path.join(tmp, "in.pt"))
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--gloo-rank",
+             str(r), "2", tmp], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True) for r in range(2)]
+        try:
+            outs = [p.communicate(timeout=300) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for p, (out, err) in zip(procs, outs):
+            if p.returncode != 0:
+                raise AssertionError(f"a gloo rank failed (rc "
+                                     f"{p.returncode}):\n{err[-3000:]}")
+        res = json.loads(outs[0][0].strip().splitlines()[-1])
+        if not res["gloo_cuda"]:
+            print(f"  two ranks over gloo: gloo refused CUDA tensors "
+                  f"({res['error']}); cross-rank behaviour rests on the CPU "
+                  f"tests", flush=True)
+            return
+        got = torch.load(os.path.join(tmp, "out.pt"))
+    tol = [1e-5 * (S.double().abs().mT @ X.double().abs())
+           for X in (AS, BS)]
+    gram_ok = all(bool(((g.double() - r.double()).abs() <= t).all())
+                  for g, r, t in zip((got["ga"], got["gb"]), (ga, gb), tol))
+    d_pdot = abs(res["pdot"] - world["pdot"]) / abs(world["pdot"])
+    d_f = abs(res["block_f"] - world["block_f"]) / abs(world["block_f"])
+    print(f"  two ranks sharing the card over gloo: pdot rel diff "
+          f"{d_pdot:.2e} (<= 1e-5), sharded_gram_pair within the gram_pair "
+          f"tolerance of world 1: {gram_ok}, block TNT capped at "
+          f"{GLOO_OUTER} outer: "
+          f"{res['block_status']} in {res['block_outer']} outer / "
+          f"{res['block_cg']} CG, {res['block_s']:.3f} s, f* rel diff "
+          f"{d_f:.2e} (<= 1e-5) [{label}]", flush=True)
+    if not (d_pdot <= 1e-5 and gram_ok and d_f <= 1e-5):
+        raise AssertionError("phase 23: the two gloo ranks left the world-1 "
+                             "results")
+
+
+def gloo_rank_main(rank, world, tmp):
+    """One of phase 23's two gloo ranks on the one card (``chip_smoke.py
+    --gloo-rank <rank> <world> <dir>``): rank 0 prints a JSON line and
+    saves its sharded_gram_pair to <dir>/out.pt."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    from optimization_tpu_torch.core.types import TNTStatus
+    from optimization_tpu_torch.parallel import (collectives,
+                                                 initialize_distributed,
+                                                 make_mesh)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    initialize_distributed(init_method=f"file://{tmp}/store",
+                           num_processes=world, process_id=rank,
+                           device_type="cpu")
+    out = {"gloo_cuda": True}
+    try:
+        probe = torch.ones(1, device=dev)
+        dist.all_reduce(probe)
+    except Exception as e:                  # gloo without CUDA support
+        out.update(gloo_cuda=False, error=f"{type(e).__name__}: {e}")
+    if out["gloo_cuda"]:
+        mesh = make_mesh((world,), ("model",), devices="cuda")
+        gen = torch.Generator(device=dev).manual_seed(23)
+        v, w = (torch.randn(N_MAIN, generator=gen, device=dev)
+                for _ in range(2))
+        k = N_MAIN // world
+        rows = slice(rank * k, (rank + 1) * k)
+        out["pdot"] = float(collectives.pdot(v[rows], w[rows], mesh))
+        inp = torch.load(os.path.join(tmp, "in.pt"))
+        k = inp["S"].shape[0] // world
+        rows = slice(rank * k, (rank + 1) * k)
+        ga, gb = collectives.sharded_gram_pair(
+            inp["S"][rows], inp["AS"][rows], inp["BS"][rows], mesh)
+        res, secs = block_tnt(torch, dev, mesh, GLOO_OUTER)
+        outer, cg = counts(res)
+        out.update(block_f=float(res.f), block_outer=outer, block_cg=cg,
+                   block_s=secs,
+                   block_status=TNTStatus(int(res.status)).name)
+        if rank == 0:
+            torch.save({"ga": ga, "gb": gb}, os.path.join(tmp, "out.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+    if rank == 0:
+        print(json.dumps(out), flush=True)
+
+
 def ceiling_summary(ceiling, rates, label):
     print(f"bandwidth ceiling: stream3_probe {ceiling:.0f} GB/s at n = 2^24 "
           f"f32 [{label}]", flush=True)
@@ -3005,11 +3448,31 @@ def main():
         raise AssertionError("gram_pair on the pose path: a launch was not "
                              "held, or disagrees with its plain version")
     errs7["gram_pair"] = max(errs7["gram_pair"], held["err"])
+    # ---- range sync's and the parallel package's gram_pair runs ----
+    F.gram_pair.launches = 0
+    with held_gram_pair(torch) as held:
+        range_sync_phase(torch, dev, label)
+        parallel_phase(torch, dev, label)
+    last_launches = F.gram_pair.launches
+    # ---- end of phases 22-23's gram_pair runs ----
+    shapes = ", ".join(f"{'x'.join(map(str, shape))}{' BS = S' * same}"
+                       for shape, same in sorted(held["shapes"]))
+    print(f"gram_pair launches in phases 22-23: {last_launches}, each held "
+          f"against the plain version on its inputs ({held['calls']} calls "
+          f"at {shapes}): max |err| {held['err']:.3e} (entries up to "
+          f"{held['scale']:.3e}), at most {held['ratio']:.3f} of the "
+          f"tolerance (<= 1)", flush=True)
+    if last_launches == 0:
+        raise AssertionError("phases 22-23 launched no gram_pair")
+    if held["calls"] != last_launches or not held["ratio"] <= 1:
+        raise AssertionError("gram_pair in phases 22-23: a launch was not "
+                             "held, or disagrees with its plain version")
+    errs7["gram_pair"] = max(errs7["gram_pair"], held["err"])
     ceiling_summary(ceiling, {"stpcg_flat_streamed": streamed_gbs,
                               "stpcg_flat_streamed[prec]": prec_gbs,
                               **rates, **graph_rates}, label)
 
-    launches = {"gram_pair": gram_launches + pose_launches,
+    launches = {"gram_pair": gram_launches + pose_launches + last_launches,
                 "stream3_probe": stream3_launches}
     new_kernels = [{
         "name": name, "route": "cuda",
@@ -3026,4 +3489,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--gloo-rank"]:
+        gloo_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    else:
+        main()

@@ -30,8 +30,11 @@ TNT, TNLS, proximal gradient) / ``drive_admm`` / ``drive_lobpcg`` /
 the models ``models.graph``, ``models.rotation_sync`` (spectral init,
 TNT, the SE-Sync certificate and staircase, GNC-robust ``solve_robust``),
 ``models.pose_sync`` (the full SE-Sync pipeline: chordal, marginalized or
-staircase rotations, LSQR translations, the certificate, GNC-robust SE(d))
-and ``models.matrix_completion``; the g2o loader and writer ``io.g2o``
+staircase rotations, LSQR translations, the certificate, GNC-robust SE(d)),
+``models.range_sync`` (range-aided pose sync on a product manifold, every
+derivative automatic) and ``models.matrix_completion``; the ``parallel``
+package (``torch.distributed`` meshes, ``DTensor`` sharding, the
+collectives, consensus ADMM); the g2o loader and writer ``io.g2o``
 and the pose-graph command line ``python -m optimization_tpu_torch solve
 graph.g2o`` (``cli.py``); and the probe kernels
 ``kernels.pinned_stream`` / ``kernels.resident_body`` /

@@ -122,3 +122,13 @@ def tree_where(pred, a: PyTree, b: PyTree) -> PyTree:
 def tree_select(pred, a: PyTree, b: PyTree) -> PyTree:
     """Alias of tree_where (kept for readability at call sites)."""
     return tree_where(pred, a, b)
+
+
+def local_scalar(t) -> torch.Tensor:
+    """A scalar as a plain tensor: a ``DTensor`` (the value or an inner
+    product of a sharded iterate) is gathered to its full value, which
+    every rank then holds; anything else goes through ``torch.as_tensor``."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(t, DTensor):
+        return t.full_tensor()
+    return torch.as_tensor(t)

@@ -5,8 +5,8 @@ The ported problems have no learned weights: their state is the params
 ``ProximalGradientParams``, ``ADMMParams`` and their bases), the initial
 point, the data (for the convex solvers A, b, c), and the ``warm_start``
 carry of a LOBPCG, proximal-gradient or ADMM solve.
-The model data (``RotationSyncData``, ``CompletionData``, a g2o
-``PoseGraph``) crosses the same way.  These functions carry them without importing JAX (arrays arrive
+The model data (``RotationSyncData``, ``CompletionData``,
+``RangeSyncData``, a g2o ``PoseGraph``) crosses the same way.  These functions carry them without importing JAX (arrays arrive
 through numpy's array protocol).
 """
 
@@ -21,6 +21,7 @@ from .core.tree import tree_map
 from .core.types import OptimizerParams, SmoothOptimizerParams
 from .io.g2o import PoseGraph
 from .models.matrix_completion import CompletionData
+from .models.range_sync import RangeSyncData
 from .models.rotation_sync import RotationSyncData
 from .solvers import admm as _admm
 from .solvers import proximal_gradient as _pg
@@ -32,7 +33,8 @@ __all__ = ["params_from_jax", "tensor_from_numpy", "result_to_numpy",
            "lobpcg_warm_start_from_jax",
            "proximal_gradient_warm_start_from_jax",
            "admm_warm_start_from_jax", "rotation_sync_data_from_jax",
-           "completion_data_from_jax", "pose_graph_from_jax"]
+           "completion_data_from_jax", "pose_graph_from_jax",
+           "range_sync_data_from_jax"]
 
 _PARAMS = {cls.__name__: cls
            for cls in (OptimizerParams, SmoothOptimizerParams,
@@ -151,3 +153,17 @@ def pose_graph_from_jax(graph) -> PoseGraph:
         dst=np.array(graph.dst, dtype=np.int32),
         Rij=f64(graph.Rij), tij=f64(graph.tij),
         kappa=None if graph.kappa is None else f64(graph.kappa))
+
+
+def range_sync_data_from_jax(data, device="cuda") -> RangeSyncData:
+    """The port's ``RangeSyncData`` from the JAX package's: the pose and
+    range edge indices as int64, the measurements and weights in their
+    dtype, all on ``device`` (the card unless told ``device="cpu"``); a
+    weight of None stays None."""
+    idx = lambda a: tensor_from_numpy(a, device, torch.int64)
+    val = lambda a: None if a is None else tensor_from_numpy(a, device)
+    return RangeSyncData(
+        src=idx(data.src), dst=idx(data.dst), Rij=val(data.Rij),
+        tij=val(data.tij), rsrc=idx(data.rsrc), rdst=idx(data.rdst),
+        dists=val(data.dists), kappa=val(data.kappa), tau=val(data.tau),
+        rho=val(data.rho))

@@ -265,14 +265,51 @@ def _where(pred: torch.Tensor, new, old):
                        new, old)
 
 
+def _block(size: int, axis, device):
+    """``(total, offset)`` of this rank's block of ``size`` rows (or
+    instances) along a mesh axis: the all-gathered sizes, summed, and the
+    ones of the ranks before it."""
+    import torch.distributed as dist
+
+    from ..parallel.collectives import axis_group
+
+    group = axis_group(axis)
+    mine = torch.tensor([size], dtype=torch.int64, device=device)
+    sizes = [torch.empty_like(mine) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(sizes, mine, group=group)
+    sizes = [int(t) for t in sizes]
+    return sum(sizes), sum(sizes[:dist.get_rank(group)])
+
+
 def _run(Aop, Bop, Top, has_B: bool, *, X0, fleet: int, m: int, nx: int,
          nev: int, max_iterations: int, tau, generator, user_function,
-         warm_start, eigh_fn, rr_method: str, dtype, device) -> LOBPCGResult:
+         warm_start, eigh_fn, rr_method: str, dtype, device, row_axis=None,
+         row_block=None, fleet_block=None) -> LOBPCGResult:
     """The batched LOBPCG loop over a leading fleet axis of size ``fleet``.
     ``Aop``/``Bop``/``Top`` map (F, m, k) blocks to (F, m, k) blocks;
     ``eigh_fn`` takes (F, n, n) batches; ``user_function`` (fleet of one
-    only) sees the unbatched iterate."""
+    only) sees the unbatched iterate.
+
+    ``row_axis``, ``row_block = (total, offset)``: the m rows are this
+    rank's block of a basis row-sharded over that mesh axis; every
+    reduction over rows is all-reduced (the Gram stage through
+    ``collectives.sharded_gram_pair``).  ``fleet_block = (total,
+    offset)``: the instances are this block of a larger fleet.  Either way
+    omega is drawn whole and sliced, so every instance sees the numbers of
+    the unsharded solve."""
     warm_rr = rr_method == "chol_warm"
+    if row_axis is None:
+        gram = _gram
+        norm = torch.linalg.vector_norm
+    else:
+        from ..parallel import collectives
+
+        def gram(S, AS, BS):
+            return collectives.sharded_gram_pair(S, AS, BS, row_axis)
+
+        def norm(M, dim):
+            return torch.sqrt(collectives.psum_scalar(
+                (M * M).sum(dim=dim), row_axis))
     if rr_method == "eigh":
         def rr_init(Am, Bm):
             th, Cm = rayleigh_ritz(Am, Bm, eigh_fn=eigh_fn)
@@ -289,10 +326,18 @@ def _run(Aop, Bop, Top, has_B: bool, *, X0, fleet: int, m: int, nx: int,
         return (*rr_init(Am, Bm), useed)
 
     # randomized 2-norm estimates (reference LOBPCG.h:199-214)
-    omega = _randn((fleet, m, nx), generator, dtype, device)
-    omega_norm = torch.linalg.vector_norm(omega, dim=(-2, -1))
-    A2normest = torch.linalg.vector_norm(Aop(omega), dim=(-2, -1)) / omega_norm
-    B2normest = (torch.linalg.vector_norm(Bop(omega), dim=(-2, -1))
+    if row_block is None and fleet_block is None:
+        omega = _randn((fleet, m, nx), generator, dtype, device)
+        omega_norm = torch.linalg.vector_norm(omega, dim=(-2, -1))
+    else:
+        f_tot, f_off = fleet_block or (fleet, 0)
+        m_tot, m_off = row_block or (m, 0)
+        omega = _randn((f_tot, m_tot, nx), generator, dtype, device)[
+            f_off:f_off + fleet]
+        omega_norm = torch.linalg.vector_norm(omega, dim=(-2, -1))
+        omega = omega[:, m_off:m_off + m]
+    A2normest = norm(Aop(omega), dim=(-2, -1)) / omega_norm
+    B2normest = (norm(Bop(omega), dim=(-2, -1))
                  / omega_norm if has_B
                  else torch.ones(fleet, dtype=dtype, device=device))
     # sentinel eigenvalue of the masked basis columns (fake pairs are
@@ -309,7 +354,7 @@ def _run(Aop, Bop, Top, has_B: bool, *, X0, fleet: int, m: int, nx: int,
         # initialization: B-orthonormalize X0 (reference LOBPCG.h:218-230)
         AX = Aop(X0)
         BX = Bop(X0)
-        theta0, C0, ok0 = rr_init(*_gram(X0, AX, BX))
+        theta0, C0, ok0 = rr_init(*gram(X0, AX, BX))
         X = X0 @ C0
         AX = AX @ C0
         BX = BX @ C0
@@ -319,7 +364,7 @@ def _run(Aop, Bop, Top, has_B: bool, *, X0, fleet: int, m: int, nx: int,
             k=k0, X=X, AX=AX, BX=BX, R=R, P=torch.zeros_like(X),
             theta=theta0,
             nc=torch.zeros(fleet, dtype=torch.int32, device=device),
-            r=torch.linalg.vector_norm(R[:, :, :nev], dim=-2),
+            r=norm(R[:, :, :nev], dim=-2),
             done=torch.zeros(fleet, dtype=torch.bool, device=device),
             ok=ok0, residual_trace=residual_trace, nc_trace=nc_trace,
             Useed=(torch.eye(3 * nx, dtype=dtype, device=device).expand(
@@ -349,7 +394,7 @@ def _run(Aop, Bop, Top, has_B: bool, *, X0, fleet: int, m: int, nx: int,
                        st.P * p_mask[:, None, :]], dim=-1)
         AS = Aop(S)
         BS = Bop(S)
-        StAS, StBS = _gram(S, AS, BS)
+        StAS, StBS = gram(S, AS, BS)
 
         # repair the pencil on masked columns: unit B-diagonal, sentinel
         # A-diagonal => exact decoupling into the active block plus fakes
@@ -384,8 +429,8 @@ def _run(Aop, Bop, Top, has_B: bool, *, X0, fleet: int, m: int, nx: int,
         P_new = S[:, :, nx:] @ C_x[:, nx:, :]
 
         # convergence test (reference LOBPCG.h:292-318)
-        r = torch.linalg.vector_norm(R_new[:, :, :nev], dim=-2)
-        x_norms = torch.linalg.vector_norm(X_new[:, :, :nev], dim=-2)
+        r = norm(R_new[:, :, :nev], dim=-2)
+        x_norms = norm(X_new[:, :, :nev], dim=-2)
         tolerances = tau * (A2normest[:, None] + B2normest[:, None]
                             * theta[:, :nev].abs()) * x_norms
         converged = r <= tolerances
@@ -480,6 +525,7 @@ def lobpcg(
     eigh_fn: Optional[Callable[[torch.Tensor], Tuple[torch.Tensor,
                                                      torch.Tensor]]] = None,
     rr_method: str = "eigh",
+    axis=None,
 ) -> LOBPCGResult:
     """Smallest ``nev`` eigenpairs of ``A x = lambda B x``.
 
@@ -505,6 +551,13 @@ def lobpcg(
       reported via ``pencil_consistent``) or ``"chol_warm"`` (the chol
       route with its eigh a threshold-Jacobi solve seeded by the previous
       iteration's rotation).
+    - ``axis``: a mesh axis (``parallel.collectives``) over which the
+      basis is row-sharded.  Then ``X0`` (or ``m``) is this rank's block
+      of rows, ``A``/``B``/``T`` map this rank's rows of a block, every
+      reduction over rows is all-reduced (the Gram stage through
+      ``collectives.sharded_gram_pair``, the kernel on this rank's
+      rows), and the random blocks are drawn whole and sliced.  Every
+      rank of the axis makes the call; each returns its rows of X.
 
     f32 and bf16 storage take the Gram stage through the ``gram_pair``
     kernel (its plain version on the CPU); f64 through ``torch.matmul``.
@@ -514,11 +567,13 @@ def lobpcg(
             raise ValueError("Either X0 or (m, nx) must be supplied")
     else:
         m, nx = X0.shape
-    _check(rr_method, m, nx, nev)
     generator = _default_generator(generator, X0)
+    m_tot, m_off = ((m, 0) if axis is None else _block(
+        m, axis, generator.device if X0 is None else X0.device))
+    _check(rr_method, m_tot, nx, nev)
     if X0 is None:
-        X0 = _randn((m, nx), generator, torch.get_default_dtype(),
-                    generator.device)
+        X0 = _randn((m_tot, nx), generator, torch.get_default_dtype(),
+                    generator.device)[m_off:m_off + m]
     if eigh_fn is not None:
         user_eigh = eigh_fn
 
@@ -537,7 +592,8 @@ def lobpcg(
                max_iterations=max_iterations, tau=tau, generator=generator,
                user_function=user_function, warm_start=warm_start,
                eigh_fn=eigh_fn, rr_method=rr_method, dtype=X0.dtype,
-               device=X0.device)
+               device=X0.device, row_axis=axis,
+               row_block=None if axis is None else (m_tot, m_off))
     return tree_map(lambda t: t[0], res)
 
 
@@ -558,6 +614,7 @@ def lobpcg_fleet(
                                                      torch.Tensor]]] = None,
     rr_method: str = "chol",
     warm_start: Optional[tuple] = None,
+    axis=None,
 ) -> LOBPCGResult:
     """Fleet-batched LOBPCG: one three-block iteration across many
     same-shaped pencils.
@@ -585,12 +642,32 @@ def lobpcg_fleet(
     Gram stage is one batched ``gram_pair`` launch per iteration, the
     Rayleigh-Ritz eigh/cholesky/triangular solves batch natively.
 
+    ``axis``: a mesh axis (``parallel.collectives``) over which the fleet
+    is split: ``data`` (and ``X0``) hold this rank's contiguous block of
+    instances, the same count on every rank.  The random blocks are drawn
+    for the whole fleet and sliced, no collective runs inside the loop
+    (the instances do not interact), and the results are all-gathered:
+    every rank returns the whole fleet's, equal to the unsharded fleet's.
+    A sharded fleet does not take ``warm_start``.
+
     Returns an :class:`LOBPCGResult` whose fields carry a leading fleet axis
     (``warm_start`` too, which resumes the fleet).
     """
     leaf = tree_leaves(data)[0]
     fleet = leaf.shape[0]
     generator = _default_generator(generator, leaf)
+    block = None
+    if axis is not None:
+        if warm_start is not None:
+            raise ValueError("a fleet sharded over an axis does not resume "
+                             "from warm_start")
+        import torch.distributed as dist
+
+        from ..parallel.collectives import axis_group
+        block = _block(fleet, axis, leaf.device)
+        if block[0] != fleet * dist.get_world_size(axis_group(axis)):
+            raise ValueError("a sharded fleet needs the same number of "
+                             "instances on every rank")
 
     def per_instance(op):
         batched = torch.func.vmap(op)
@@ -609,15 +686,21 @@ def lobpcg_fleet(
         if X0 is None:
             if m is None or nx is None:
                 raise ValueError("Either X0 or (m, nx) must be supplied")
-            X0 = _randn((fleet, m, nx), generator, torch.get_default_dtype(),
-                        leaf.device)
+            f_tot, f_off = block or (fleet, 0)
+            X0 = _randn((f_tot, m, nx), generator, torch.get_default_dtype(),
+                        leaf.device)[f_off:f_off + fleet]
         m, nx = X0.shape[-2:]
         dtype, device = X0.dtype, X0.device
     _check(rr_method, m, nx, nev)
-    return _run(per_instance(A),
-                per_instance(B) if B is not None else (lambda S: S),
-                per_instance(T) if T is not None else (lambda S: S),
-                B is not None, X0=X0, fleet=fleet, m=m, nx=nx, nev=nev,
-                max_iterations=max_iterations, tau=tau, generator=generator,
-                user_function=None, warm_start=warm_start, eigh_fn=eigh_fn,
-                rr_method=rr_method, dtype=dtype, device=device)
+    res = _run(per_instance(A),
+               per_instance(B) if B is not None else (lambda S: S),
+               per_instance(T) if T is not None else (lambda S: S),
+               B is not None, X0=X0, fleet=fleet, m=m, nx=nx, nev=nev,
+               max_iterations=max_iterations, tau=tau, generator=generator,
+               user_function=None, warm_start=warm_start, eigh_fn=eigh_fn,
+               rr_method=rr_method, dtype=dtype, device=device,
+               fleet_block=block)
+    if axis is None:
+        return res
+    from ..parallel.sharding import _all_gather_batch
+    return _all_gather_batch(res, axis)

@@ -59,13 +59,22 @@ def _polar_retract(x, v):
     orthonormal for ANY ambient V: a trust-region step that carries a small
     non-tangent part still lands on the manifold.  bf16 storage: the whole
     computation runs in f32 and only the factor is cast back, so the stored
-    iterate is one bf16 rounding from orthonormal."""
+    iterate is one bf16 rounding from orthonormal.
+
+    A non-finite step gives a non-finite point (NaN), as JAX's eigh does,
+    where ``torch.linalg.eigh`` would raise: TNT's gain ratio then rejects
+    it and shrinks the radius."""
     y = _acc(x) + _acc(v)
     g = _mm(y.mT, y)
     g = 0.5 * (g + g.mT)
+    finite = torch.isfinite(g).all(dim=-1, keepdim=True).all(
+        dim=-2, keepdim=True)
+    g = torch.where(finite, g, torch.eye(g.shape[-1], dtype=g.dtype,
+                                         device=g.device))
     w, q = torch.linalg.eigh(g)
     w = torch.clamp(w, min=torch.finfo(g.dtype).tiny)
     inv_sqrt = _mm(q * (1.0 / torch.sqrt(w))[..., None, :], q.mT)
+    inv_sqrt = torch.where(finite, inv_sqrt, float("nan"))
     return _mm(y, inv_sqrt).to(x.dtype)
 
 

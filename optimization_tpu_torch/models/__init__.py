@@ -1,1 +1,2 @@
-from . import graph, matrix_completion, rotation_sync
+from . import (graph, matrix_completion, pose_sync, range_sync,
+               rotation_sync)

@@ -25,8 +25,9 @@ What differs from the JAX module:
   full f32 (nothing here turns TF32 on).
 - Indices are int64 on the data's device; ``random_instance`` and
   ``random_fleet`` make their data on the card unless told otherwise.
-- ``random_fleet`` makes the data only (a fleet solve waits for batched
-  TNT).
+- ``random_fleet`` makes the data only; its fleet is solved instance by
+  instance (``parallel.sharding.batch_sharded_solve``), where JAX vmaps
+  one solve.
 - ``jnp.median`` averages the two middle values of an even count where
   ``torch.median`` returns the lower one; the GNC scales go through
   :func:`_median`, which matches ``jnp.median``.
@@ -172,7 +173,7 @@ def random_fleet(generator: Optional[torch.Generator], B: int, n: int,
                  dtype=torch.float32, device=None):
     """B instances sharing ONE edge topology: ``(R_trues, data)`` with
     ``R_trues`` (B, n, d, d) and ``data.Rij`` (B, E, d, d).  The data only:
-    the port has no batched fleet solve yet."""
+    solve it with ``parallel.sharding.batch_sharded_solve``."""
     gen = _generator(generator, device)
     out = gen.device if device is None else torch.device(device)
     src, dst = _chain_plus_random(gen, n, extra_edges)
@@ -262,7 +263,16 @@ def spectral_init(data: RotationSyncData, n: int, d: int = 3,
                      device=gen.device).to(dev)
     res = lobpcg(L, X0=X0, nev=d, max_iterations=max_iterations, tau=tau,
                  generator=gen, rr_method=rr_method)
-    R = _orthonormalize(res.X.reshape(n, d, d))
+    blocks = res.X.reshape(n, d, d)
+    R = _orthonormalize(blocks)
+    # a block of lower rank (a vertex where the eigenvectors nearly vanish,
+    # as on a long chain in f32) has no inverse square root: its eigh
+    # polar factor is NaN, as in JAX; the SVD's polar factor U V' is
+    # defined for every block and replaces it (ROADMAP Queue 3)
+    bad = ~torch.isfinite(R).all(dim=-1).all(dim=-1)
+    if bool(bad.any()):
+        U, _, Vh = torch.linalg.svd(torch.nan_to_num(blocks[bad]))
+        R[bad] = U @ Vh
     # land in SO(d): negating column 0 of a block is a right multiplication
     # by diag(-1, 1, ..), so per-block flips stay consistent up to gauge
     det = torch.linalg.det(R)

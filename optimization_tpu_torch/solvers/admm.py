@@ -36,8 +36,8 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
-from ..core.tree import (tree_axpy, tree_dot, tree_map, tree_sub, tree_where,
-                         tree_zeros_like)
+from ..core.tree import (local_scalar, tree_axpy, tree_dot, tree_map,
+                         tree_sub, tree_where, tree_zeros_like)
 from ..core.types import (ADMMIterationType, ADMMStatus, OptimizerParams,
                           trace_fill)
 
@@ -108,11 +108,13 @@ class ADMMProblem:
     inner_x: Optional[Callable[..., Any]] = None
     inner_r: Optional[Callable[..., Any]] = None
 
+    # inner products of sharded (``DTensor``) blocks come back as plain
+    # scalars, which every rank holds (``core.tree.local_scalar``)
     def ipx(self, u, v):
-        return (self.inner_x or tree_dot)(u, v)
+        return local_scalar((self.inner_x or tree_dot)(u, v))
 
     def ipr(self, u, v):
-        return (self.inner_r or tree_dot)(u, v)
+        return local_scalar((self.inner_r or tree_dot)(u, v))
 
 
 class ADMMResult(NamedTuple):

@@ -21,8 +21,10 @@ Functional contract (the reference's, as in the JAX package):
   slot lies past the completed iterations the trace reports, so it is
   padding in both packages (``OPTTPU_DEBUG_NANS`` makes it 0.0 in both).
 
-Not ported: batching a fleet by ``jax.vmap(solve)``; solve instances one
-by one, or stack them in the problem's own batch dimension.
+A fleet (the JAX package's ``jax.vmap(solve)``) is a loop of solves, each
+rank of a batch mesh looping over its own instances:
+``parallel.sharding.batch_sharded_solve`` (the solve is an eager loop with
+host reads, which ``torch.vmap`` cannot batch).
 """
 
 from __future__ import annotations

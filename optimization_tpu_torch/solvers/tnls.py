@@ -27,8 +27,9 @@ Functional contract (the reference's, as in the JAX package):
 - the reference's parameter names and defaults (``TNLS.h:107-169``);
 - fixed-length traces, NaN-padded beyond ``num_iterations``.
 
-Not ported: batching a fleet by ``jax.vmap(solve)``; solve instances one by
-one.
+A fleet (the JAX package's ``jax.vmap(solve)``) is a loop of solves, each
+rank of a batch mesh looping over its own instances:
+``parallel.sharding.batch_sharded_solve``.
 """
 
 from __future__ import annotations

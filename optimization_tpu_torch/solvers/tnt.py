@@ -23,6 +23,10 @@ Functional contract (the reference's, as in the JAX package):
   stepsize, trust region, iteration limit, user function;
 - fixed-length traces, NaN-padded beyond ``num_iterations``.
 
+An iterate sharded as ``DTensor``s (``parallel.sharding``) runs unchanged:
+its objective values and inner products come back as plain scalars that
+every rank holds (``core.tree.local_scalar``).
+
 :func:`solve_escalated` runs TNT with dtype escalation (a low-precision
 storage stage until its floor, then a high-precision finish).
 """
@@ -35,7 +39,7 @@ from typing import Any, Callable, NamedTuple, Optional
 import torch
 
 from ..core.problem import RiemannianProblem
-from ..core.tree import tree_map, tree_where, tree_zeros_like
+from ..core.tree import local_scalar, tree_map, tree_where, tree_zeros_like
 from ..core.types import SmoothOptimizerParams, TNTStatus, trace_fill
 from ..linalg.stpcg import stpcg
 
@@ -174,10 +178,10 @@ def solve(
 
     def grad_and_norms(x):
         g = problem.rgrad(x, data)
-        gn = torch.sqrt(M.inner(x, g, g))
+        gn = torch.sqrt(local_scalar(M.inner(x, g, g)))
         if problem.precon is not None:
             pg = problem.apply_precon(x, g, data)
-            pgn = torch.sqrt(M.inner(x, pg, pg))
+            pgn = torch.sqrt(local_scalar(M.inner(x, pg, pg)))
         else:
             pgn = gn
         return g, gn, pgn
@@ -199,7 +203,7 @@ def solve(
             aux = out0[4]
     else:
         x = x0
-        f = torch.as_tensor(problem.value(x0, data))
+        f = local_scalar(problem.value(x0, data))
         grad, gradnorm, pgradnorm = grad_and_norms(x0)
     dtype, dev = f.dtype, f.device
     finfo = torch.finfo(dtype)
@@ -252,7 +256,7 @@ def solve(
 
         # ---- do_iter ----
         ridx = k - 1
-        inner = lambda u, v, x=x: M.inner(x, u, v)
+        inner = lambda u, v, x=x: local_scalar(M.inner(x, u, v))
 
         # STEP 2: trust-region subproblem (reference TNT.h:489-492)
         use_flat = problem.flat_qm is not None and (
@@ -308,7 +312,7 @@ def solve(
         else:
             aux_prop = None
             x_prop = M.retract(x, h)
-            fx_prop = torch.as_tensor(problem.value(x_prop, data))
+            fx_prop = local_scalar(problem.value(x_prop, data))
         df = f - fx_prop
         relative_decrease = df / (sqrt_eps + torch.abs(f))
         rho = df / dm

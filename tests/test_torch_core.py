@@ -184,6 +184,8 @@ STILL_MISSING = {
     "solvers": set(),
     "core": set(),
     "linalg": set(),
+    "models": set(),
+    "parallel": set(),
 }
 
 
@@ -221,6 +223,21 @@ def test_public_names_match_the_jax_package(sub):
         for n in ("driver", "Stopwatch", "CompositeProblem",
                   "RiemannianProblem", "LeastSquaresProblem"):
             assert n in T
+
+
+@pytest.mark.parametrize("module", [
+    "models.range_sync", "parallel.mesh", "parallel.sharding",
+    "parallel.collectives", "parallel.consensus"])
+def test_module_all_matches_the_jax_package(module):
+    """Each module of the last slice has the JAX module's ``__all__``
+    (``collectives.ring_gram`` included), and binds every name in it."""
+    import importlib
+
+    J = importlib.import_module("optimization_tpu." + module)
+    T = importlib.import_module("optimization_tpu_torch." + module)
+    assert list(T.__all__) == list(J.__all__)
+    for name in T.__all__:
+        assert hasattr(T, name), name
 
 
 def test_tree_axpy_like_keeps_storage_dtype():

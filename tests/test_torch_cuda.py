@@ -907,3 +907,54 @@ def test_laplacian_solver_on_card_matches_cpu(dev, engine):
     rel = torch.linalg.vector_norm(zs[1] - zs[0]) / torch.linalg.vector_norm(
         zs[0])
     assert float(rel) < 1e-4
+
+
+def test_sharded_gram_pair_launches_the_kernel_at_world_one(dev):
+    """``parallel.collectives.sharded_gram_pair`` on a one-rank NCCL mesh:
+    the local pair is one ``gram_pair`` launch, held against the plain
+    version (chip_smoke.GRAM_TOLERANCES), then one all-reduce."""
+    import torch.distributed as dist
+
+    from optimization_tpu_torch.parallel import collectives, model_mesh
+
+    fresh = not dist.is_initialized()
+    mesh = model_mesh(1)
+    try:
+        assert dist.get_backend() == "nccl"
+        gen = torch.Generator(device=dev).manual_seed(9)
+        S, AS, BS = (torch.randn(1000, 24, generator=gen, device=dev)
+                     for _ in range(3))
+        before = F.gram_pair.launches
+        ga, gb = collectives.sharded_gram_pair(S, AS, BS, mesh)
+        assert F.gram_pair.launches == before + 1
+        for got, ref, X in zip((ga, gb), F.gram_pair_reference(S, AS, BS),
+                               (AS, BS)):
+            tol = 1e-5 * (S.double().abs().mT @ X.double().abs())
+            assert bool(((got.double() - ref.double()).abs() <= tol).all())
+        same = collectives.sharded_gram_pair(S, AS, BS, mesh)
+        assert torch.equal(same[0], ga) and torch.equal(same[1], gb)
+    finally:
+        if fresh:
+            dist.destroy_process_group()
+
+
+def test_range_sync_f32_pipeline_on_the_card(dev):
+    """Range-aided pose sync at n = 200 in f32 with no generator and no
+    device: the instance is made on the card, the spectral init launches
+    ``gram_pair``, the joint TNT converges to the f32 tier's floor."""
+    from optimization_tpu_torch.models import range_sync as rg
+    from optimization_tpu_torch.models.pose_sync import alignment_errors
+
+    R_true, t_true, data = rg.random_instance(None, 200, 3, extra_edges=200,
+                                              n_ranges=200, noise=0.0)
+    assert data.src.device.type == "cuda" and data.src.dtype == torch.int64
+    before = F.gram_pair.launches
+    out = rg.solve_range_aided(data, 200)
+    assert F.gram_pair.launches > before
+    assert out.R.device.type == "cuda" and out.R.dtype == torch.float32
+    assert float(out.t[0].abs().max()) == 0.0
+    assert float((torch.linalg.vector_norm(out.u, dim=-1) - 1).abs().max()) \
+        < 1e-5
+    rot_err, t_err = alignment_errors(out.R, out.t, R_true,
+                                      t_true - t_true[0][None])
+    assert float(rot_err) < 1e-3 and float(t_err) < 1e-2

@@ -270,3 +270,21 @@ def test_product_manifold_tnt_matches_jax():
     for t, j in zip(tres.x, jres.x):
         np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=1e-10)
     np.testing.assert_allclose(tres.x[0].numpy(), P_np, atol=1e-8)
+
+
+def test_polar_retract_of_a_nan_step_is_nan_as_in_jax():
+    """A non-finite step: JAX's eigh returns NaN, ``torch.linalg.eigh``
+    raises; the port's retraction returns NaN for those blocks (TNT's gain
+    ratio then rejects the point) and the others unchanged."""
+    rng = np.random.default_rng(3)
+    x = np.linalg.qr(rng.normal(size=(5, 3, 3)))[0]
+    v = 0.1 * rng.normal(size=(5, 3, 3))
+    v[2, 0, 1] = np.nan
+    got = ROTATIONS.retract(torch.from_numpy(x), torch.from_numpy(v)).numpy()
+    ref = np.asarray(jrotations().retract(jnp.asarray(x), jnp.asarray(v)))
+    assert np.isnan(got[2]).all() and np.isnan(ref[2]).all()
+    keep = [0, 1, 3, 4]
+    np.testing.assert_allclose(got[keep], ref[keep], atol=1e-13)
+    clean = ROTATIONS.retract(torch.from_numpy(x[keep]),
+                              torch.from_numpy(v[keep])).numpy()
+    np.testing.assert_array_equal(got[keep], clean)

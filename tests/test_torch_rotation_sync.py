@@ -278,3 +278,35 @@ def test_solve_robust_matches_jax(monkeypatch):
     inlier = np.ones(E, bool)
     inlier[out_idx] = False
     assert np.median(w[~inlier]) < 0.1 * np.median(w[inlier])
+
+
+def test_spectral_init_rank_deficient_block_is_a_rotation(monkeypatch):
+    """A vertex whose eigenvector block has lower rank (on a long chain in
+    f32 LOBPCG can leave one): JAX's eigh polar factor is NaN there (a
+    fault of the reference, ROADMAP Queue 3); the port takes the SVD's
+    polar factor for that block and leaves every other block as JAX's."""
+    import importlib
+
+    L = importlib.import_module("optimization_tpu_torch.linalg.lobpcg")
+    n, d = 6, 3
+    X = torch.from_numpy(np.random.default_rng(2).normal(size=(n * d, d)))
+    X[3 * d:4 * d] = torch.outer(torch.tensor([1.0, 2.0, 3.0]),
+                                 torch.tensor([0.5, -1.0, 2.0]))   # rank 1
+    monkeypatch.setattr(L, "lobpcg", lambda *a, **k: L.LOBPCGResult(
+        theta=None, X=X, num_iterations=None, num_converged=None,
+        residual_norms=None))
+    _, data = rs.random_instance(torch.Generator().manual_seed(1), n, d,
+                                 dtype=torch.float64, device="cpu")
+    R = rs.spectral_init(data, n, d, generator=torch.Generator())
+    assert bool(torch.isfinite(R).all())
+    eye = torch.eye(d, dtype=R.dtype)
+    np.testing.assert_allclose((R[3].mT @ R[3]).numpy(), eye.numpy(),
+                               atol=1e-12)
+    assert float(torch.linalg.det(R[3])) > 0
+    ref = np.asarray(jrs._orthonormalize(jnp.asarray(X.numpy().reshape(
+        n, d, d))))
+    assert np.isnan(ref[3]).any()
+    keep = [0, 1, 2, 4, 5]
+    ref = ref[keep]
+    ref[..., 0] *= np.where(np.linalg.det(ref) < 0, -1.0, 1.0)[:, None]
+    np.testing.assert_allclose(R.numpy()[keep], ref, atol=1e-12)

@@ -18,11 +18,17 @@ non-zero exit and no result line:
    storage dtype x body x init x Delta x fixture, then its preconditioned
    variant over P (the shifted-Jacobi powers e = 1/2 and 1/4, a stored P
    unrelated to the diagonal) x storage dtype x body x Delta, each plus a
-   bitwise repeat;
+   bitwise repeat; then the general rank (``GEN_OPS``: K = 1, 3, 4 with
+   every term form -- generated, stored, wrapped callable) over n x storage
+   dtype x body x init x Delta, and every ``prec_chunk`` form (the
+   JacobiPower on A0, a stored P, a wrapped callable's P) at each K, each
+   case launched twice and the two bit for bit equal;
 4. main path: the headline TNT solve (``optimization_tpu_torch/headline.py``)
    at n = 2^24 in both tiers, the f32 tier through the kernel (its launch
    count checked against the subproblems solved), then the f32 tier again
-   with the plain version in the kernel's place;
+   with the plain version in the kernel's place; the 50-CG subproblem's
+   time is printed beside the 7.36-7.46 ms the kernel took before it took
+   any rank k;
 5. fused kernel parity: ``cg_dots``, ``axpy_selfdot``,
    ``diag_stencil_matvec`` and ``affine_stencil_matvec`` against their
    plain versions (and the reductions against a float64 sum) at
@@ -173,7 +179,16 @@ non-zero exit and no result line:
    through the host), held to the world-1 results where gloo takes CUDA
    tensors; every ``gram_pair`` launch of phases 22-23 held against the
    plain version on its own inputs;
-24. each streaming kernel's GB/s as a fraction of the measured ceiling, the
+24. the kernel at rank K = 1, 3, 4: one 50-CG subproblem each at n = 2^24
+   f32 (K = 1 and 4 on a kappa ~ 1000 operator, K = 3 the rank-3 TNT's own
+   subproblem at its 11th outer iteration), held against the plain version
+   and timed beside its bytes bound; then the rank-3 TNT (``Rank3``: the
+   sphere Rayleigh quotient with a quartic term, k = 3) at n = 2^24,
+   ``headline.tier_params``, through the kernel (``flat_solve``) and the
+   eager flat engine (``flat_qm``), gated on equal statuses, f* within
+   1e-4 relative, CG within 10% and kernel launches = subproblems, CG it/s
+   printed for both;
+25. each streaming kernel's GB/s as a fraction of the measured ceiling, the
    kernel table as one JSON line (each kernel's launches on its path, its
    error, its time, its plain version's, its bound and the library call's,
    null where no single PyTorch call computes the function), then the
@@ -312,7 +327,7 @@ def init_group(torch, g, x, B, rq, diag):
     return flat_init_dots(g, A0, U, B)
 
 
-def check_parity(torch, res, ref, dtype, label, dit=None):
+def check_parity(torch, res, ref, dtype, label, dit=None, prec=False):
     """Kernel vs plain version, at the tolerances of tests/test_streamed_cg.py
     with the step held norm to norm, |s - s_ref| <= tol |s_ref| (2-norms;
     the worst case measured on the card is 7.5e-5 in f32, 1.7e-4 in bf16).
@@ -325,7 +340,14 @@ def check_parity(torch, res, ref, dtype, label, dit=None):
     the truncation threshold: counts within 1 (or ``dit``), s within 2e-3,
     M-norm and predicted decrease rtol 1e-3.  bf16 storage
     (test_bf16_storage_parity): counts within 3, s within 3e-2, M-norm rtol
-    3e-2.  Returns max |s - s_ref|."""
+    3e-2.  ``prec``: f32 with a preconditioner other than the sphere's
+    (phase 3's general cases) takes the tolerances of
+    tests/test_streamed_cg.py::test_prec_matches_xla_prec_engine at any
+    count: counts within 1 (or ``dit``), s within 3e-4, M-norm rtol 2e-4,
+    predicted decrease rtol 2e-3 (the kernel's round-to-nearest rsqrt and
+    CUDA's torch.rsqrt differ in the last bit of p, and a rank-3 P H P
+    carries that to 5.7e-5 of |s| within 8 iterations on an H100).
+    Returns max |s - s_ref|."""
     ki, kr = int(res.num_iterations), int(ref.num_iterations)
     s, s_ref = res.s.float(), ref.s.float()
     scale = max(float(torch.linalg.vector_norm(s_ref)), 1e-9)
@@ -336,6 +358,10 @@ def check_parity(torch, res, ref, dtype, label, dit=None):
     if dtype == torch.bfloat16:
         ok = (abs(ki - kr) <= 3 and rel <= 3e-2
               and abs(mn - mn_ref) <= 3e-2 * abs(mn_ref))
+    elif prec:
+        ok = (abs(ki - kr) <= (dit or 1) and rel <= 3e-4
+              and abs(mn - mn_ref) <= 2e-4 * abs(mn_ref)
+              and abs(pd - pd_ref) <= 2e-3 * abs(pd_ref) + 1e-8)
     elif max(ki, kr) <= SHORT and dit is None:
         ok = (ki == kr and rel <= 3e-5
               and abs(mn - mn_ref) <= 2e-5 * abs(mn_ref)
@@ -448,8 +474,159 @@ def parity_phase(torch, dev):
     if not same:
         raise AssertionError("two runs of one preconditioned subproblem "
                              "differ")
-    print(f"phase 3: {cases} cases + 2 bitwise repeats passed", flush=True)
+    gcases = general_parity(torch, dev)
+    print(f"phase 3: {cases} sphere cases + 2 bitwise repeats, {gcases} "
+          f"general cases (K = 1, 3, 4) each with a bitwise repeat passed",
+          flush=True)
 
+
+
+# ---- the general rank k (K = 1, 3, 4): phase 3's cases, phase 24 ----
+
+GEN_AUX = (0.5, 0.75)
+# (a0, weights) of phase 3's general cases: every term form among them
+# (the forms of tests/test_torch_streamed_cg.py); phase 24 times its own
+GEN_OPS = {1: ("affine", ("stored",)),
+           3: ("shifted", ("one", "twice", "fn")),
+           4: ("fn", ("one", "twice", "stored", "fn"))}
+GEN_PREC_FORMS = ("jacobi", "quarter", "stored", "fn")
+
+
+def gen_term(torch, form, n, dev, spread=8.0):
+    """A descriptor of one term: ``affine`` 1 + b i (b = spread / (n - 1)),
+    ``twice`` / ``shifted`` its ScaledDiagonal / ShiftedDiagonal,
+    ``stored`` 1 + (i mod 13)/4 as a tensor, ``fn`` 0.5 + aux[1] (i mod
+    97)/8 as a wrapped callable (an ElementwiseFn), ``one`` the weight 1."""
+    from optimization_tpu_torch.kernels.streamed_cg import (
+        AffineDiagonal, ElementwiseFn, ScaledDiagonal, ShiftedDiagonal)
+
+    aff = AffineDiagonal(1.0, spread / (n - 1))
+    if form == "stored":
+        return 1.0 + 0.25 * (torch.arange(n, device=dev) % 13).float()
+    if form == "fn":
+        return ElementwiseFn(
+            lambda i, aux: 0.5 + aux[1] * ((i % 97).float() / 8.0))
+    return {"one": None, "affine": aff, "twice": ScaledDiagonal(aff),
+            "shifted": ShiftedDiagonal(aff)}[form]
+
+
+def gen_args(torch, k, n, dtype, dev, seed=3):
+    """(g, x, B, aux) on the card: a unit g and x from a seeded generator,
+    B = 0.3 G G' / k (positive semi-definite)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    g = torch.randn(n, generator=gen, device=dev)
+    x = torch.randn(n, generator=gen, device=dev)
+    G = torch.randn(k, k, generator=gen, device=dev)
+    aux = tuple(torch.tensor(a, device=dev) for a in GEN_AUX)
+    return ((g / torch.linalg.vector_norm(g)).to(dtype),
+            (x / torch.linalg.vector_norm(x)).to(dtype), 0.3 * G @ G.T / k,
+            aux)
+
+
+def gen_init(torch, g, x, B, a0c, weights, aux):
+    """The threaded init group of the operator (the port's flat engine
+    helper on its materialized A0 and U)."""
+    from optimization_tpu_torch.kernels import streamed_cg as T
+    from optimization_tpu_torch.linalg.flat_cg import flat_init_dots
+
+    n, dev = g.shape[0], g.device
+    a0 = T._a0_values(a0c, n, aux, dev)
+    U = tuple(x.float() if w is None
+              else T._weight_values(w, n, aux, dev) * x.float()
+              for w in weights)
+    return flat_init_dots(g, lambda v: a0 * v.float(), U, B)
+
+
+def gen_prec(torch, form, a0c, aux, n, dev):
+    """(prec_chunk, prec) on the operator's A0: the JacobiPower (|a0| +
+    1)^(-1/2) or ^(-1/4), a stored P unrelated to A0 (1 + (i mod 13)/4)^
+    (-1/2), or a wrapped callable's (1 + aux[1] (i mod 5))^(-1/2)."""
+    from optimization_tpu_torch.kernels.streamed_cg import (
+        ElementwiseFn, JacobiPower, prec_map)
+
+    if form == "stored":
+        pc = torch.rsqrt(1.0 + 0.25 * (torch.arange(n, device=dev) % 13)
+                         .float())
+    elif form == "fn":
+        pc = ElementwiseFn(
+            lambda i, a: torch.rsqrt(1.0 + a[1] * (i % 5).float()))
+    else:
+        pc = JacobiPower(1.0, 0.5 if form == "jacobi" else 0.25)
+    return pc, prec_map(pc, a0c, aux, n, dev)
+
+
+def bitwise_same(torch, r1, r2):
+    return (torch.equal(r1.s, r2.s)
+            and all(torch.equal(u, v) for u, v in zip(r1[1:], r2[1:])))
+
+
+def general_parity(torch, dev):
+    """Phase 3's general cases: the kernel at K = 1, 3, 4 against its plain
+    version over n x storage x body x init x Delta, then every prec_chunk
+    form; each case launched twice, the two bit for bit equal.  Returns the
+    number of cases."""
+    from optimization_tpu_torch.kernels.streamed_cg import (
+        stpcg_flat_streamed, stpcg_flat_streamed_reference)
+
+    cases = 0
+    kw = dict(max_iterations=300, kappa_fgr=1e-3, theta=0.9)
+    for k, n, dtype, body, with_init in itertools.product(
+            (1, 3, 4), N_PARITY, (torch.float32, torch.bfloat16),
+            ("pair", "single"), (False, True)):
+        g, x, B, aux = gen_args(torch, k, n, dtype, dev)
+        a0_form, w_forms = GEN_OPS[k]
+        a0c = gen_term(torch, a0_form, n, dev)
+        weights = tuple(gen_term(torch, f, n, dev) for f in w_forms)
+        init = (gen_init(torch, g, x, B, a0c, weights, aux) if with_init
+                else None)
+        # Delta 0.15 ends on the boundary after some interior iterations
+        for Delta in ((1e6, 0.15) if dtype == torch.float32
+                      else (1.0, 0.15)):
+            args = (g, x, B, Delta, aux)
+            kwargs = dict(kw, a0_chunk=a0c, weights=weights, body_kind=body,
+                          init=init)
+            res = stpcg_flat_streamed(*args, **kwargs)
+            again = stpcg_flat_streamed(*args, **kwargs)
+            ref = stpcg_flat_streamed_reference(*args, **kwargs)
+            torch.cuda.synchronize()
+            label = (f"K={k} {a0_form}/{','.join(w_forms)} n={n} "
+                     f"{str(dtype)[6:]} {body} init={int(with_init)} "
+                     f"Delta={Delta:g}")
+            check_parity(torch, res, ref, dtype, label)
+            if not bitwise_same(torch, res, again):
+                raise AssertionError(f"two launches differ: {label}")
+            cases += 1
+    # every prec_chunk form; a stored or wrapped P unrelated to A0 conditions
+    # P H P worse, and is held as the sphere's stored P above (counts within
+    # 3, the long-run tolerances: the sums' order alone moves the count,
+    # 26/25 at K = 3, n = 2^20 on an H100); the JacobiPower at the
+    # preconditioned tolerances of check_parity(prec=True)
+    for k, n, dtype, form in itertools.product(
+            (1, 3, 4), N_PARITY, (torch.float32, torch.bfloat16),
+            GEN_PREC_FORMS):
+        g, x, B, aux = gen_args(torch, k, n, dtype, dev, seed=5)
+        a0_form, w_forms = GEN_OPS[k]
+        a0c = gen_term(torch, a0_form, n, dev)
+        weights = tuple(gen_term(torch, f, n, dev) for f in w_forms)
+        pc, pmap = gen_prec(torch, form, a0c, aux, n, dev)
+        body = "pair" if n == N_PARITY[0] else "single"
+        for Delta in ((1e6, 0.15) if dtype == torch.float32 else (0.15,)):
+            args = (g, x, B, Delta, aux)
+            kwargs = dict(kw, a0_chunk=a0c, weights=weights, body_kind=body,
+                          prec_chunk=pc, prec=pmap)
+            res = stpcg_flat_streamed(*args, **kwargs)
+            again = stpcg_flat_streamed(*args, **kwargs)
+            ref = stpcg_flat_streamed_reference(*args, **kwargs)
+            torch.cuda.synchronize()
+            label = (f"K={k} prec {form} n={n} {str(dtype)[6:]} {body} "
+                     f"Delta={Delta:g}")
+            unrelated = form in ("stored", "fn")
+            check_parity(torch, res, ref, dtype, label,
+                         dit=3 if unrelated else None, prec=not unrelated)
+            if not bitwise_same(torch, res, again):
+                raise AssertionError(f"two launches differ: {label}")
+            cases += 1
+    return cases
 
 def time_ms(torch, fn, reps):
     """Mean milliseconds per call by CUDA events (after one warm call).
@@ -519,7 +696,8 @@ def main_path_phase(torch, dev, label):
     gbytes = 6 * its * n * 4 / 1e9
     print(f"  subproblem ({its} CG it): kernel {ms:.3f} ms "
           f"({its / ms * 1e3:.0f} CG it/s, ~{gbytes / ms * 1e3:.0f} GB/s "
-          f"at 6n words an iteration), plain {plain_ms:.3f} ms "
+          f"at 6n words an iteration; 7.36-7.46 ms on the same card model "
+          f"before the kernel took any rank k), plain {plain_ms:.3f} ms "
           f"[{label}]", flush=True)
 
     # warm-up of the bf16 tier (the f32 tier's ran above)
@@ -3369,6 +3547,208 @@ def gloo_rank_main(rank, world, tmp):
         print(json.dumps(out), flush=True)
 
 
+
+# ---- the rank-3 path (phase 24) ----
+
+R3_MU = 10.0
+# headline.tier_params (at most 30 outer, <= 50 CG each) with |grad| <=
+# 2e-2, which stops tests/test_torch_streamed_cg.py's n = 8192 solve before
+# f32's floor (where the two engines' late subproblems part); at n = 2^24
+# both engines run to the 30-outer cap (|grad| 0.18 on an H100)
+R3_GRAD_TOL = 2e-2
+
+
+class Rank3:
+    """The rank-3 problem of tests/test_torch_streamed_cg.py at size n on
+    the card: f(x) = <x, a x> + (mu/4) q^2, q = <x, c x>, a = 1 + 999 i /
+    (n - 1) (kappa = 1000), c uniform in [0, 1) from a seeded generator on
+    the card, mu = 10.  Its projected Hessian is A0 + U B U' with A0 = 2a
+    + mu q c - lam, U = (x, a x, c x): k = 3, a0 a wrapped callable of aux
+    = (lam, q), weights (None, a, stored c)."""
+
+    def __init__(self, torch, n, dev, seed=13):
+        from optimization_tpu_torch.kernels.streamed_cg import (
+            AffineDiagonal, ElementwiseFn)
+
+        self.torch, self.n = torch, n
+        self.diag = AffineDiagonal(1.0, 999.0 / (n - 1))
+        self.a = self.diag.values(n, dev)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        self.c = torch.rand(n, generator=gen, device=dev)
+        a, c = self.a, self.c
+        self.a0fn = ElementwiseFn(
+            lambda i, aux: 2.0 * a + (R3_MU * aux[1]) * c - aux[0])
+        self.weights = (None, self.diag, self.c)
+
+    def operator(self, x):
+        """(B, lam, q) at the unit x."""
+        torch, a, c = self.torch, self.a, self.c
+        q = torch.dot(x, c * x)
+        lam = torch.dot(x, (2.0 * a + R3_MU * q * c) * x)
+        z = torch.zeros_like(q)
+        B = torch.stack([
+            torch.stack([2.0 * lam + 2.0 * R3_MU * q * q, z - 2.0,
+                         -3.0 * R3_MU * q]),
+            torch.stack([z - 2.0, z, z]),
+            torch.stack([-3.0 * R3_MU * q, z, z + 2.0 * R3_MU])])
+        return B, lam, q
+
+    def problem(self, engine):
+        """The RiemannianProblem: ``streamed`` (the kernel through
+        ``flat_solve``) or ``flat`` (the eager flat engine through
+        ``flat_qm``)."""
+        from optimization_tpu_torch.core.problem import RiemannianProblem
+        from optimization_tpu_torch.kernels.streamed_cg import (
+            stpcg_flat_streamed)
+        from optimization_tpu_torch.manifolds.sphere import sphere
+
+        torch, a, c, M = self.torch, self.a, self.c, sphere()
+
+        def f(x, _):
+            q = torch.dot(x, c * x)
+            return torch.dot(x, a * x) + 0.25 * R3_MU * q * q
+
+        def grad(x, _):
+            q = torch.dot(x, c * x)
+            return M.proj(x, (2.0 * a + R3_MU * q * c) * x)
+
+        def flat_solve(g, x, _, aux, Delta, params):
+            B, lam, q = self.operator(x)
+            return stpcg_flat_streamed(
+                g, x, B, Delta, (lam, q), a0_chunk=self.a0fn,
+                weights=self.weights,
+                max_iterations=params.max_TPCG_iterations,
+                kappa_fgr=params.kappa_fgr, theta=params.theta)
+
+        def flat_qm(x, _, aux=None):
+            B, lam, q = self.operator(x)
+            a0 = 2.0 * a + (R3_MU * q) * c - lam
+            return (lambda v: a0 * v), (x, a * x, c * x), B
+
+        if engine == "streamed":
+            return RiemannianProblem(f=f, manifold=M, grad=grad,
+                                     flat_solve=flat_solve)
+        return RiemannianProblem(f=f, manifold=M, grad=grad, flat_qm=flat_qm)
+
+
+def timed_subproblem(torch, label, tag, args, kw, words_it, words_once,
+                     k):
+    """One subproblem: the kernel held against its plain version, then
+    both timed by CUDA events; (its, err, ms, plain_ms, bound_ms, bound_by).
+    The bound: words_it n-words an iteration (6 for the pair body, plus one
+    for each stored or wrapped term) and words_once n-words once (a wrapped
+    callable's evaluation), ~20 + 4K f32 operations an element an
+    iteration."""
+    from optimization_tpu_torch.kernels.streamed_cg import (
+        stpcg_flat_streamed, stpcg_flat_streamed_reference)
+
+    n = args[0].shape[0]
+    res = stpcg_flat_streamed(*args, **kw)
+    ref = stpcg_flat_streamed_reference(*args, **kw)
+    err = check_parity(torch, res, ref, torch.float32, tag)
+    its = int(res.num_iterations)
+    ms = time_ms(torch, lambda: stpcg_flat_streamed(*args, **kw), 10)
+    plain_ms = time_ms(torch,
+                       lambda: stpcg_flat_streamed_reference(*args, **kw), 3)
+    nbytes = (words_it * its + words_once) * n * 4
+    bound_ms, bound_by = bound(nbytes, (20.0 + 4.0 * k) * n * its)
+    print(f"  {tag}: {its} CG it, kernel {ms:.3f} ms = "
+          f"{ms / max(its, 1):.4f} ms an iteration, plain {plain_ms:.3f} ms, "
+          f"bound {bound_ms:.4f} ms ({bound_by}: ({words_it} its + "
+          f"{words_once}) n words), {bound_ms / ms:.3f} of it [{label}]",
+          flush=True)
+    return its, err, ms, plain_ms, bound_ms, bound_by
+
+
+def general_phase(torch, dev, label):
+    """Phase 24: the kernel at K = 1, 3, 4 on one 50-CG subproblem at
+    n = 2^24 f32, each beside its bytes bound, then the rank-3 TNT at
+    n = 2^24 through the kernel and through the eager flat engine.  Returns
+    the rank-3 kernel's entry of the kernels line."""
+    from optimization_tpu_torch import headline as H
+    from optimization_tpu_torch.core.types import TNTStatus
+    from optimization_tpu_torch.kernels.streamed_cg import (
+        AffineDiagonal, stpcg_flat_streamed)
+
+    n = N_MAIN
+    print(f"phase 24: the kernel at rank K = 1, 3, 4 (50-CG subproblems, "
+          f"n = 2^24 f32) and the rank-3 TNT at n = 2^24 [{label}]",
+          flush=True)
+    # K = 1 and 4: a positive-definite operator with kappa ~ 1000 at a
+    # random point and no truncation (kappa_fgr = 0): 50 interior steps
+    wide = AffineDiagonal(1.0, 999.0 / (n - 1))
+    fixed = dict(max_iterations=50, kappa_fgr=0.0, theta=0.5)
+    for k, weights, words_it, words_once in (
+            (1, (None,), 6, 0),
+            (4, tuple(gen_term(torch, f, n, dev)
+                      for f in ("one", "twice", "stored", "fn")), 8, 1)):
+        g, x, B, aux = gen_args(torch, k, n, torch.float32, dev, seed=7)
+        timed_subproblem(torch, label, f"K={k} subproblem",
+                         (g, x, B, 1e6, aux),
+                         dict(fixed, a0_chunk=wide, weights=weights),
+                         words_it, words_once, k)
+
+    # K = 3: the rank-3 TNT's own subproblem at its 11th outer iteration
+    r3 = Rank3(torch, n, dev)
+    probs = {name: r3.problem(name) for name in ("streamed", "flat")}
+    params = H.tier_params(R3_GRAD_TOL)
+    x0 = H.initial_point(n, torch.float32, dev, 5)
+    k_mid = 10
+    mid = H.run_tier(probs["streamed"], x0,
+                     H.tier_params(R3_GRAD_TOL, max_iterations=k_mid))
+    x = mid.result.x
+    B, lam, q = r3.operator(x)
+    g = probs["streamed"].rgrad(x)
+    kw3 = dict(a0_chunk=r3.a0fn, weights=r3.weights, max_iterations=50,
+               kappa_fgr=params.kappa_fgr, theta=params.theta)
+    its3, err3, ms3, plain3, bound3, by3 = timed_subproblem(
+        torch, label, f"K=3 rank-3 subproblem (outer {k_mid + 1})",
+        (g, x, B, mid.result.trust_region_radius[k_mid], (lam, q)), kw3,
+        8, 1, 3)
+
+    for prob in probs.values():            # warm-up: first launches
+        H.run_tier(prob, x0, H.tier_params(0.0, max_iterations=1))
+    # ---- the rank-3 path's run: the count starts at 0 here ----
+    stpcg_flat_streamed.launches = 0
+    kr = H.run_tier(probs["streamed"], x0, params)
+    launches = stpcg_flat_streamed.launches
+    # ---- end of the run ----
+    fr = H.run_tier(probs["flat"], x0, params)
+    for name, t in (("kernel, flat_solve", kr), ("eager flat engine, "
+                                                  "flat_qm", fr)):
+        print(f"  rank-3 TNT ({name}): {t.outer} outer / {t.inner} CG in "
+              f"{t.seconds:.3f} s = {t.cg_per_s:.0f} CG it/s, f* = "
+              f"{t.fstar:.7f}, |g| = {float(t.result.gradfx_norm):.3e}, "
+              f"{TNTStatus(int(t.result.status)).name} [{label}]",
+              flush=True)
+    subproblems = kr.outer - int(int(kr.result.status) in (
+        TNTStatus.GRADIENT, TNTStatus.PRECONDITIONED_GRADIENT))
+    xs = kr.result.x
+    ok = (int(kr.result.status) == int(fr.result.status)
+          and abs(kr.fstar - fr.fstar) <= 1e-4 * abs(fr.fstar)
+          and abs(kr.inner - fr.inner) <= 0.1 * max(kr.inner, fr.inner)
+          and launches == subproblems and math.isfinite(kr.fstar)
+          and bool(torch.isfinite(xs).all())
+          and abs(float(torch.linalg.vector_norm(xs)) - 1.0) < 1e-2)
+    if not ok:
+        for name, t in (("kernel", kr), ("flat", fr)):
+            print(f"  {name}: |g| {t.result.gradient_norms[:t.outer + 1]}"
+                  f", CG {t.result.inner_iterations[:t.outer]}", flush=True)
+        raise AssertionError(
+            f"rank-3 TNT: status {int(kr.result.status)}/"
+            f"{int(fr.result.status)}, f* {kr.fstar}/{fr.fstar}, CG "
+            f"{kr.inner}/{fr.inner}, launches {launches} for {subproblems} "
+            f"subproblems")
+    print(f"  gates passed: statuses equal, |df*| = "
+          f"{abs(kr.fstar - fr.fstar):.3e} within 1e-4 relative, CG within "
+          f"10%, kernel launches {launches} = subproblems", flush=True)
+    return {"name": "stpcg_flat_streamed[k=3]", "route": "cuda",
+            "source": "optimization_tpu_torch/csrc/streamed_cg.cu",
+            "replaces": "optimization_tpu/kernels/streamed_cg.py:95",
+            "launches": launches, "max_abs_err": err3, "ms": ms3,
+            "plain_ms": plain3, "bound_ms": bound3, "bound_by": by3,
+            "library_ms": None}
+
 def ceiling_summary(ceiling, rates, label):
     print(f"bandwidth ceiling: stream3_probe {ceiling:.0f} GB/s at n = 2^24 "
           f"f32 [{label}]", flush=True)
@@ -3468,6 +3848,7 @@ def main():
         raise AssertionError("gram_pair in phases 22-23: a launch was not "
                              "held, or disagrees with its plain version")
     errs7["gram_pair"] = max(errs7["gram_pair"], held["err"])
+    rank3_kernel = general_phase(torch, dev, label)
     ceiling_summary(ceiling, {"stpcg_flat_streamed": streamed_gbs,
                               "stpcg_flat_streamed[prec]": prec_gbs,
                               **rates, **graph_rates}, label)
@@ -3482,7 +3863,8 @@ def main():
         **times7[name]}
         for name in ("gram_pair", "stream3_probe")]
     print(json.dumps({"kernels": [kernel] + fused_kernels + new_kernels
-                      + [prec_kernel] + probe_kernels + [chunk_kernel]}))
+                      + [prec_kernel] + probe_kernels + [chunk_kernel]
+                      + [rank3_kernel]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -3,25 +3,36 @@
 // Replaces optimization_tpu/kernels/streamed_cg.py:_mk_kernel (the Pallas
 // TPU kernel behind stpcg_flat_streamed).  One launch solves one
 // Steihaug-Toint trust-region subproblem  min <g,s> + 1/2 <s,Hs>, |s| <= Delta
-// for H = A0 + U B U' with
+// for H = A0 + U B U' of any rank K <= 4 (a template parameter), with
 //
-//   a(i)  = a_c + a_b * i (regenerated in registers, f32) or a stored f32
-//           diagonal,
-//   A0    = diag(2 a - aux0),   U = (x, 2 a .* x),   B any 2x2,
+//   A0    = diag(a0),   U = (w_1 .* x, ..., w_K .* x),   B any K x K,
 //
-// using the Chronopoulos-Gear recurrences of the Pallas kernel: one fused
-// pass over r, p, x (+ s on applying halves) and ONE grid-wide reduction per
-// CG iteration, the pair-deferred s update, the boundary sigma-step, the
-// kernel-of-H escape with descent alignment, and the truncation target
-// |r_k| <= |r_0| min(kappa, |r_0|^theta).
+// a0 and each w_j one per-element term t(i), described in Params:
+//   - the weight 1 (u_j = x; weights only);
+//   - c + b * i, regenerated in registers (f32, no fused multiply-add);
+//   - a stored f32 vector, read once a pass (16-byte loads);
+// each taken as t, 2t (the JAX package's ScaledDiagonal) or 2t - aux0 (its
+// ShiftedDiagonal).  The sphere Rayleigh family is K = 2 with a0 = 2a - aux0,
+// U = (x, 2a .* x): the same arithmetic, in the same order, as the kernel
+// that took that family alone.
+//
+// The loop follows the Chronopoulos-Gear recurrences of the Pallas kernel:
+// one fused pass over r, p, x (+ s on applying halves) and ONE grid-wide
+// reduction per CG iteration, the pair-deferred s update, the boundary
+// sigma-step, the kernel-of-H escape with descent alignment, and the
+// truncation target |r_k| <= |r_0| min(kappa, |r_0|^theta).  The K-vector
+// recurrences (m, mA, mB, mp) and the K x K products are loops over K
+// (:342-345, :411-415); the half's reduction group is 4 + K wide (rv, ar,
+// nr, pa, mA[K]) and the init pass's 3 + 2K + K(K+1)/2 (rv, ar, nr, m[K],
+// mA[K], the upper triangle of U'U; :206-256), 21 at K = 4.
 //
 // Optional elementwise preconditioner P = M^(-1/2) (the Pallas kernel's
 // prec_chunk folding, :110-138 and :206-209): the symmetric change of
 // variables s = P shat runs in registers -- ghat = p g in the init pass,
-// A0hat = p^2 a0, Uhat = (p x, p 2a x) in every pass -- so the trust region
+// A0hat = p^2 a0, uhat_j = (p w_j) x in every pass -- so the trust region
 // and the reported step norm are |s|_M and the truncation runs in
-// |r|_(M^-1).  p is either the shifted-Jacobi power
-// (|2a - aux0| + c)^(-1/2) or ^(-1/4), regenerated in registers (no bytes;
+// |r|_(M^-1).  p is either the shifted-Jacobi power (|a0| + c)^(-1/2) or
+// ^(-1/4) on A0's own diagonal, regenerated in registers (no bytes;
 // round-to-nearest __frsqrt_rn / __fsqrt_rn, the quarter power as
 // rsqrt(sqrt(d)) as the JAX package computes it), or a stored f32 vector
 // (one more read per pass).  The kernel un-transforms its own output,
@@ -31,13 +42,17 @@
 // moves 5n words on deferring halves (read r, p, x; write r, p) and 7n on
 // applying halves (+ read and write s), 6n on average: about 0.4 GB per
 // iteration at f32 and n = 2^24, against a few hundred flops per element.
-// The design answers that by touching each vector once per iteration
-// (q = Hp and the U columns are recomputed in registers, the diagonal is
-// regenerated, never read), 16-byte vector loads, and keeping the whole CG
-// loop inside one persistent cooperative launch, so no host round trip or
-// kernel boundary sits between iterations.  A generated preconditioner adds
-// no bytes (plus 2n for the un-transform tail, once per subproblem); a
-// stored one adds n words per pass.
+// Each stored term (a0, a weight, P) adds n f32 words a pass; a regenerated
+// one adds none.  The design answers that by touching each vector once per
+// iteration (q = Hp and the U columns are recomputed in registers, the
+// generated terms regenerated, never read), 16-byte vector loads, and
+// keeping the whole CG loop inside one persistent cooperative launch, so no
+// host round trip or kernel boundary sits between iterations.  A generated
+// preconditioner adds no bytes (plus 2n for the un-transform tail, once per
+// subproblem); a stored one adds n words per pass.  K is capped at 4 by the
+// register budget: the half's group holds K weight values for each of the
+// W elements of a 16-byte load beside the K-vector carry and the two K x K
+// matrices (the Python wrapper refuses K > 4 on the card).
 //
 // Structure: a persistent cooperative grid (co-resident blocks only) walks
 // the vectors with grid-stride loops.  Each half reduces its per-thread f32
@@ -65,30 +80,55 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-// Widest reduction group: the init pass (rv, ar, nr, m[2], mA[2], UU upper).
-constexpr int kNacc = 10;
+constexpr int kMaxK = 4;
+
+// Reduction widths: the init pass (rv, ar, nr, m[K], mA[K], UU upper) and a
+// half (rv, ar, nr, pa, mA[K]); the scratch holds the wider per block.
+__host__ __device__ constexpr int init_width(int K) {
+  return 3 + 2 * K + K * (K + 1) / 2;
+}
+__host__ __device__ constexpr int nacc(int K) {
+  return init_width(K) > 4 + K ? init_width(K) : 4 + K;
+}
 
 // The preconditioner's form (template parameter PK of the kernel).
 constexpr int kPrecNone = 0;
-constexpr int kPrecJacobi = 1;   // p = (|2a - aux0| + c)^(-e), generated
+constexpr int kPrecJacobi = 1;   // p = (|a0| + c)^(-e), generated
 constexpr int kPrecStored = 2;   // p read from a stored f32 vector
+
+// A per-element term t(i) (a0 or a weight).
+constexpr int kTermOne = 0;      // the weight 1 (u = x); weights only
+constexpr int kTermStored = 2;   // ptr[i]; 1 is c + b * i, regenerated
+constexpr int kFormSelf = 0;     // t
+constexpr int kFormTwice = 1;    // 2t
+constexpr int kFormShift = 2;    // 2t - aux0
+
+// Layout shared with the ctypes Structure in kernels/streamed_cg.py.
+struct Term {
+  const float* ptr;
+  float c;
+  float b;
+  int mode;
+  int form;
+};
 
 struct Params {
   const void* g;
   const void* x;
-  const float* diag;     // stored diagonal a, or nullptr for a_c + a_b * i
+  Term a0;
+  Term w[kMaxK];
   const float* prec;     // stored p (kPrecStored)
   float prec_c;          // c of the generated p
   int prec_quarter;      // e = 1/4 (else e = 1/2)
   void* s;
   void* r;
   void* p;
-  const float* scal;     // Delta, aux0, B00, B01, B10, B11, init group (10)
+  const float* scal;     // Delta, aux[n_aux], threaded init group
+  int n_aux;
+  const float* B;        // K x K, row-major
   float* res;            // k, boundary, |s|^2, model value
-  double* partial;       // [2][gridDim.x][kNacc]
+  double* partial;       // [2][gridDim.x][nacc(K)]
   long long n;
-  float a_c;
-  float a_b;
   int max_iterations;
   float kappa_fgr;
   float theta;
@@ -97,65 +137,133 @@ struct Params {
   int with_init;
 };
 
-// The diagonal a(i) for W consecutive indices, exactly as f32 evaluates
-// a_c + a_b * f32(i) (no fused multiply-add, so it matches the plain
-// version's separate multiply and add).
+// W consecutive f32 values of a stored vector (16-byte loads; 0 past n).
 template <int W>
-__device__ __forceinline__ void diag_group(const Params& P, long long i,
-                                           float (&a)[W]) {
-  if (P.diag != nullptr) {
+__device__ __forceinline__ void load_f32(const float* v, long long i,
+                                         long long n, float (&out)[W]) {
 #pragma unroll
-    for (int e = 0; e < W; ++e) a[e] = (i + e < P.n) ? P.diag[i + e] : 0.f;
-  } else {
+  for (int h = 0; h < W; h += 4) {
+    float q[4];
+    Store<float>::load(v, i + h, n, q);
 #pragma unroll
-    for (int e = 0; e < W; ++e)
-      a[e] = __fadd_rn(P.a_c, __fmul_rn(P.a_b, __ll2float_rn(i + e)));
+    for (int e = 0; e < 4; ++e) out[h + e] = q[e];
   }
 }
 
-// The preconditioner's diagonal p(i) for W consecutive indices, given the
-// group's diagonal a (kPrecJacobi) or read from the stored vector.
+// A term's t(i) for W consecutive indices: read, or exactly as f32
+// evaluates c + b * f32(i) (no fused multiply-add, so it matches the plain
+// version's separate multiply and add).
+template <int W>
+__device__ __forceinline__ void term_base(const Term& t, long long i,
+                                          long long n, float (&v)[W]) {
+  if (t.mode == kTermStored) {
+    load_f32<W>(t.ptr, i, n, v);
+  } else {
+#pragma unroll
+    for (int e = 0; e < W; ++e)
+      v[e] = __fadd_rn(t.c, __fmul_rn(t.b, __ll2float_rn(i + e)));
+  }
+}
+
+// t, 2t or 2t - aux0 of a group's t(i) (one uniform branch a group).
+template <int W>
+__device__ __forceinline__ void term_form(int form, float aux0,
+                                          const float (&t)[W], float (&v)[W]) {
+  if (form == kFormTwice) {
+#pragma unroll
+    for (int e = 0; e < W; ++e) v[e] = 2.f * t[e];
+  } else if (form == kFormShift) {
+#pragma unroll
+    for (int e = 0; e < W; ++e) v[e] = __fsub_rn(2.f * t[e], aux0);
+  } else {
+#pragma unroll
+    for (int e = 0; e < W; ++e) v[e] = t[e];
+  }
+}
+
+template <int W>
+__device__ __forceinline__ void term_group(const Term& t, float aux0,
+                                           long long i, long long n,
+                                           float (&v)[W]) {
+  float base[W];
+  term_base<W>(t, i, n, base);
+  term_form<W>(t.form, aux0, base, v);
+}
+
+// The preconditioner's diagonal p(i) for W consecutive indices, from the
+// group's (unfolded) a0 (kPrecJacobi) or read from the stored vector; 0 past
+// n, so a masked element never meets rsqrt(0).
 template <int PK, int W>
-__device__ __forceinline__ void prec_group(const Params& P, float aux0,
-                                           long long i, const float (&a)[W],
+__device__ __forceinline__ void prec_group(const Params& P, long long i,
+                                           const float (&a0)[W],
                                            float (&p)[W]) {
   if (PK == kPrecStored) {
-#pragma unroll
-    for (int e = 0; e < W; ++e) p[e] = (i + e < P.n) ? P.prec[i + e] : 0.f;
+    load_f32<W>(P.prec, i, P.n, p);
   } else {
 #pragma unroll
     for (int e = 0; e < W; ++e) {
-      const float d = __fadd_rn(fabsf(__fsub_rn(2.f * a[e], aux0)), P.prec_c);
+      const float d = __fadd_rn(fabsf(a0[e]), P.prec_c);
       p[e] = P.prec_quarter ? __frsqrt_rn(__fsqrt_rn(d)) : __frsqrt_rn(d);
+      if (i + e >= P.n) p[e] = 0.f;
     }
   }
 }
 
-// The folded operator for one element: a0 = p^2 (2a - aux0) and
-// u = (p x, (p 2a) x), or the plain a0 = 2a - aux0, u = (x, 2a x) when PK is
-// kPrecNone (in the Pallas kernel's multiplication order).
-template <int PK>
-__device__ __forceinline__ void fold(float a, float x, float p, float aux0,
-                                     float& a0, float& u0, float& u1) {
-  if (PK == kPrecNone) {
-    a0 = 2.f * a - aux0;
-    u0 = x;
-    u1 = (2.f * a) * x;
-  } else {
-    a0 = (p * p) * (2.f * a - aux0);
-    u0 = p * x;
-    u1 = (p * (2.f * a)) * x;
+// The operator's terms for one group of W elements: a0 and the K weight
+// values (unfolded; a weight of mode kTermOne is not evaluated), and p.
+// SPHERE (K = 2) fixes the layout at compile time -- a0 = 2t - aux0 and the
+// weights 1 and 2t on a0's own term t, evaluated once -- so that the sphere
+// family runs the instructions of the kernel that took that family alone;
+// otherwise each slot's mode and form are read from Params.
+template <int PK, int K, int W, bool SPHERE>
+struct Group {
+  static_assert(!SPHERE || K == 2, "the sphere layout is rank 2");
+  float a0[W], w[K][W], p[W];
+
+  __device__ __forceinline__ static bool one(const Params& P, int j) {
+    return SPHERE ? j == 0 : P.w[j].mode == kTermOne;
   }
+
+  __device__ __forceinline__ void eval(const Params& P, float aux0,
+                                       long long i) {
+    float base[W];
+    term_base<W>(P.a0, i, P.n, base);
+    term_form<W>(SPHERE ? kFormShift : P.a0.form, aux0, base, a0);
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      if (SPHERE && j == 1) term_form<W>(kFormTwice, aux0, base, w[j]);
+      else if (!one(P, j)) term_group<W>(P.w[j], aux0, i, P.n, w[j]);
+    }
+    if (PK != kPrecNone) prec_group<PK, W>(P, i, a0, p);
+  }
+
+  // The folded operator at element e: a0hat = p^2 a0 and u_j = (p w_j) x (or
+  // p x for the weight 1), or a0 and u_j = w_j x without a preconditioner
+  // (the Pallas kernel's multiplication order).
+  __device__ __forceinline__ float fold(const Params& P, int e, float x,
+                                        float (&u)[K]) const {
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      if (PK == kPrecNone) u[j] = one(P, j) ? x : w[j][e] * x;
+      else u[j] = one(P, j) ? p[e] * x : (p[e] * w[j][e]) * x;
+    }
+    return PK == kPrecNone ? a0[e] : (p[e] * p[e]) * a0[e];
+  }
+};
+
+template <int K>
+__device__ __forceinline__ float kdot(const float (&a)[K], const float (&b)[K]) {
+  float t = a[0] * b[0];
+#pragma unroll
+  for (int j = 1; j < K; ++j) t = t + a[j] * b[j];
+  return t;
 }
 
-__device__ __forceinline__ float kdot2(const float (&a)[2], const float (&b)[2]) {
-  return a[0] * b[0] + a[1] * b[1];
-}
-
-__device__ __forceinline__ void matk2(const float (&M)[2][2], const float (&v)[2],
-                                      float (&out)[2]) {
-  out[0] = M[0][0] * v[0] + M[0][1] * v[1];
-  out[1] = M[1][0] * v[0] + M[1][1] * v[1];
+template <int K>
+__device__ __forceinline__ void matk(const float (&M)[K][K], const float (&v)[K],
+                                     float (&out)[K]) {
+#pragma unroll
+  for (int i = 0; i < K; ++i) out[i] = kdot<K>(M[i], v);
 }
 
 __device__ __forceinline__ float pow_static(float x, float e) {
@@ -165,12 +273,14 @@ __device__ __forceinline__ float pow_static(float x, float e) {
   return expf(e * logf(x));
 }
 
-// Block + grid reduction of NACC per-thread partials.  Writes this block's
-// sums into partial[par], crosses one grid.sync(), and returns in `out`
-// the grid totals, summed by every block in one fixed order.
+// Block + grid reduction of NACC per-thread partials (NACC <= STRIDE, the
+// per-block stride of the scratch).  Writes this block's sums into
+// partial[par], crosses one grid.sync(), and returns in `out` the grid
+// totals, summed by every block in one fixed order.
+template <int STRIDE>
 struct Reducer {
-  double (*red)[kNacc];  // shared [kWarps][kNacc]
-  double* tot;           // shared [kNacc]
+  double (*red)[STRIDE];  // shared [kWarps][STRIDE]
+  double* tot;            // shared [STRIDE]
 
   template <int NACC>
   __device__ void run(cg::grid_group& grid, const Params& P, int par,
@@ -185,16 +295,16 @@ struct Reducer {
       if (lane == 0) red[warp][a] = v;
     }
     __syncthreads();
-    double* part = P.partial + (size_t)par * gridDim.x * kNacc;
+    double* part = P.partial + (size_t)par * gridDim.x * STRIDE;
     if (threadIdx.x < NACC) {
       double v = 0.0;
       for (int w = 0; w < kWarps; ++w) v += red[w][threadIdx.x];
-      part[(size_t)blockIdx.x * kNacc + threadIdx.x] = v;
+      part[(size_t)blockIdx.x * STRIDE + threadIdx.x] = v;
     }
     grid.sync();
     for (int a = warp; a < NACC; a += kWarps) {
       double v = 0.0;
-      for (unsigned b = lane; b < gridDim.x; b += 32) v += part[(size_t)b * kNacc + a];
+      for (unsigned b = lane; b < gridDim.x; b += 32) v += part[(size_t)b * STRIDE + a];
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
       if (lane == 0) tot[a] = v;
@@ -208,24 +318,27 @@ struct Reducer {
 // The carried scalar state of the CG loop (the Pallas kernel's carry,
 // optimization_tpu/kernels/streamed_cg.py:329-331), identical in every
 // thread.
+template <int K>
 struct Carry {
   int k;
   float rv, ar, nr, pa, nAp, rv_prev, alpha_prev, pr_c, kappa_prev;
   float s_p, sk2, pp_prev, mval, done, bnd, s_valid, p_valid;
-  float m[2], mA[2], mB[2], mp[2];
+  float m[K], mA[K], mB[K], mp[K];
 };
 
+template <int K>
 struct Consts {
   float Delta2, aux0, eps2, target;
-  float B[2][2], UU[2][2];
+  float B[K][K], UU[K][K];
 };
 
 // One CG iteration (the Pallas kernel's half(), :354-501).  APPLY folds
 // the pending coefficient `pend` into this half's s update; otherwise the
 // half returns its own s coefficient for the next half.
-template <typename T, int PK, bool APPLY>
-__device__ float half(cg::grid_group& grid, const Params& P, const Consts& K,
-                      const Reducer& R, Carry& c, int& par, float pend) {
+template <typename T, int PK, int K, bool SPHERE, bool APPLY>
+__device__ float half(cg::grid_group& grid, const Params& P,
+                      const Consts<K>& C, const Reducer<nacc(K)>& R,
+                      Carry<K>& c, int& par, float pend) {
   constexpr int W = Store<T>::W;
   const T* g = static_cast<const T*>(P.g);
   const T* x = static_cast<const T*>(P.x);
@@ -237,7 +350,7 @@ __device__ float half(cg::grid_group& grid, const Params& P, const Consts& K,
   const long long t0 = (long long)blockIdx.x * blockDim.x + threadIdx.x;
 
   const bool frozen = (c.done != 0.f) || (c.k >= P.max_iterations) ||
-                      (sqrtf(c.rv) <= K.target);
+                      (sqrtf(c.rv) <= C.target);
   if (frozen) {
     // Only reachable as the second half of a pair: the loop exits after it,
     // so only s changes (cs = 0 there): s <- s + pend * p.
@@ -262,33 +375,34 @@ __device__ float half(cg::grid_group& grid, const Params& P, const Consts& K,
   const bool first = c.rv_prev == 0.f;
   const float beta = first ? 0.f : c.rv / c.rv_prev;
 
-  float Bm[2];
-  matk2(K.B, c.m, Bm);
-  const float wr = c.ar + kdot2(c.m, Bm);
+  float Bm[K];
+  matk<K>(C.B, c.m, Bm);
+  const float wr = c.ar + kdot<K>(c.m, Bm);
   const float kappa = wr - (beta / c.alpha_prev) * c.rv;
   const float pp_k = c.rv + beta * beta * c.pp_prev;
   const float pr_k = -c.rv + beta * (c.pr_c + c.alpha_prev * c.kappa_prev);
   const float sp_k = beta * (c.s_p + c.alpha_prev * c.pp_prev);
 
   // kernel-of-H safeguard via the |q|^2 recurrence
-  float Bmp[2], UUBm[2], UUBmp[2];
-  matk2(K.B, c.mp, Bmp);
-  matk2(K.UU, Bm, UUBm);
-  matk2(K.UU, Bmp, UUBmp);
-  const float ww = c.nr + 2.f * kdot2(c.mA, Bm) + kdot2(Bm, UUBm);
-  const float wq = c.pa + kdot2(c.mA, Bmp) + kdot2(Bm, c.mB) + kdot2(Bm, UUBmp);
-  const float qq_prev = c.nAp + 2.f * kdot2(c.mB, Bmp) + kdot2(Bmp, UUBmp);
+  float Bmp[K], UUBm[K], UUBmp[K];
+  matk<K>(C.B, c.mp, Bmp);
+  matk<K>(C.UU, Bm, UUBm);
+  matk<K>(C.UU, Bmp, UUBmp);
+  const float ww = c.nr + 2.f * kdot<K>(c.mA, Bm) + kdot<K>(Bm, UUBm);
+  const float wq = c.pa + kdot<K>(c.mA, Bmp) + kdot<K>(Bm, c.mB) +
+                   kdot<K>(Bm, UUBmp);
+  const float qq_prev = c.nAp + 2.f * kdot<K>(c.mB, Bmp) + kdot<K>(Bmp, UUBmp);
   const float qq_k = ww - 2.f * beta * wq + beta * beta * qq_prev;
-  const bool in_kernel = qq_k < K.eps2 * pp_k;
+  const bool in_kernel = qq_k < C.eps2 * pp_k;
   const float sign = (in_kernel && pr_k > 0.f) ? -1.f : 1.f;
 
   const float sp_eff = sign * sp_k;
-  const float disc = sp_eff * sp_eff + pp_k * (K.Delta2 - c.sk2);
+  const float disc = sp_eff * sp_eff + pp_k * (C.Delta2 - c.sk2);
   const float sigma = (-sp_eff + sqrtf(fmaxf(disc, 0.f))) / fmaxf(pp_k, FLT_MIN);
 
   const float alpha = c.rv / kappa;
   const float sk2_next = c.sk2 + 2.f * alpha * sp_k + alpha * alpha * pp_k;
-  const bool boundary = in_kernel || (kappa <= 0.f) || (sk2_next > K.Delta2);
+  const bool boundary = in_kernel || (kappa <= 0.f) || (sk2_next > C.Delta2);
 
   const float cs = boundary ? sigma * sign : alpha;
   const float crr = boundary ? 0.f : alpha;
@@ -296,46 +410,47 @@ __device__ float half(cg::grid_group& grid, const Params& P, const Consts& K,
       ? c.mval + sigma * sign * pr_k + 0.5f * sigma * sigma * kappa
       : c.mval - 0.5f * alpha * c.rv;
 
-  float mp_k[2], mB2[2], Bmpk[2], UUBmpk[2], m2[2];
+  float mp_k[K], mB2[K], Bmpk[K], UUBmpk[K], m2[K];
 #pragma unroll
-  for (int j = 0; j < 2; ++j) mp_k[j] = -c.m[j] + beta * c.mp[j];
+  for (int j = 0; j < K; ++j) mp_k[j] = -c.m[j] + beta * c.mp[j];
 #pragma unroll
-  for (int j = 0; j < 2; ++j) mB2[j] = -c.mA[j] + beta * c.mB[j];
-  matk2(K.B, mp_k, Bmpk);
-  matk2(K.UU, Bmpk, UUBmpk);
+  for (int j = 0; j < K; ++j) mB2[j] = -c.mA[j] + beta * c.mB[j];
+  matk<K>(C.B, mp_k, Bmpk);
+  matk<K>(C.UU, Bmpk, UUBmpk);
 #pragma unroll
-  for (int j = 0; j < 2; ++j) m2[j] = c.m[j] + crr * (mB2[j] + UUBmpk[j]);
+  for (int j = 0; j < K; ++j) m2[j] = c.m[j] + crr * (mB2[j] + UUBmpk[j]);
   const float nAp2 = c.nr - 2.f * beta * c.pa + beta * beta * c.nAp;
 
-  // ---- the streamed pass: r/p (+ s when applying) in and out, x in,
-  // the diagonal regenerated; on the first iteration r is g ----
+  // ---- the streamed pass: r/p (+ s when applying) in and out, x in, the
+  // stored terms in, the generated ones regenerated; on the first
+  // iteration r is g ----
   const T* rsrc = first ? g : r;
   const bool s_ok = c.s_valid != 0.f;
   const bool p_ok = c.p_valid != 0.f;
-  float acc[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  float acc[4 + K];
+#pragma unroll
+  for (int j = 0; j < 4 + K; ++j) acc[j] = 0.f;
   for (long long gi = t0; gi < ngroups; gi += stride) {
     const long long i = gi * W;
-    float rc[W], pc[W], xc[W], a[W], pr[W];
+    float rc[W], pc[W], xc[W];
     Store<T>::load(rsrc, i, P.n, rc);
     if (p_ok) Store<T>::load(p, i, P.n, pc);
     else for (int e = 0; e < W; ++e) pc[e] = 0.f;
     Store<T>::load(x, i, P.n, xc);
-    diag_group<W>(P, i, a);
-    if (PK != kPrecNone) {
-      prec_group<PK, W>(P, K.aux0, i, a, pr);
-      // r0 is ghat = p g, stored: the Pallas init pass writes it to r
-      if (first)
-        for (int e = 0; e < W; ++e) rc[e] = Store<T>::rounded(pr[e] * rc[e]);
-    }
+    Group<PK, K, W, SPHERE> G;
+    G.eval(P, C.aux0, i);
+    // r0 is ghat = p g, stored: the Pallas init pass writes it to r
+    if (PK != kPrecNone && first)
+      for (int e = 0; e < W; ++e) rc[e] = Store<T>::rounded(G.p[e] * rc[e]);
     float r2v[W], p2v[W];
 #pragma unroll
     for (int e = 0; e < W; ++e) {
-      float a0, u0, u1;
-      fold<PK>(a[e], xc[e], PK != kPrecNone ? pr[e] : 1.f, K.aux0, a0, u0, u1);
+      float u[K];
+      const float a0 = G.fold(P, e, xc[e], u);
       const float p2 = first ? -rc[e] : -rc[e] + beta * pc[e];
       float q2 = a0 * p2;
-      q2 = q2 + Bmpk[0] * u0;
-      q2 = q2 + Bmpk[1] * u1;
+#pragma unroll
+      for (int j = 0; j < K; ++j) q2 = q2 + Bmpk[j] * u[j];
       const float r2 = rc[e] + crr * q2;
       const float a0r2 = a0 * r2;
       const float a0p2 = a0 * p2;
@@ -343,8 +458,8 @@ __device__ float half(cg::grid_group& grid, const Params& P, const Consts& K,
       acc[1] += a0r2 * r2;
       acc[2] += a0r2 * a0r2;
       acc[3] += a0r2 * a0p2;
-      acc[4] += u0 * a0r2;
-      acc[5] += u1 * a0r2;
+#pragma unroll
+      for (int j = 0; j < K; ++j) acc[4 + j] += u[j] * a0r2;
       r2v[e] = r2;
       p2v[e] = p2;
     }
@@ -365,7 +480,7 @@ __device__ float half(cg::grid_group& grid, const Params& P, const Consts& K,
 
   if (!boundary) {
     // after a boundary step the loop exits: the dot group would be unused
-    float tot[6];
+    float tot[4 + K];
     R.run(grid, P, par, acc, tot);
     par ^= 1;
     const float rv_old = c.rv;
@@ -373,8 +488,8 @@ __device__ float half(cg::grid_group& grid, const Params& P, const Consts& K,
     c.ar = tot[1];
     c.nr = tot[2];
     c.pa = tot[3];
-    c.mA[0] = tot[4];
-    c.mA[1] = tot[5];
+#pragma unroll
+    for (int j = 0; j < K; ++j) c.mA[j] = tot[4 + j];
     c.nAp = nAp2;
     c.rv_prev = rv_old;
     c.alpha_prev = alpha;
@@ -389,7 +504,8 @@ __device__ float half(cg::grid_group& grid, const Params& P, const Consts& K,
     c.bnd = 1.f;
   }
   c.mval = m_new;
-  for (int j = 0; j < 2; ++j) {
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
     c.m[j] = m2[j];
     c.mB[j] = mB2[j];
     c.mp[j] = mp_k[j];
@@ -399,23 +515,30 @@ __device__ float half(cg::grid_group& grid, const Params& P, const Consts& K,
   return APPLY ? 0.f : cs;
 }
 
-template <typename T, int PK>
-__global__ void __launch_bounds__(kThreads) streamed_cg_kernel(Params P) {
+// Two blocks an SM (at most 128 registers a thread, as the sphere kernel
+// always had): at f32, K = 3 and 4 spill 56-444 bytes a thread for it and
+// still run 19-22% faster on an H100 than at one block an SM (190-230
+// registers, 8 warps an SM).  bf16 at K = 3, 4 would spill 1.2-2.6 KB and keeps one block.
+template <typename T, int PK, int K, bool SPHERE>
+__global__ void __launch_bounds__(kThreads,
+                                  (sizeof(T) == 4 || K <= 2) ? 2 : 1)
+    streamed_cg_kernel(Params P) {
   constexpr int W = Store<T>::W;
+  constexpr int NI = init_width(K);
   cg::grid_group grid = cg::this_grid();
-  __shared__ double red[kWarps][kNacc];
-  __shared__ double tot[kNacc];
-  const Reducer R{red, tot};
+  __shared__ double red[kWarps][nacc(K)];
+  __shared__ double tot[nacc(K)];
+  const Reducer<nacc(K)> R{red, tot};
 
-  Consts K;
+  Consts<K> C;
   const float Delta = P.scal[0];
-  K.Delta2 = Delta * Delta;
-  K.aux0 = P.scal[1];
-  K.B[0][0] = P.scal[2];
-  K.B[0][1] = P.scal[3];
-  K.B[1][0] = P.scal[4];
-  K.B[1][1] = P.scal[5];
-  K.eps2 = P.epsilon * P.epsilon;
+  C.Delta2 = Delta * Delta;
+  C.aux0 = P.n_aux > 0 ? P.scal[1] : 0.f;
+#pragma unroll
+  for (int a = 0; a < K; ++a)
+#pragma unroll
+    for (int b = 0; b < K; ++b) C.B[a][b] = P.B[a * K + b];
+  C.eps2 = P.epsilon * P.epsilon;
 
   const T* g = static_cast<const T*>(P.g);
   const T* x = static_cast<const T*>(P.x);
@@ -424,58 +547,71 @@ __global__ void __launch_bounds__(kThreads) streamed_cg_kernel(Params P) {
   const long long t0 = (long long)blockIdx.x * blockDim.x + threadIdx.x;
 
   int par = 0;
-  float init[kNacc];  // rv0, ar0, nr0, m0[2], mA0[2], UU00, UU01, UU11
+  // rv0, ar0, nr0, m0[K], mA0[K], then UU: the upper triangle row by row
+  // (init pass) or the threaded K x K row-major (scal after Delta and aux)
+  float init[3 + 2 * K];
   if (P.with_init) {
-    // threaded group: rv, ar, nr, m[2], mA[2], UU[2][2] row-major
-    for (int j = 0; j < 7; ++j) init[j] = P.scal[6 + j];
-    init[7] = P.scal[13];
-    init[8] = P.scal[14];
-    init[9] = P.scal[16];
+    const float* iv = P.scal + 1 + P.n_aux;
+#pragma unroll
+    for (int j = 0; j < 3 + 2 * K; ++j) init[j] = iv[j];
+#pragma unroll
+    for (int a = 0; a < K; ++a)
+#pragma unroll
+      for (int b = 0; b < K; ++b) C.UU[a][b] = iv[3 + 2 * K + a * K + b];
   } else {
-    // the init pass: one read of g and x; r is not written (the first
-    // iteration reads g in its place); with a preconditioner g is ghat = p g
-    float acc[kNacc];
-    for (int j = 0; j < kNacc; ++j) acc[j] = 0.f;
+    // the init pass: one read of g and x (and the stored terms); r is not
+    // written (the first iteration reads g in its place); with a
+    // preconditioner g is ghat = p g
+    float acc[NI], out[NI];
+#pragma unroll
+    for (int j = 0; j < NI; ++j) acc[j] = 0.f;
     for (long long gi = t0; gi < ngroups; gi += stride) {
       const long long i = gi * W;
-      float gc[W], xc[W], a[W], pr[W];
+      float gc[W], xc[W];
       Store<T>::load(g, i, P.n, gc);
       Store<T>::load(x, i, P.n, xc);
-      diag_group<W>(P, i, a);
-      if (PK != kPrecNone) {
-        prec_group<PK, W>(P, K.aux0, i, a, pr);
-        for (int e = 0; e < W; ++e) gc[e] = pr[e] * gc[e];
-      }
+      Group<PK, K, W, SPHERE> G;
+      G.eval(P, C.aux0, i);
+      if (PK != kPrecNone)
+        for (int e = 0; e < W; ++e) gc[e] = G.p[e] * gc[e];
 #pragma unroll
       for (int e = 0; e < W; ++e) {
-        float a0, u0, u1;
-        fold<PK>(a[e], xc[e], PK != kPrecNone ? pr[e] : 1.f, K.aux0, a0, u0,
-                 u1);
+        float u[K];
+        const float a0 = G.fold(P, e, xc[e], u);
         const float a0g = a0 * gc[e];
         acc[0] += gc[e] * gc[e];
         acc[1] += a0g * gc[e];
         acc[2] += a0g * a0g;
-        acc[3] += u0 * gc[e];
-        acc[4] += u1 * gc[e];
-        acc[5] += u0 * a0g;
-        acc[6] += u1 * a0g;
-        acc[7] += u0 * u0;
-        acc[8] += u0 * u1;
-        acc[9] += u1 * u1;
+#pragma unroll
+        for (int j = 0; j < K; ++j) acc[3 + j] += u[j] * gc[e];
+#pragma unroll
+        for (int j = 0; j < K; ++j) acc[3 + K + j] += u[j] * a0g;
+        int t = 3 + 2 * K;
+#pragma unroll
+        for (int a = 0; a < K; ++a)
+#pragma unroll
+          for (int b = a; b < K; ++b) acc[t++] += u[a] * u[b];
       }
     }
-    R.run(grid, P, par, acc, init);
+    R.run(grid, P, par, acc, out);
     par ^= 1;
+#pragma unroll
+    for (int j = 0; j < 3 + 2 * K; ++j) init[j] = out[j];
+    int t = 3 + 2 * K;
+#pragma unroll
+    for (int a = 0; a < K; ++a)
+#pragma unroll
+      for (int b = a; b < K; ++b) {
+        C.UU[a][b] = out[t];
+        C.UU[b][a] = out[t];
+        ++t;
+      }
   }
-  K.UU[0][0] = init[7];
-  K.UU[0][1] = init[8];
-  K.UU[1][0] = P.with_init ? P.scal[15] : init[8];
-  K.UU[1][1] = init[9];
 
   const float r0n = sqrtf(init[0]);
-  K.target = r0n * fminf(P.kappa_fgr, pow_static(r0n, P.theta));
+  C.target = r0n * fminf(P.kappa_fgr, pow_static(r0n, P.theta));
 
-  Carry c;
+  Carry<K> c;
   c.k = 0;
   c.rv = init[0];
   c.ar = init[1];
@@ -486,9 +622,10 @@ __global__ void __launch_bounds__(kThreads) streamed_cg_kernel(Params P) {
   c.kappa_prev = 1.f;
   c.s_p = c.sk2 = c.pp_prev = c.mval = 0.f;
   c.done = c.bnd = c.s_valid = c.p_valid = 0.f;
-  for (int j = 0; j < 2; ++j) {
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
     c.m[j] = init[3 + j];
-    c.mA[j] = init[5 + j];
+    c.mA[j] = init[3 + K + j];
     c.mB[j] = 0.f;
     c.mp[j] = 0.f;
   }
@@ -496,12 +633,13 @@ __global__ void __launch_bounds__(kThreads) streamed_cg_kernel(Params P) {
   // The loop condition (the Pallas kernel's cond, :348-352) reads only
   // carried scalars, which are bitwise equal in every thread: every block
   // takes the same number of trips through grid.sync().
-  while (c.k < P.max_iterations && c.done == 0.f && sqrtf(c.rv) > K.target) {
+  while (c.k < P.max_iterations && c.done == 0.f && sqrtf(c.rv) > C.target) {
     if (P.pair) {
-      const float pend = half<T, PK, false>(grid, P, K, R, c, par, 0.f);
-      half<T, PK, true>(grid, P, K, R, c, par, pend);
+      const float pend =
+          half<T, PK, K, SPHERE, false>(grid, P, C, R, c, par, 0.f);
+      half<T, PK, K, SPHERE, true>(grid, P, C, R, c, par, pend);
     } else {
-      half<T, PK, true>(grid, P, K, R, c, par, 0.f);
+      half<T, PK, K, SPHERE, true>(grid, P, C, R, c, par, 0.f);
     }
   }
 
@@ -516,10 +654,10 @@ __global__ void __launch_bounds__(kThreads) streamed_cg_kernel(Params P) {
     // in the loop (the same grid-stride walk), so no grid.sync is needed
     for (long long gi = t0; gi < ngroups; gi += stride) {
       const long long i = gi * W;
-      float sc[W], a[W], pr[W];
+      float sc[W], a0[W], pr[W];
       Store<T>::load(s, i, P.n, sc);
-      diag_group<W>(P, i, a);
-      prec_group<PK, W>(P, K.aux0, i, a, pr);
+      if (PK == kPrecJacobi) term_group<W>(P.a0, C.aux0, i, P.n, a0);
+      prec_group<PK, W>(P, i, a0, pr);
       for (int e = 0; e < W; ++e) sc[e] = sc[e] * pr[e];
       Store<T>::store(s, i, P.n, sc);
     }
@@ -532,75 +670,100 @@ __global__ void __launch_bounds__(kThreads) streamed_cg_kernel(Params P) {
   }
 }
 
-// The kernel instance for a storage dtype and preconditioner form.
-template <typename T>
-const void* kernel_for(int prec_kind) {
+// The kernel instance for a storage dtype, preconditioner form, rank and
+// layout (sphere: K = 2 only).
+template <typename T, int K, bool SPHERE>
+const void* kernel_for_k(int prec_kind) {
   switch (prec_kind) {
-    case kPrecJacobi: return (const void*)streamed_cg_kernel<T, kPrecJacobi>;
-    case kPrecStored: return (const void*)streamed_cg_kernel<T, kPrecStored>;
-    default: return (const void*)streamed_cg_kernel<T, kPrecNone>;
+    case kPrecJacobi:
+      return (const void*)streamed_cg_kernel<T, kPrecJacobi, K, SPHERE>;
+    case kPrecStored:
+      return (const void*)streamed_cg_kernel<T, kPrecStored, K, SPHERE>;
+    default: return (const void*)streamed_cg_kernel<T, kPrecNone, K, SPHERE>;
   }
 }
 
 template <typename T>
-cudaError_t max_blocks(int prec_kind, int* out) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, kernel_for<T>(prec_kind), kThreads, 0);
-  if (e != cudaSuccess) return e;
-  *out = per_sm * sms;
-  return cudaSuccess;
+const void* kernel_for(int prec_kind, int k, int sphere) {
+  if (sphere) return k == 2 ? kernel_for_k<T, 2, true>(prec_kind) : nullptr;
+  switch (k) {
+    case 1: return kernel_for_k<T, 1, false>(prec_kind);
+    case 2: return kernel_for_k<T, 2, false>(prec_kind);
+    case 3: return kernel_for_k<T, 3, false>(prec_kind);
+    case 4: return kernel_for_k<T, 4, false>(prec_kind);
+    default: return nullptr;
+  }
 }
 
-template <typename T>
-cudaError_t grid_for(int prec_kind, long long n, int* grid) {
-  int cap = 0;
-  cudaError_t e = max_blocks<T>(prec_kind, &cap);
-  if (e != cudaSuccess) return e;
-  const long long groups = (n + Store<T>::W - 1) / Store<T>::W;
-  long long want = (groups + kThreads - 1) / kThreads;
-  if (want < 1) want = 1;
-  *grid = (int)(want < cap ? want : cap);
-  return cudaSuccess;
+const void* kernel_of(int bf16, int prec_kind, int k, int sphere) {
+  return bf16 ? kernel_for<__nv_bfloat16>(prec_kind, k, sphere)
+              : kernel_for<float>(prec_kind, k, sphere);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Number of blocks the launch for n elements uses (co-resident at most);
-// the caller sizes the partial buffer as 2 * grid * streamed_cg_nacc().
-// prec_kind: 0 none, 1 the generated shifted-Jacobi power, 2 stored p.
-int streamed_cg_grid(int bf16, int prec_kind, long long n, int* grid) {
-  return bf16 ? (int)grid_for<__nv_bfloat16>(prec_kind, n, grid)
-              : (int)grid_for<float>(prec_kind, n, grid);
+// The largest rank K the kernel is instantiated for.
+int streamed_cg_max_k() { return kMaxK; }
+
+// Number of blocks the launch for n elements uses (co-resident at most, for
+// this instantiation's registers); the caller sizes the partial buffer as
+// 2 * grid * streamed_cg_nacc(k).  prec_kind: 0 none, 1 the generated
+// shifted-Jacobi power, 2 stored p; sphere: the K = 2 sphere layout (a0 =
+// 2t - aux0, weights 1 and 2t on a0's term).
+int streamed_cg_grid(int bf16, int prec_kind, int k, int sphere, long long n,
+                     int* grid) {
+  const void* fn = kernel_of(bf16, prec_kind, k, sphere);
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads, 0);
+  if (e != cudaSuccess) return (int)e;
+  const int cap = per_sm * sms;
+  const int w = bf16 ? Store<__nv_bfloat16>::W : Store<float>::W;
+  const long long groups = (n + w - 1) / w;
+  long long want = (groups + kThreads - 1) / kThreads;
+  if (want < 1) want = 1;
+  *grid = (int)(want < cap ? want : cap);
+  return (int)cudaSuccess;
 }
 
-int streamed_cg_nacc() { return kNacc; }
+int streamed_cg_nacc(int k) {
+  return (k >= 1 && k <= kMaxK) ? nacc(k) : 0;
+}
 
 const char* streamed_cg_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// Launch one subproblem on `stream`.  Returns a cudaError_t code: the
-// cooperative launch's own refusal (e.g. more blocks than co-resident),
-// or cudaGetLastError() after it.
-int streamed_cg_launch(int bf16, const void* g, const void* x,
-                       const float* diag, void* s, void* r, void* p,
-                       const float* scal, float* res, double* partial,
-                       int grid, long long n, float a_c, float a_b,
+// Launch one subproblem on `stream`.  `terms_in` holds k + 1 Terms: a0,
+// then the k weights.  Returns a cudaError_t code: the cooperative launch's
+// own refusal (e.g. more blocks than co-resident), or cudaGetLastError()
+// after it.
+int streamed_cg_launch(int bf16, int prec_kind, int k, int sphere,
+                       const void* g,
+                       const void* x, const void* terms_in, void* s, void* r,
+                       void* p, const float* scal, int n_aux, const float* B,
+                       float* res, double* partial, int grid, long long n,
                        int max_iterations, float kappa_fgr, float theta,
-                       float epsilon, int pair, int with_init, int prec_kind,
+                       float epsilon, int pair, int with_init,
                        const float* prec, float prec_c, int prec_quarter,
                        void* stream) {
+  const void* fn = kernel_of(bf16, prec_kind, k, sphere);
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  // (a pointer to the namespace-local Term in this extern "C" signature
+  // would take the symbol out of the library's exports)
+  const Term* terms = static_cast<const Term*>(terms_in);
   Params P;
   P.g = g;
   P.x = x;
-  P.diag = diag;
+  P.a0 = terms[0];
+  for (int j = 0; j < kMaxK; ++j)
+    P.w[j] = j < k ? terms[1 + j] : Term{nullptr, 0.f, 0.f, kTermOne, kFormSelf};
   P.prec = prec;
   P.prec_c = prec_c;
   P.prec_quarter = prec_quarter;
@@ -608,11 +771,11 @@ int streamed_cg_launch(int bf16, const void* g, const void* x,
   P.r = r;
   P.p = p;
   P.scal = scal;
+  P.n_aux = n_aux;
+  P.B = B;
   P.res = res;
   P.partial = partial;
   P.n = n;
-  P.a_c = a_c;
-  P.a_b = a_b;
   P.max_iterations = max_iterations;
   P.kappa_fgr = kappa_fgr;
   P.theta = theta;
@@ -620,8 +783,6 @@ int streamed_cg_launch(int bf16, const void* g, const void* x,
   P.pair = pair;
   P.with_init = with_init;
   void* args[] = {&P};
-  const void* fn = bf16 ? kernel_for<__nv_bfloat16>(prec_kind)
-                        : kernel_for<float>(prec_kind);
   cudaError_t e = cudaLaunchCooperativeKernel(
       fn, dim3(grid), dim3(kThreads), args, 0, (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;

@@ -1,10 +1,11 @@
 """Hand-written Hopper kernels, each beside its plain PyTorch version.
 
 - :mod:`streamed_cg` — the whole-loop trust-region CG
-  (``stpcg_flat_streamed``, with its preconditioned variant: a
-  ``JacobiPower`` or stored P), CUDA C++ in ``csrc/streamed_cg.cu``;
-  replaces the Pallas kernel
-  ``optimization_tpu/kernels/streamed_cg.py:_mk_kernel``.
+  (``stpcg_flat_streamed``) for A0 + U B U' of any rank k (k <= 4 on the
+  card) with generated, stored or wrapped-callable (``ElementwiseFn``)
+  terms, and its preconditioned variant (a ``JacobiPower`` on A0, a stored
+  or a wrapped P), CUDA C++ in ``csrc/streamed_cg.cu``; replaces the Pallas
+  kernel ``optimization_tpu/kernels/streamed_cg.py:_mk_kernel``.
 - :mod:`fused` — ``cg_dots``, ``axpy_selfdot``, ``gram_pair``,
   ``diag_stencil_matvec``, ``stream3_probe`` and ``affine_stencil_matvec``,
   CUDA C++ in ``csrc/fused.cu``; replace the Pallas kernels of the same
@@ -21,10 +22,11 @@
   gather behind the graph operators' verdict).
 """
 
-from .streamed_cg import (AffineDiagonal, JacobiPower, PrecMap,
-                          ScaledDiagonal, ShiftedDiagonal,
-                          sphere_rayleigh_streamed, stored_prec_map,
-                          stpcg_flat_streamed, stpcg_flat_streamed_reference)
+from .streamed_cg import (KERNEL_MAX_K, AffineDiagonal, ElementwiseFn,
+                          JacobiPower, PrecMap, ScaledDiagonal,
+                          ShiftedDiagonal, prec_map, sphere_rayleigh_streamed,
+                          stored_prec_map, stpcg_flat_streamed,
+                          stpcg_flat_streamed_reference)
 from .fused import (GRAM_MAX_K, affine_stencil_matvec,
                     affine_stencil_matvec_reference, axpy_selfdot,
                     axpy_selfdot_reference, cg_dots, cg_dots_reference,
@@ -35,8 +37,9 @@ from .probes import (chunk_offsets, chunk_reader, chunk_reader_reference,
                      pinned_stream, pinned_stream_reference, resident_body,
                      resident_body_reference)
 
-__all__ = ["AffineDiagonal", "JacobiPower", "PrecMap", "ScaledDiagonal",
-           "ShiftedDiagonal", "stored_prec_map",
+__all__ = ["AffineDiagonal", "ElementwiseFn", "JacobiPower", "PrecMap",
+           "ScaledDiagonal", "ShiftedDiagonal", "prec_map", "stored_prec_map",
+           "KERNEL_MAX_K",
            "sphere_rayleigh_streamed", "stpcg_flat_streamed",
            "stpcg_flat_streamed_reference", "affine_stencil_matvec",
            "affine_stencil_matvec_reference", "axpy_selfdot",

@@ -225,6 +225,168 @@ def test_escalation_and_least_squares_stay_on_card(dev):
                                rtol=0, atol=1e-3)
 
 
+
+# ---- the general rank k: K = 1, 3, 4 on the card, K > 4 refused ----
+
+GEN_AUX = (0.5, 0.75)
+
+
+def _gen_term(form, n, dev):
+    """A port descriptor of one term (tests/test_torch_streamed_cg.py's
+    forms): ``affine`` 1 + b i, ``twice`` / ``shifted`` its ScaledDiagonal /
+    ShiftedDiagonal, ``stored`` 1 + (i mod 13)/4 as a tensor, ``fn``
+    0.5 + aux[1] (i mod 97)/8 as an ElementwiseFn, ``one`` None."""
+    aff = T.AffineDiagonal(1.0, 8.0 / (n - 1))
+    return {
+        "one": None, "affine": aff, "twice": T.ScaledDiagonal(aff),
+        "shifted": T.ShiftedDiagonal(aff),
+        "stored": 1.0 + 0.25 * (torch.arange(n, device=dev) % 13).float(),
+        "fn": T.ElementwiseFn(
+            lambda i, aux: 0.5 + aux[1] * ((i % 97).float() / 8.0)),
+    }[form]
+
+
+def _gen_args(k, n, dtype, dev, seed=3):
+    """(g, x, B, aux): a unit g and x from a seeded generator on the card,
+    B = 0.3 G G' / k (positive semi-definite: many interior iterations)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    g = torch.randn(n, generator=gen, device=dev)
+    x = torch.randn(n, generator=gen, device=dev)
+    G = torch.randn(k, k, generator=gen, device=dev)
+    B = 0.3 * G @ G.T / k
+    aux = tuple(torch.tensor(a, device=dev) for a in GEN_AUX)
+    return ((g / torch.linalg.vector_norm(g)).to(dtype),
+            (x / torch.linalg.vector_norm(x)).to(dtype), B, aux)
+
+
+def _gen_init(g, x, B, a0_chunk, weights, aux):
+    """The threaded init group of the operator, by the port's flat engine
+    helper."""
+    from optimization_tpu_torch.linalg.flat_cg import flat_init_dots
+
+    n, dev = g.shape[0], g.device
+    a0 = T._a0_values(a0_chunk, n, aux, dev)
+    U = tuple(x.float() if w is None else T._weight_values(w, n, aux, dev)
+              * x.float() for w in weights)
+    return flat_init_dots(g, lambda v: a0 * v.float(), U, B)
+
+
+GEN_FORMS = {
+    1: ("affine", ("stored",)),
+    3: ("shifted", ("one", "twice", "fn")),
+    4: ("fn", ("one", "twice", "stored", "fn")),
+}
+
+
+@pytest.mark.parametrize("k", [1, 3, 4])
+@pytest.mark.parametrize("storage", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("body", ["pair", "single"])
+@pytest.mark.parametrize("with_init", [False, True], ids=["", "init"])
+@pytest.mark.parametrize("n", [1 << 18, 100_003])
+def test_general_k_kernel_matches_plain_version(dev, k, storage, body,
+                                                with_init, n):
+    """The kernel at K = 1, 3, 4 against its plain version, every term form
+    among the cases; the streamed kernel's tolerances (module docstring),
+    Delta 1e6 (interior runs) in f32 and 0.4 (a boundary exit) in bf16."""
+    g, x, B, aux = _gen_args(k, n, storage, dev)
+    a0_form, w_forms = GEN_FORMS[k]
+    a0c = _gen_term(a0_form, n, dev)
+    weights = tuple(_gen_term(f, n, dev) for f in w_forms)
+    kw = dict(a0_chunk=a0c, weights=weights, max_iterations=300,
+              kappa_fgr=1e-3, theta=0.9, body_kind=body)
+    if with_init:
+        kw["init"] = _gen_init(g, x, B, a0c, weights, aux)
+    Delta = 1e6 if storage == torch.float32 else 0.4
+    before = T.stpcg_flat_streamed.launches
+    res = T.stpcg_flat_streamed(g, x, B, Delta, aux, **kw)
+    ref = T.stpcg_flat_streamed_reference(g, x, B, Delta, aux, **kw)
+    torch.cuda.synchronize()
+    assert T.stpcg_flat_streamed.launches == before + 1
+    assert res.s.dtype == storage and res.s.device == g.device
+    tol, dit = (3e-2, 3) if storage == torch.bfloat16 else (2e-3, 1)
+    assert abs(int(res.num_iterations) - int(ref.num_iterations)) <= dit
+    if storage == torch.float32:
+        assert int(ref.num_iterations) > 3
+        torch.testing.assert_close(res.update_step_M_norm,
+                                   ref.update_step_M_norm, rtol=1e-3, atol=0)
+    _assert_step_close(res.s, ref.s, tol)
+
+
+@pytest.mark.parametrize("form", ["jacobi", "quarter", "stored", "fn"])
+@pytest.mark.parametrize("storage", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_general_k_prec_kernel_matches_plain_version(dev, form, storage):
+    """Every prec_chunk form at K = 3 (JacobiPower on A0, a stored P
+    unrelated to A0, a wrapped callable's P), within the preconditioned
+    tolerances (stored and wrapped P: counts within 3)."""
+    n = 1 << 18
+    g, x, B, aux = _gen_args(3, n, storage, dev, seed=5)
+    a0c = _gen_term("fn", n, dev)
+    weights = (None, _gen_term("twice", n, dev), _gen_term("stored", n, dev))
+    if form in ("jacobi", "quarter"):
+        pc = T.JacobiPower(1.0, 0.5 if form == "jacobi" else 0.25)
+    elif form == "stored":
+        pc = torch.rsqrt(1.0 + 0.25 * (torch.arange(n, device=dev) % 13)
+                         .float())
+    else:
+        pc = T.ElementwiseFn(
+            lambda i, a: torch.rsqrt(1.0 + a[1] * (i % 5).float()))
+    kw = dict(a0_chunk=a0c, weights=weights, max_iterations=300,
+              kappa_fgr=1e-3, theta=0.9, prec_chunk=pc,
+              prec=T.prec_map(pc, a0c, aux, n, dev))
+    Delta = 1e6 if storage == torch.float32 else 0.4
+    res = T.stpcg_flat_streamed(g, x, B, Delta, aux, **kw)
+    ref = T.stpcg_flat_streamed_reference(g, x, B, Delta, aux, **kw)
+    torch.cuda.synchronize()
+    tol, dit = (3e-2, 3) if storage == torch.bfloat16 else (2e-3, 1)
+    if form in ("stored", "fn"):
+        dit = 3
+    assert abs(int(res.num_iterations) - int(ref.num_iterations)) <= dit
+    _assert_step_close(res.s, ref.s, tol)
+
+
+def test_sphere_family_in_the_general_form_is_bitwise_the_same_on_card(dev):
+    """The sphere's a0 = 2a - rq and weight 2a as stored tensors give the
+    kernel's sphere-descriptor result bit for bit (same values, same
+    arithmetic), with and without the quarter-power Jacobi P; and the K = 2
+    kernel is bitwise repeatable."""
+    args, kw = _pd_fixture(1 << 18, torch.float32, dev)
+    g, x, B, Delta, (rq,) = args
+    n = g.shape[0]
+    diag = T.AffineDiagonal(1.0, 25.0 / (n - 1))
+    a = diag.values(n, dev)
+    general = dict(kw, a0_chunk=2.0 * a - rq, weights=(None, 2.0 * a))
+    desc = T.JacobiPower(1.0, 0.25)
+    for extra in ({}, {"prec_chunk": desc}):
+        runs = []
+        for kx in (kw, general):
+            kx = dict(kx, **extra)
+            if extra:
+                kx["prec"] = T.prec_map(desc, kx["a0_chunk"], (rq,), n, dev)
+            runs.append(T.stpcg_flat_streamed(g, x, B, Delta, (rq,), **kx))
+        assert int(runs[0].num_iterations) > 3
+        assert torch.equal(runs[0].s, runs[1].s)
+        assert all(torch.equal(u, v) for u, v in zip(runs[0][1:],
+                                                     runs[1][1:]))
+
+
+def test_kernel_refuses_k_above_four(dev):
+    """K > 4 raises NotImplementedError naming the register budget, and
+    launches nothing; the plain version takes it."""
+    n = 1 << 12
+    g, x, B, aux = _gen_args(5, n, torch.float32, dev)
+    weights = (None,) * 5
+    before = T.stpcg_flat_streamed.launches
+    with pytest.raises(NotImplementedError, match="register budget"):
+        T.stpcg_flat_streamed(g, x, B, 1.0, aux, a0_chunk=_gen_term(
+            "affine", n, dev), weights=weights)
+    assert T.stpcg_flat_streamed.launches == before
+    ref = T.stpcg_flat_streamed_reference(
+        g, x, B, 1.0, aux, a0_chunk=_gen_term("affine", n, dev),
+        weights=weights)
+    assert bool(torch.isfinite(ref.s).all())
+
 # ---- the fused kernels (kernels/fused.py, csrc/fused.cu) ----
 
 

@@ -228,8 +228,8 @@ def test_validation():
     call = lambda **k: T.stpcg_flat_streamed(
         k.pop("g", tg), k.pop("x", tx), torch.from_numpy(B), 1.0,
         (torch.tensor(rq),), **{"a0_chunk": a0c, "weights": weights, **k})
-    with pytest.raises(NotImplementedError, match="sphere Rayleigh"):
-        call(weights=(None, None))
+    with pytest.raises(TypeError, match="chunk generators"):
+        call(weights=(None, lambda i0, aux: 1.0))
     with pytest.raises(ValueError, match="storage dtype"):
         call(g=tg.double(), x=tx.double())
     with pytest.raises(ValueError, match="share the storage dtype"):
@@ -387,7 +387,7 @@ def test_prec_validation():
                           torch.from_numpy(B))
     with pytest.raises(ValueError, match="init"):
         call(prec_chunk=desc, prec=pmap, init=init)
-    with pytest.raises(NotImplementedError, match="generators"):
+    with pytest.raises(TypeError, match="generators"):
         call(prec_chunk=lambda i0, aux: 1.0, prec=pmap)
     with pytest.raises(ValueError, match="e = 1/2 or 1/4"):
         call(prec_chunk=T.JacobiPower(1.0, 1.0), prec=pmap)
@@ -450,3 +450,546 @@ def test_prec_must_be_the_descriptors_own_map():
     s_j = np.asarray(jr.s, np.float32)
     np.testing.assert_allclose(tr.s.numpy(), s_j,
                                atol=3e-4 * float(np.linalg.norm(s_j)))
+
+
+# ---------------------------------------------------- the general rank k --
+#
+# H = diag(a0) + U B U', U = (w_1 .* x, ..., w_k .* x).  Each per-element
+# term is a function of the index i (and of the aux scalars), written once
+# for JAX's chunk generators and once for the port, which takes it as a
+# descriptor (AffineDiagonal, ShiftedDiagonal, ScaledDiagonal), a stored
+# tensor or a wrapped whole-array callable (ElementwiseFn).  A Pallas kernel
+# cannot capture an array, so "stored" terms are index formulas on the JAX
+# side and their values, as a tensor, on the port's.  The aux scalars are
+# (0.5, 0.75): aux[0] is what ShiftedDiagonal subtracts, aux[1] the wrapped
+# callables' coefficient.
+
+AUX = (0.5, 0.75)
+B_SPREAD = 8.0 / (N - 1)
+
+
+def _idx(i0):
+    row = jax.lax.broadcasted_iota(jnp.int32, (CR, 128), 0) + i0
+    lane = jax.lax.broadcasted_iota(jnp.int32, (CR, 128), 1)
+    return row * 128 + lane
+
+
+def _term_pair(form):
+    """(JAX chunk generator or None, port descriptor) of one term:
+    ``affine`` 1 + b i, ``twice`` its double (ScaledDiagonal), ``shifted``
+    2(1 + b i) - aux[0] (ShiftedDiagonal), ``stored`` 1 + (i mod 13)/4
+    (a tensor), ``fn`` 0.5 + aux[1] (i mod 97)/8 (an ElementwiseFn), ``one``
+    the weight 1 (None)."""
+    aff = T.AffineDiagonal(1.0, B_SPREAD)
+    if form == "one":
+        return None, None
+    if form in ("affine", "twice", "shifted"):
+        def base(i0, aux):
+            # a jnp scalar made outside the generator would be a
+            # captured constant, which pallas_call refuses
+            return 1.0 + jnp.float32(B_SPREAD) * _idx(i0).astype(jnp.float32)
+        chunk = {"affine": base,
+                 "twice": lambda i0, aux: 2.0 * base(i0, aux),
+                 "shifted": lambda i0, aux: 2.0 * base(i0, aux) - aux[0]}
+        port = {"affine": aff, "twice": T.ScaledDiagonal(aff),
+                "shifted": T.ShiftedDiagonal(aff)}
+        return chunk[form], port[form]
+    if form == "stored":
+        return ((lambda i0, aux: 1.0 + 0.25 * (_idx(i0) % 13).astype(
+                    jnp.float32)),
+                1.0 + 0.25 * (torch.arange(N) % 13).float())
+    assert form == "fn"
+    return ((lambda i0, aux: 0.5 + aux[1] * ((_idx(i0) % 97).astype(
+                jnp.float32) / 8.0)),
+            T.ElementwiseFn(lambda i, aux: 0.5 + aux[1] * (
+                (i % 97).float() / 8.0)))
+
+
+def _term_values(form):
+    """The term's (n,) f32 values (numpy), as the port evaluates them."""
+    _, d = _term_pair(form)
+    aux = tuple(torch.tensor(a) for a in AUX)
+    if d is None:
+        return np.ones(N, np.float32)
+    if isinstance(d, T.ShiftedDiagonal):
+        v = 2.0 * d.a.values(N, "cpu") - aux[0]
+    elif isinstance(d, T.ScaledDiagonal):
+        v = 2.0 * d.a.values(N, "cpu")
+    elif isinstance(d, T.AffineDiagonal):
+        v = d.values(N, "cpu")
+    elif isinstance(d, T.ElementwiseFn):
+        v = d.values(N, aux, "cpu")
+    else:
+        v = d
+    return v.numpy()
+
+
+def _gen_inputs(k, seed, indefinite=False):
+    """(g, x, B) in f32 numpy: a random unit g and unit x (the unconstrained
+    step is O(1), so Delta = 0.5-5 is met after some interior iterations),
+    and a k x k B, positive semi-definite (many interior iterations) or with
+    a negative eigenvalue (a negative-curvature exit)."""
+    rng = np.random.default_rng(seed)
+    g = rng.standard_normal(N).astype(np.float32)
+    g /= np.linalg.norm(g)
+    x = rng.standard_normal(N).astype(np.float32)
+    x /= np.linalg.norm(x)
+    G = rng.standard_normal((k, k))
+    B = 0.3 * G @ G.T / k
+    if indefinite:
+        B = B - 4.0 * np.eye(k)
+    return g, x, B.astype(np.float32)
+
+
+def _gen_run(g, x, B, a0_form, w_forms, Delta, body, with_init, storage,
+             prec_form=None, fn=T.stpcg_flat_streamed_reference):
+    """The JAX kernel (interpret mode) and the port on one subproblem."""
+    jdt, tdt = ((jnp.bfloat16, torch.bfloat16) if storage == "bf16"
+                else (jnp.float32, torch.float32))
+    ja0, ta0 = _term_pair(a0_form)
+    jw, tw = zip(*[_term_pair(f) for f in w_forms])
+    jg, jx = jnp.asarray(g).astype(jdt), jnp.asarray(x).astype(jdt)
+    tg, tx = torch.from_numpy(g).to(tdt), torch.from_numpy(x).to(tdt)
+    jaux = tuple(jnp.float32(a) for a in AUX)
+    taux = tuple(torch.tensor(a) for a in AUX)
+    kw = dict(max_iterations=300, kappa_fgr=1e-3, theta=0.9,
+              body_kind=body)
+    jkw, tkw = dict(kw), dict(kw)
+    if with_init:
+        a0v = _term_values(a0_form)
+        ws = [_term_values(f) for f in w_forms]
+        for pkg, gv, xv, Bv, arr, init_dots, kwd in (
+                (jnp, jg, jx, jnp.asarray(B), jnp.asarray, j_init_dots, jkw),
+                (torch, tg, tx, torch.from_numpy(B), torch.from_numpy,
+                 flat_init_dots, tkw)):
+            f32 = pkg.float32
+            a0a = arr(a0v)
+            U = tuple(arr(w) * (xv.astype(f32) if pkg is jnp
+                                else xv.to(f32)) for w in ws)
+            A0 = (lambda v, a0a=a0a, pkg=pkg, f32=f32: a0a * (
+                v.astype(f32) if pkg is jnp else v.to(f32)))
+            kwd["init"] = init_dots(gv, A0, U, Bv)
+    if prec_form is not None:
+        jpc, jpf, tpc, tpf = _gen_prec(prec_form, a0_form, ta0, taux)
+        jkw.update(prec_chunk=jpc, prec=jpf)
+        tkw.update(prec_chunk=tpc, prec=tpf)
+    jr = J.stpcg_flat_streamed(jg, jx, jnp.asarray(B), Delta,
+                               aux_scalars=jaux, a0_chunk=ja0, weights=jw,
+                               chunk_rows=CR, interpret=True, **jkw)
+    tr = fn(tg, tx, torch.from_numpy(B), Delta, taux, a0_chunk=ta0,
+            weights=tw, **tkw)
+    return jr, tr
+
+
+def _gen_prec(form, a0_form, ta0, taux):
+    """P in both packages on the operator's A0: (JAX prec_chunk, JAX prec,
+    port prec_chunk, port prec).  ``jacobi`` and ``quarter`` are the
+    JacobiPower (|a0| + 1)^(-1/2), ^(-1/4); ``stored`` is a P unrelated to
+    A0, (1 + (i mod 13)/4)^(-1/2); ``fn`` is one from a wrapped callable,
+    (1 + aux[1] (i mod 5))^(-1/2)."""
+    a0_chunk, _ = _term_pair(a0_form)
+    a0_full = jnp.asarray(_term_values(a0_form))
+    if form in ("jacobi", "quarter"):
+        e = 0.5 if form == "jacobi" else 0.25
+
+        def jp(a0):
+            d = jnp.abs(a0) + 1.0
+            return jax.lax.rsqrt(d if e == 0.5 else jnp.sqrt(d))
+
+        desc = T.JacobiPower(1.0, e)
+        return ((lambda i0, aux: jp(a0_chunk(i0, aux))),
+                (lambda v: v * jp(a0_full)), desc,
+                T.prec_map(desc, ta0, taux, N, "cpu"))
+    if form == "stored":
+        def pj(idx):
+            return jax.lax.rsqrt(1.0 + 0.25 * (idx % 13).astype(jnp.float32))
+
+        pv = torch.rsqrt(1.0 + 0.25 * (torch.arange(N) % 13).float())
+        return ((lambda i0, aux: pj(_idx(i0))),
+                (lambda v: v * pj(jnp.arange(N, dtype=jnp.int32))), pv,
+                T.stored_prec_map(pv))
+    assert form == "fn"
+
+    def pj(idx, aux):
+        return jax.lax.rsqrt(1.0 + aux[1] * (idx % 5).astype(jnp.float32))
+
+    full = pj(jnp.arange(N, dtype=jnp.int32), tuple(jnp.float32(a)
+                                                    for a in AUX))
+    desc = T.ElementwiseFn(
+        lambda i, aux: torch.rsqrt(1.0 + aux[1] * (i % 5).float()))
+    return ((lambda i0, aux: pj(_idx(i0), aux)), (lambda v: v * full),
+            desc, T.prec_map(desc, ta0, taux, N, "cpu"))
+
+
+def _assert_gen_parity(jr, tr, storage, prec=False):
+    """The parity tests' tolerances (module docstring): bf16 iterations
+    within 3 and s within 3e-2 |s|; f32 iterations within 1 and s within
+    2e-3 |s|, M-norm and predicted decrease rtol 1e-3 (the long
+    multi-iteration runs of test_interior_multi_iteration_parity); f32 with
+    P those of test_prec_matches_xla_prec_engine (s within 3e-4 |s|, M-norm
+    rtol 2e-4, predicted decrease rtol 2e-3)."""
+    ki, kj = int(tr.num_iterations), int(jr.num_iterations)
+    s_t, s_j = tr.s.float().numpy(), np.asarray(jr.s, np.float32)
+    scale = max(float(np.linalg.norm(s_j)), 1e-9)
+    assert np.isfinite(s_t).all()
+    if storage == "bf16":
+        assert abs(ki - kj) <= 3, (ki, kj)
+        np.testing.assert_allclose(s_t, s_j, atol=3e-2 * scale)
+        return
+    assert abs(ki - kj) <= 1, (ki, kj)
+    mn_t, mn_j = float(tr.update_step_M_norm), float(jr.update_step_M_norm)
+    dm_t, dm_j = float(tr.predicted_decrease), float(jr.predicted_decrease)
+    if prec:
+        np.testing.assert_allclose(s_t, s_j, atol=3e-4 * scale)
+        np.testing.assert_allclose(mn_t, mn_j, rtol=2e-4)
+        np.testing.assert_allclose(dm_t, dm_j, rtol=2e-3, atol=1e-8)
+    else:
+        np.testing.assert_allclose(s_t, s_j, atol=2e-3 * scale)
+        np.testing.assert_allclose(mn_t, mn_j, rtol=1e-3)
+        np.testing.assert_allclose(dm_t, dm_j, rtol=1e-3, atol=1e-8)
+
+
+# (a0, weights, Delta, body, init, storage, B indefinite): k = 1, 3, 4, 5,
+# every term form in a0 and in the weights
+GEN_CASES = [
+    ("affine", ("one",), 1e6, "pair", False, "f32", False),
+    ("stored", ("stored",), 1.0, "single", True, "bf16", False),
+    ("fn", ("twice",), 0.5, "pair", True, "f32", True),
+    ("shifted", ("one", "twice", "stored"), 1e6, "pair", True, "f32", False),
+    ("fn", ("fn", "one", "affine"), 0.4, "single", False, "f32", False),
+    ("shifted", ("one", "twice", "stored"), 1.0, "pair", False, "bf16",
+     False),
+    ("stored", ("one", "twice", "fn"), 5.0, "single", False, "f32", True),
+    ("stored", ("one", "twice", "stored", "fn"), 1e6, "pair", False, "f32",
+     False),
+    ("affine", ("stored", "fn", "one", "twice"), 0.5, "single", True, "f32",
+     False),
+    ("fn", ("one", "twice", "stored", "fn"), 0.4, "pair", True, "bf16",
+     False),
+    ("shifted", ("one", "twice", "stored", "fn", "affine"), 1e6, "pair",
+     False, "f32", False),
+]
+
+
+@pytest.mark.parametrize(
+    "a0,ws,Delta,body,with_init,storage,indef", GEN_CASES,
+    ids=[f"k{len(c[1])}-{c[0]}-{'.'.join(c[1])}-{c[2]:g}-{c[3]}-"
+         f"init{int(c[4])}-{c[5]}{'-indef' if c[6] else ''}"
+         for c in GEN_CASES])
+def test_general_k_plain_version_matches_pallas(a0, ws, Delta, body,
+                                                with_init, storage, indef):
+    g, x, B = _gen_inputs(len(ws), seed=len(ws) + 10 * int(indef),
+                          indefinite=indef)
+    jr, tr = _gen_run(g, x, B, a0, ws, Delta, body, with_init, storage)
+    assert tr.s.dtype == (torch.bfloat16 if storage == "bf16"
+                          else torch.float32)
+    if storage == "f32" and not indef and Delta >= 1e6:
+        assert int(tr.num_iterations) > 3       # a multi-iteration run
+    _assert_gen_parity(jr, tr, storage)
+
+
+# (P, a0, weights, Delta, body, storage): every prec_chunk form at k = 1, 3, 4
+GEN_PREC_CASES = [
+    ("jacobi", "shifted", ("one", "twice", "stored"), 1e6, "pair", "f32"),
+    ("quarter", "fn", ("one", "fn", "affine"), 0.5, "single", "bf16"),
+    ("stored", "stored", ("one", "twice", "stored", "fn"), 0.6, "single",
+     "f32"),
+    ("fn", "affine", ("stored",), 1e6, "pair", "f32"),
+    ("quarter", "stored", ("one", "twice", "fn", "affine"), 1e6, "pair",
+     "f32"),
+]
+
+
+@pytest.mark.parametrize(
+    "form,a0,ws,Delta,body,storage", GEN_PREC_CASES,
+    ids=[f"{c[0]}-k{len(c[2])}-{c[1]}-{c[3]:g}-{c[4]}-{c[5]}"
+         for c in GEN_PREC_CASES])
+def test_general_k_prec_plain_version_matches_pallas(form, a0, ws, Delta,
+                                                     body, storage):
+    g, x, B = _gen_inputs(len(ws), seed=20 + len(ws))
+    jr, tr = _gen_run(g, x, B, a0, ws, Delta, body, False, storage,
+                      prec_form=form)
+    _assert_gen_parity(jr, tr, storage, prec=True)
+
+
+def test_sphere_family_in_the_general_form_is_bitwise_the_same():
+    """The k = 2 sphere family written with general terms (a0 stored as
+    2a - rq, weights (None, stored 2a)) gives bitwise the plain version's
+    result with the sphere descriptors, with and without P (a JacobiPower
+    on A0 is the sphere's (|2a - rq| + c)^(-e)), and through the wrapper's
+    CPU route."""
+    g, x, rq, B, b, kw = _fixture("pd")
+    tg, tx, tB, trq = (torch.from_numpy(g), torch.from_numpy(x),
+                       torch.from_numpy(B), torch.tensor(rq))
+    diag = T.AffineDiagonal(1.0, b)
+    a = diag.values(N, "cpu")
+    a0c, weights, _ = T.sphere_rayleigh_streamed(diag, n_aux=1)
+    a0_stored, w_stored = 2.0 * a - trq, (None, 2.0 * a)
+    desc = T.JacobiPower(1.0, 0.25)
+    for extra in ({}, {"prec_chunk": desc}):
+        def run(a0_chunk, w, fn=T.stpcg_flat_streamed_reference):
+            kx = dict(kw, **extra)
+            if extra:
+                kx["prec"] = T.prec_map(desc, a0_chunk, (trq,), N, "cpu")
+            return fn(tg, tx, tB, 1e6, (trq,), a0_chunk=a0_chunk,
+                      weights=w, **kx)
+        sphere = run(a0c, weights)
+        general = run(a0_stored, w_stored)
+        wrapped = run(a0_stored, w_stored, fn=T.stpcg_flat_streamed)
+        assert int(sphere.num_iterations) > 3
+        for res in (general, wrapped):
+            assert torch.equal(res.s, sphere.s)
+            assert all(torch.equal(u, v) for u, v in zip(res[1:],
+                                                         sphere[1:]))
+    # the sphere's own prec map is JacobiPower.map, and equals prec_map's
+    assert torch.equal(desc.map(diag, trq, N, "cpu").values(),
+                       T.prec_map(desc, a0c, (trq,), N, "cpu").values())
+
+
+def test_general_validation_matches_jax():
+    """The JAX wrapper's refusals, raised by both packages on the same call
+    (B of the wrong shape, storage dtype, x's dtype, one form of P, init=
+    with P), and the port's own: k = 0 (JAX's kernel fails on it with a
+    ZeroDivisionError in interpret mode), a chunk generator or an unknown
+    object where a term belongs, a stored term of the wrong shape, a
+    ShiftedDiagonal without aux scalars."""
+    g, x, B = _gen_inputs(3, seed=3)
+    ja0, ta0 = _term_pair("shifted")
+    jw, tw = zip(*[_term_pair(f) for f in ("one", "twice", "stored")])
+    jaux = tuple(jnp.float32(a) for a in AUX)
+    taux = tuple(torch.tensor(a) for a in AUX)
+    jg, jx = jnp.asarray(g), jnp.asarray(x)
+    tg, tx = torch.from_numpy(g), torch.from_numpy(x)
+    a0v = _term_values("shifted")
+    jinit = j_init_dots(jg, lambda v: jnp.asarray(a0v) * v,
+                        (jx,), jnp.eye(1, dtype=jnp.float32))
+    tinit = flat_init_dots(tg, lambda v: torch.from_numpy(a0v) * v, (tx,),
+                           torch.eye(1))
+    jpc, jpf, tpc, tpf = _gen_prec("jacobi", "shifted", ta0, taux)
+    cases = [
+        ("B must be", dict(B=np.eye(2, dtype=np.float32)), {}),
+        ("storage dtype", dict(dtype=(jnp.float16, torch.float16)), {}),
+        ("share the storage", dict(xdtype=(jnp.bfloat16, torch.bfloat16)),
+         {}),
+        ("(?i)both forms", dict(), dict(prec_chunk=(jpc, tpc))),
+        ("(?i)both forms", dict(), dict(prec=(jpf, tpf))),
+        ("init", dict(), dict(prec_chunk=(jpc, tpc), prec=(jpf, tpf),
+                              init=(jinit, tinit))),
+    ]
+    for msg, inp, kwp in cases:
+        Bv = inp.get("B", B)
+        jd, td = inp.get("dtype", (jnp.float32, torch.float32))
+        jxd, txd = inp.get("xdtype", (jd, td))
+        jk = {name: v[0] for name, v in kwp.items()}
+        tk = {name: v[1] for name, v in kwp.items()}
+        with pytest.raises(ValueError, match=msg):
+            J.stpcg_flat_streamed(
+                jg.astype(jd), jx.astype(jxd), jnp.asarray(Bv), 1.0,
+                aux_scalars=jaux, a0_chunk=ja0, weights=jw, chunk_rows=CR,
+                interpret=True, **jk)
+        for fn in (T.stpcg_flat_streamed, T.stpcg_flat_streamed_reference):
+            with pytest.raises(ValueError, match=msg):
+                fn(tg.to(td), tx.to(txd), torch.from_numpy(Bv), 1.0, taux,
+                   a0_chunk=ta0, weights=tw, **tk)
+
+    def call(**k):
+        kw = dict(dict(a0_chunk=ta0, weights=tw), **k)
+        Bk = kw.pop("B", torch.from_numpy(B))
+        return T.stpcg_flat_streamed(tg, tx, Bk, 1.0, kw.pop("aux", taux),
+                                     **kw)
+
+    with pytest.raises(ValueError, match="at least one"):
+        call(weights=(), B=torch.zeros(0, 0))
+    with pytest.raises(TypeError, match="chunk generators"):
+        call(a0_chunk=ja0)
+    with pytest.raises(TypeError, match="chunk generators"):
+        call(weights=(None, jw[1], 3.0))
+    with pytest.raises(ValueError, match="stored weight"):
+        call(weights=(None, None, torch.ones(7)))
+    with pytest.raises(ValueError, match="aux"):
+        call(aux=())
+
+
+# ------------------------------------------ the rank-3 path: TNT, k = 3 --
+#
+# The sphere Rayleigh quotient with a quartic term, f(x) = <x, a x> +
+# (mu/4) q^2, q = <x, c x>, a = 1 + b i (kappa = 1000), c in [0, 1], mu =
+# 10.  On the unit sphere grad f = d x with d = 2a + mu q c, lam = <x, d x>,
+# and the projected Hessian P (Hess f - lam) P is A0 + U B U' with
+# A0 = d - lam, U = (x, a x, c x) and
+# B = [[2 lam + 2 mu q^2, -2, -3 mu q], [-2, 0, 0], [-3 mu q, 0, 2 mu]]:
+# weights (None, a, c), a0 a function of aux = (lam, q) and of c.  The JAX
+# kernel cannot capture an array, so c is an index formula,
+# ((s1 i + s0) mod 10007) / 10007 with (s0, s1) drawn by numpy from a seed.
+
+MU = 10.0
+R3_B = 999.0 / (N - 1)
+R3_S0, R3_S1 = (int(v) for v in np.random.default_rng(11).integers(
+    1, 10007, 2))
+
+
+def _r3_c(i):
+    """c(i) for an int32 (JAX) or int64 (torch) index array, f32."""
+    if isinstance(i, torch.Tensor):
+        return ((i * R3_S1 + R3_S0) % 10007).float() / 10007.0
+    return ((i * R3_S1 + R3_S0) % 10007).astype(jnp.float32) / 10007.0
+
+
+def rank3_operator(x, a, c, mu=MU):
+    """(a0, U, B, lam, q) of the rank-3 operator at the unit x (torch, any
+    float dtype): A0 = diag(a0), U = (x, a x, c x)."""
+    q = torch.dot(x, c * x)
+    lam = torch.dot(x, (2.0 * a + mu * q * c) * x)
+    a0 = 2.0 * a + (mu * q) * c - lam
+    z = torch.zeros((), dtype=x.dtype)
+    B = torch.stack([torch.stack([2.0 * lam + 2.0 * mu * q * q, z - 2.0,
+                                  -3.0 * mu * q]),
+                     torch.stack([z - 2.0, z, z]),
+                     torch.stack([-3.0 * mu * q, z, z + 2.0 * mu])])
+    return a0, (x, a * x, c * x), B, lam, q
+
+
+def test_rank3_operator_is_the_projected_hessian():
+    """In f64 with autograd: (A0 + U B U') v == P Hess f v - lam v for
+    tangent v at random points of the sphere."""
+    n = 64
+    rng = np.random.default_rng(5)
+    a = torch.from_numpy(1.0 + 999.0 / (n - 1) * np.arange(n))
+    c = torch.from_numpy(rng.uniform(0.0, 1.0, n))
+
+    def f(x):
+        q = torch.dot(x, c * x)
+        return torch.dot(x, a * x) + 0.25 * MU * q * q
+
+    for _ in range(3):
+        x = torch.from_numpy(rng.standard_normal(n))
+        x = x / torch.linalg.vector_norm(x)
+        v = torch.from_numpy(rng.standard_normal(n))
+        v = v - torch.dot(x, v) * x
+        a0, U, B, lam, _ = rank3_operator(x, a, c)
+        Ut = torch.stack(U)
+        Hv = a0 * v + Ut.T @ (B @ (Ut @ v))
+        egrad = torch.func.grad(f)(x)
+        ehv = torch.func.jvp(torch.func.grad(f), (x,), (v,))[1]
+        ref = ehv - torch.dot(x, ehv) * x - lam * v
+        torch.testing.assert_close(lam, torch.dot(x, egrad), rtol=1e-12,
+                                   atol=0)
+        torch.testing.assert_close(Hv, ref, rtol=1e-10, atol=1e-10)
+
+
+def _r3_problems():
+    """The rank-3 problem in both packages: (JAX problem with the
+    interpret-mode kernel behind flat_solve, the port's problem with the
+    plain version behind flat_solve, the port's problem with flat_qm)."""
+    from optimization_tpu import RiemannianProblem as JProblem
+    from optimization_tpu.manifolds import sphere as jsphere
+    from optimization_tpu_torch import RiemannianProblem as TProblem
+    from optimization_tpu_torch.manifolds import sphere as tsphere
+
+    def idx(i0):
+        return _idx(i0)
+
+    def a_chunk(i0, aux):
+        return 1.0 + jnp.float32(R3_B) * idx(i0).astype(jnp.float32)
+
+    def c_chunk(i0, aux):
+        return _r3_c(idx(i0))
+
+    def a0_chunk(i0, aux):
+        return (2.0 * a_chunk(i0, aux) + (MU * aux[1]) * c_chunk(i0, aux)
+                - aux[0])
+
+    ja = 1.0 + jnp.float32(R3_B) * jnp.arange(N, dtype=jnp.float32)
+    jc = _r3_c(jnp.arange(N, dtype=jnp.int32))
+    JM = jsphere()
+
+    def jf(x, _):
+        x = x.astype(jnp.float32)
+        q = jnp.dot(x, jc * x)
+        return jnp.dot(x, ja * x) + 0.25 * MU * q * q
+
+    def jgrad(x, _):
+        q = jnp.dot(x, jc * x)
+        return JM.proj(x, (2.0 * ja + MU * q * jc) * x)
+
+    def jflat_solve(g, x, _, aux, Delta, params):
+        q = jnp.dot(x, jc * x)
+        lam = jnp.dot(x, (2.0 * ja + MU * q * jc) * x)
+        B = jnp.stack([
+            jnp.stack([2.0 * lam + 2.0 * MU * q * q, -2.0, -3.0 * MU * q]),
+            jnp.stack([jnp.float32(-2.0), 0.0, 0.0]),
+            jnp.stack([-3.0 * MU * q, 0.0, 2.0 * MU])]).astype(jnp.float32)
+        return J.stpcg_flat_streamed(
+            g, x, B, Delta, aux_scalars=(lam, q), a0_chunk=a0_chunk,
+            weights=(None, a_chunk, c_chunk), chunk_rows=CR, interpret=True,
+            max_iterations=params.max_TPCG_iterations,
+            kappa_fgr=params.kappa_fgr, theta=params.theta)
+
+    diag = T.AffineDiagonal(1.0, R3_B)
+    ta = diag.values(N, "cpu")
+    tc = _r3_c(torch.arange(N))
+    TM = tsphere()
+    a0fn = T.ElementwiseFn(
+        lambda i, aux: 2.0 * ta + (MU * aux[1]) * tc - aux[0])
+
+    def tf(x, _):
+        q = torch.dot(x, tc * x)
+        return torch.dot(x, ta * x) + 0.25 * MU * q * q
+
+    def tgrad(x, _):
+        q = torch.dot(x, tc * x)
+        return TM.proj(x, (2.0 * ta + MU * q * tc) * x)
+
+    def tflat_solve(g, x, _, aux, Delta, params):
+        _, _, B, lam, q = rank3_operator(x, ta, tc)
+        return T.stpcg_flat_streamed(
+            g, x, B, Delta, (lam, q), a0_chunk=a0fn,
+            weights=(None, diag, tc),
+            max_iterations=params.max_TPCG_iterations,
+            kappa_fgr=params.kappa_fgr, theta=params.theta)
+
+    def tflat_qm(x, _, aux=None):
+        a0, U, B, _, _ = rank3_operator(x, ta, tc)
+        return (lambda v: a0 * v), U, B
+
+    return (JProblem(f=jf, manifold=JM, grad=jgrad, flat_solve=jflat_solve),
+            TProblem(f=tf, manifold=TM, grad=tgrad, flat_solve=tflat_solve),
+            TProblem(f=tf, manifold=TM, grad=tgrad, flat_qm=tflat_qm))
+
+
+def test_rank3_tnt_through_flat_solve_matches_jax():
+    """TNT through ``flat_solve`` on the rank-3 operator: the port's plain
+    version against JAX's ``tnt.solve`` with the interpret-mode kernel, f32
+    at n = 8192 from one numpy start (|grad| <= 2e-2 is reached at outer
+    iteration 15, before f32's floor, where the late subproblems part):
+    same status and outer count, CG counts within 1 an outer iteration, f
+    within 1e-5 relative.  The port's eager flat engine through ``flat_qm``
+    on the same problem ends the same way."""
+    from optimization_tpu.solvers import tnt as jtnt
+    from optimization_tpu_torch.core.types import TNTStatus
+    from optimization_tpu_torch.interop import params_from_jax
+    from optimization_tpu_torch.solvers import tnt as ttnt
+
+    jp, tp, tq = _r3_problems()
+    params = jtnt.TNTParams(
+        max_iterations=30, max_TPCG_iterations=50, gradient_tolerance=2e-2,
+        relative_decrease_tolerance=0.0, stepsize_tolerance=0.0,
+        preconditioned_gradient_tolerance=0.0)
+    rng = np.random.default_rng(11)
+    x0 = rng.standard_normal(N).astype(np.float32)
+    x0 /= np.linalg.norm(x0)
+    jr = jtnt.solve(jp, jnp.asarray(x0), params)
+    tparams = params_from_jax(params)
+    tr = ttnt.solve(tp, torch.from_numpy(x0), tparams)
+    qr = ttnt.solve(tq, torch.from_numpy(x0), tparams)
+    k = int(jr.num_iterations)
+    assert int(tr.status) == int(jr.status) == TNTStatus.GRADIENT
+    assert int(tr.num_iterations) == k and k > 10
+    ji = np.asarray(jr.inner_iterations)[:k]
+    ti = tr.inner_iterations[:k].numpy()
+    assert np.abs(ti - ji).max() <= 1, (ti, ji)
+    assert ji.sum() > 100
+    np.testing.assert_allclose(float(tr.f), float(jr.f), rtol=1e-5)
+    assert int(qr.status) == int(tr.status)
+    assert int(qr.num_iterations) == k
+    np.testing.assert_allclose(float(qr.f), float(tr.f), rtol=1e-5)

@@ -41,20 +41,24 @@ non-zero exit and no result line:
    the agreement of f checked; then each fused kernel timed against its
    plain version at n = 2^24 f32;
 7. ``gram_pair`` against its plain version (and a float64 product) at
-   100,000 x 48, 999 x 30, 16 x 10,000 x 48, 5,000 x 96 (the k cap),
-   30,000 x 8, 16 and 24 and 3,000 x 8 and 24 (the pose path's spectral
-   inits and certificates at n = 10^4 and 1,000: nx = 8, then S of 3 nx),
-   with BS distinct and with BS = S (the route that reads S once),
-   ``stream3_probe`` at n = 2^24, 999,999 and 100, f32 and bf16, bitwise
-   repeats; gram_pair timed at 100,000 x 48 (BS distinct and BS = S, the
-   LOBPCG call) and 16 x 10,000 x 48 in f32 and bf16 beside its plain
+   100,000 x 48, 999 x 30, 16 x 10,000 x 48, 5,000 x 96 (the widest
+   single-panel k), 30,000 x 8, 16 and 24 and 3,000 x 8 and 24 (the pose
+   path's spectral inits and certificates at n = 10^4 and 1,000: nx = 8,
+   then S of 3 nx), and the panel route's 100,000 x 97, 120 and 192 and
+   16 x 10,000 x 120 (nx = 33, 40, 64), with BS distinct and with BS = S
+   (the route that reads S once), ``stream3_probe`` at n = 2^24, 999,999
+   and 100, f32 and bf16, bitwise repeats; gram_pair timed at 100,000 x 48
+   (BS distinct and BS = S, the LOBPCG call), 16 x 10,000 x 48 and each
+   k > 96 shape (BS distinct and BS = S) in f32 and bf16 beside its plain
    version, the one-call library product (``torch.matmul``) and its bound;
    stream3_probe's GB/s at n = 2^24 f32 is the measured bandwidth ceiling;
 8. the eigensolver path: ``lobpcg`` on config3 (m = 1e5, nx = 16, nev = 5,
    A = diag(linspace(1, m)), the exact inverse preconditioner; a converged
    f32 solve with ``rr_method`` "eigh" then "chol", gated at
    max|theta - (1..5)| < 5e-2, nev converged, pencil consistent; the f64
-   matmul route as the reference), ``lobpcg_fleet`` on config10 (16 x
+   matmul route as the reference), then one f32 "eigh" solve at nx = 40
+   (a basis of 120 columns: gram_pair's panel route) with the same gates
+   against its own f64 solve, ``lobpcg_fleet`` on config10 (16 x
    m = 1e4, "chol"; every instance converged and consistent); the
    gram_pair launches checked against 1 + iterations per solve; block it/s
    of fixed-iteration runs; host syncs per iteration;
@@ -1033,7 +1037,9 @@ GRAM_TOLERANCES = """\
       its side); bf16 storage: bf16 x bf16 products, exact in f32 on both;
       both sum in f32 in other orders (the kernel per mma accumulator over
       a block's row tiles, then the blocks in double; cuBLAS in its own
-      split);
+      split); at the long-chain shapes (GRAM_LONG) against the float64
+      product alone: there the plain version's own f32 sums can miss the
+      same tolerance (its err/tol against float64 is printed, not gated);
     stream3_probe: f32 bit for bit (the same three roundings in the same
       order); bf16 2^-6 |(d+2) v scale| -- the plain version rounds after
       each bf16 operation, the kernel once on store.
@@ -1041,26 +1047,55 @@ GRAM_TOLERANCES = """\
 GRAM_SHAPES = ((100_000, 48), (999, 30), (16, 10_000, 48), (5_000, 96),
                (30_000, 8), (30_000, 16), (30_000, 24), (3_000, 8),
                (3_000, 24))
+# k > 96, the panel route: LOBPCG's basis of nx = 33, 40 and 64 (3 nx
+# columns) at config3's m, and config10's fleet at nx = 40
+GRAM_WIDE = ((100_000, 97), (100_000, 120), (100_000, 192),
+             (16, 10_000, 120))
+# k <= 96 with a warp's chain of k-steps past fused.cu's kSplitSteps: a
+# long row stream a block (4 times config3's m; a fleet of 2 at config3's
+# m; LOBPCG's nx = 32 at config3's m)
+GRAM_LONG = ((400_000, 48), (2, 100_000, 48), (100_000, 96))
 # the timed shapes: config3's Gram stage with BS distinct and BS = S (the
 # LOBPCG call without B, the path's; its entry in the kernels line), and
-# config10's fleet
+# config10's fleet; then each wide shape, BS distinct and BS = S
 GRAM_TIMED = (((100_000, 48), False), ((100_000, 48), True),
-              ((16, 10_000, 48), False))
+              ((16, 10_000, 48), False)) + tuple(
+    (shape, same) for shape in GRAM_WIDE for same in (False, True))
 N_STREAM3 = (1 << 24, 999_999, 100)
 
 
 def gram_bound(shape, same, dtype, torch):
     """(ms, bound_by) of one gram_pair call: 3mk words read (2mk when BS is
-    S), 2 k^2 F written; 2 m k (2k) multiply-adds, three times over on the
-    TF32 tensor cores for f32 storage (the 3xTF32 split), once in bf16."""
+    S), 2 k^2 F written; m k (2k) multiply-adds, or m k (k + (k + 1) / 2)
+    when BS is S (S'S is symmetric: its upper triangle), three times over
+    on the TF32 tensor cores for f32 storage (the 3xTF32 split), once in
+    bf16."""
     rows, k = math.prod(shape[:-1]), shape[-1]
     fleet = math.prod(shape[:-2]) if len(shape) > 2 else 1
     size = 2 if dtype == torch.bfloat16 else 4
     nbytes = (2 if same else 3) * rows * k * size + fleet * 2 * k * k * 4
-    flops = 2 * rows * k * 2 * k
+    flops = 2 * rows * k * (k + (k + 1) / 2 if same else 2 * k)
     if dtype == torch.bfloat16:
         return bound(nbytes, flops, "bf16")
     return bound(nbytes, 3 * flops, "tf32")
+
+
+def hold_gram(torch, tag, got, ref, S, X, long_chain):
+    """One Gram of gram_pair within 1e-5 sum|S||X| of the plain version's
+    (unless long_chain) and of the float64 product; returns max |err|
+    against the first of them."""
+    Sd, Xd = S.double(), X.double()
+    tol = 1e-5 * (Sd.abs().mT @ Xd.abs())
+    exact = Sd.mT @ Xd
+    err = 0.0
+    if long_chain:
+        ratio = float(((ref.double() - exact).abs() / tol).max())
+        print(f"  --   plain version {tag} vs f64 (not gated): max err/tol "
+              f"{ratio:.3f}", flush=True)
+    else:
+        err = check_close(torch, f"gram_pair {tag}", got, ref, tol)
+    f64_err = check_close(torch, f"gram_pair {tag} vs f64", got, exact, tol)
+    return f64_err if long_chain else err
 
 
 def gram_stream3_phase(torch, dev, label):
@@ -1074,9 +1109,10 @@ def gram_stream3_phase(torch, dev, label):
     print("phase 7: gram_pair and stream3_probe vs plain versions on the "
           "card", flush=True)
     print(GRAM_TOLERANCES, end="", flush=True)
-    errs, cases = {}, 0
-    for shape, dtype in itertools.product(GRAM_SHAPES,
-                                          (torch.float32, torch.bfloat16)):
+    errs, cases, wide_err = {}, 0, 0.0
+    for shape, dtype in itertools.product(
+            GRAM_SHAPES + GRAM_LONG + GRAM_WIDE,
+            (torch.float32, torch.bfloat16)):
         gen = torch.Generator(device=dev).manual_seed(sum(shape))
         S, AS, BS = (torch.randn(shape, generator=gen, device=dev).to(dtype)
                      for _ in range(3))
@@ -1086,28 +1122,23 @@ def gram_stream3_phase(torch, dev, label):
         tag = f"{'x'.join(map(str, shape))} {str(dtype)[6:]}"
         err = 0.0
         for name, got, ref, X in (("S'AS", ga, ra, AS), ("S'BS", gb, rb, BS)):
-            Sd, Xd = S.double(), X.double()
-            tol = 1e-5 * (Sd.abs().mT @ Xd.abs())
-            err = max(err, check_close(torch, f"gram_pair {name} {tag}", got,
-                                       ref, tol))
-            check_close(torch, f"gram_pair {name} {tag} vs f64", got,
-                        Sd.mT @ Xd, tol)
+            err = max(err, hold_gram(torch, f"{name} {tag}", got, ref, S, X,
+                                     shape in GRAM_LONG))
         same = torch.equal(ga, ga2) and torch.equal(gb, gb2)
         print(f"  {'ok  ' if same else 'FAIL'} bitwise repeat gram_pair "
               f"{tag}", flush=True)
         if not same:
             raise AssertionError(f"two runs of gram_pair differ: {tag}")
         errs.setdefault("gram_pair", err)
+        if shape[-1] > 96:
+            wide_err = max(wide_err, err)
         cases += 1
         # B = None in LOBPCG passes S as BS: S is read once
         ga, gb = F.gram_pair(S, AS, S)
         ra, rb = F.gram_pair_reference(S, AS, S.clone())
-        Sd = S.double()
         for name, got, ref, X in (("S'AS", ga, ra, AS), ("S'S", gb, rb, S)):
-            tol = 1e-5 * (Sd.abs().mT @ X.double().abs())
-            check_close(torch, f"gram_pair BS = S {name} {tag}", got, ref, tol)
-            check_close(torch, f"gram_pair BS = S {name} {tag} vs f64", got,
-                        Sd.mT @ X.double(), tol)
+            hold_gram(torch, f"BS = S {name} {tag}", got, ref, S, X,
+                      shape in GRAM_LONG)
         ga2, gb2 = F.gram_pair(S, AS, S)
         same = torch.equal(ga, ga2) and torch.equal(gb, gb2)
         print(f"  {'ok  ' if same else 'FAIL'} bitwise repeat gram_pair "
@@ -1144,7 +1175,7 @@ def gram_stream3_phase(torch, dev, label):
 
     # kernel, plain version and the library call (one cuBLAS product of S'
     # and [AS | BS], built outside the timed region; full f32, TF32 off)
-    times = {}
+    times, wide = {}, []
     for (shape, same), dtype in itertools.product(
             GRAM_TIMED, (torch.float32, torch.bfloat16)):
         gen = torch.Generator(device=dev).manual_seed(4)
@@ -1166,10 +1197,17 @@ def gram_stream3_phase(torch, dev, label):
               f"plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
               f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.3f} of the "
               f"bound [{label}]", flush=True)
-        if same and dtype == torch.float32:
+        if same and dtype == torch.float32 and shape == GRAM_TIMED[1][0]:
             times["gram_pair"] = dict(ms=ms, plain_ms=plain_ms,
                                       bound_ms=bound_ms, bound_by=bound_by,
                                       library_ms=lib_ms)
+        if k > 96:
+            wide.append({"shape": list(shape), "bs": "S" if same else
+                         "distinct", "dtype": str(dtype)[6:], "ms": ms,
+                         "plain_ms": plain_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by, "library_ms": lib_ms})
+    # the k > 96 route's shapes ride in gram_pair's entry of the kernels line
+    times["gram_pair"]["wide"] = {"max_abs_err": wide_err, "calls": wide}
 
     n = 1 << 24
     gen = torch.Generator(device=dev).manual_seed(8)
@@ -1238,9 +1276,9 @@ def held_gram_pair(torch):
 
 def lobpcg_phase(torch, dev, label):
     """Phase 8: the eigensolver path at full size (config3: m = 1e5, nx = 16,
-    nev = 5; config10: a fleet of 16 at m = 1e4), the Gram stage through
-    gram_pair; gates, launch counts, block it/s, host syncs per iteration.
-    Returns gram_pair's launches on the path."""
+    and nx = 40 once, nev = 5; config10: a fleet of 16 at m = 1e4), the Gram
+    stage through gram_pair; gates, launch counts, block it/s, host syncs
+    per iteration.  Returns gram_pair's launches on the path."""
     import warnings
 
     from optimization_tpu_torch.kernels import fused as F
@@ -1256,11 +1294,11 @@ def lobpcg_phase(torch, dev, label):
           f"config10 (16 x m = 1e4) [{label}]", flush=True)
     truth = torch.arange(1.0, nev + 1.0, dtype=torch.float64)
 
-    def config3(dtype, rr, max_iterations, tau):
+    def config3(dtype, rr, max_iterations, tau, width=nx):
         # one X0 for both dtypes: drawn in f32, then cast
         d = torch.linspace(1.0, float(m), m, dtype=dtype, device=dev)
         gen = torch.Generator(device=dev).manual_seed(3)
-        X0 = torch.randn((m, nx), generator=gen, device=dev).to(dtype)
+        X0 = torch.randn((m, width), generator=gen, device=dev).to(dtype)
         return lobpcg(lambda S: d[:, None] * S, T=lambda S: S / d[:, None],
                       X0=X0, nev=nev, max_iterations=max_iterations,
                       tau=tau, generator=gen, rr_method=rr)
@@ -1313,6 +1351,31 @@ def lobpcg_phase(torch, dev, label):
           f"{gap:.3e}, {secs:.3f} s [{label}]", flush=True)
     if not (gap < 5e-2 and int(f64.num_converged) >= nev):
         raise AssertionError("config3: the f32 route disagrees with f64")
+    # nx = 40: a basis of 120 columns, gram_pair's k > 96 panel route
+    wide, secs = timed_solve(
+        torch, dev, lambda: config3(torch.float32, "eigh", 100, 1e-4, 40))
+    expected += 1 + int(wide.num_iterations)
+    if F.gram_pair.launches != expected:
+        raise AssertionError(f"gram_pair launches {F.gram_pair.launches} != "
+                             f"{expected} (1 + iterations per solve) after "
+                             f"the nx = 40 solve")
+    wide64, secs64 = timed_solve(
+        torch, dev, lambda: config3(torch.float64, "eigh", 100, 1e-4, 40))
+    err = float((wide.theta.double().cpu() - truth).abs().max())
+    gap = float((wide.theta.double() - wide64.theta).abs().max())
+    print(f"  nx = 40 (k = 120): f32 eigh {int(wide.num_iterations)} it, nc "
+          f"{int(wide.num_converged)}, max|theta - (1..5)| {err:.3e}, "
+          f"consistent {bool(wide.pencil_consistent)}, {secs:.3f} s; f64 "
+          f"{int(wide64.num_iterations)} it, {secs64:.3f} s; f32 vs f64 "
+          f"{gap:.3e} [{label}]", flush=True)
+    if not (err < 5e-2 and gap < 5e-2 and int(wide.num_converged) >= nev
+            and int(wide64.num_converged) >= nev
+            and bool(wide.pencil_consistent)
+            and bool(torch.isfinite(wide.X).all())
+            and wide.X.shape == (m, nev)):
+        raise AssertionError("config3 nx = 40: the gate failed")
+    if F.gram_pair.launches != expected:
+        raise AssertionError("the f64 route launched gram_pair")
 
     before = F.gram_pair.launches
     fl, secs = timed_solve(torch, dev, lambda: config10(100, 1e-4))
@@ -1808,7 +1871,11 @@ def pinned_stream_arms(torch, dev, label, ceiling, n=N_MAIN, window=False):
 
 def resident_body_arms(torch, dev, label, ceiling, sizes=(N_MAIN, 1 << 22)):
     """Time the arms of ``resident_body`` in bf16 storage; prints one line
-    an arm and returns {(arm, n): (ms an iteration, held info)}."""
+    an arm and returns {(arm, n): (ms an iteration, held info)}.  The GB/s
+    count the words an iteration reads and writes outside shared memory;
+    the kernel walks every other iteration backwards, so L2 serves the
+    lines at each turn and a rate above the device-memory ceiling is
+    possible."""
     from optimization_tpu_torch.kernels import probes as P
 
     out = {}
@@ -1824,8 +1891,9 @@ def resident_body_arms(torch, dev, label, ceiling, sizes=(N_MAIN, 1 << 22)):
             b_bytes, _ = bound(5 * 2 * n, 0)
             b_ops, _ = bound(0, 25 * n)
             print(f"  {name}: {ms:.4f} ms an iteration, {gbs:.0f} GB/s of "
-                  f"{real:.3f} n real bf16 words = {gbs / ceiling:.3f} of the "
-                  f"measured ceiling; bounds: 5 n words streamed "
+                  f"the {real:.3f} n bf16 words outside shared memory = "
+                  f"{gbs / ceiling:.3f} of the measured ceiling; bounds: 5 n "
+                  f"words streamed "
                   f"{b_bytes:.4f} ms, 25 flops an element {b_ops:.4f} ms; "
                   f"held in shared memory: r, p {held['rp_shared']:.3f}, x "
                   f"{held['x_shared']:.3f}; n = {n} bf16 [{label}]",

@@ -25,8 +25,9 @@
 // about 30 MB together, and a part of the 50 MB L2 can be set aside for
 // persisting lines.  So the design keeps what fits and streams the rest:
 //
-// - one persistent cooperative launch for all K iterations, kBlocksPerSM
-//   blocks of kThreads threads on every SM;
+// - one persistent cooperative launch for all K iterations (pinned_stream:
+//   kBlocksPerSM blocks of kThreads threads on every SM; resident_body:
+//   one block of kBodyThreads);
 // - the vector's 16-byte groups are split into contiguous regions (held /
 //   streamed); every block owns a fixed slice of each held region for the
 //   whole loop (pinned_stream walks its streamed region grid-wide), so a
@@ -37,14 +38,28 @@
 //   misses) over the rest of x;
 // - resident_body keeps its slices of r and p (then x, if room is left) in
 //   shared memory in the storage type, rounding as a store would, and writes
-//   r back once;
+//   r back once.  At n = 2^24 that is 0.45 of r and p, and each iteration
+//   streams the rest of r and p (2.2 n words) and reads all of x (n words,
+//   33.5 MB in bf16, which fits the 50 MB L2 only if the streamed lines do
+//   not push it out).  A thread walks its held and its streamed items in
+//   one loop, one of each a trip, with the next trip's loads in flight
+//   while this one computes and the next iteration's first loads issued
+//   before the grid-wide sum, so that device memory is not idle while the
+//   held items compute or while the grid waits at its barrier; and odd
+//   iterations walk the trips backwards, so that each iteration starts on
+//   the lines of x (and of the streamed r and p) that the last one touched
+//   last, which L2 still holds.  Per-access L2 eviction priority (x
+//   evict_last, the streamed r and p evict_first) and the persisting L2
+//   carve-out were measured and left out: neither kept x in L2, and the
+//   evict_first lines cost the streamed r and p that reuse
+//   (profile_resident_body.py, PERF.md);
 // - the per-thread f32 partial sums are reduced per block and then over the
 //   grid in double in a fixed order after one grid.sync() per iteration, and
 //   every thread advances the scalar recurrence redundantly: no atomics, no
 //   scalar ever goes to the host, two runs are bitwise equal;
 // - the held and the not-held arm of a kernel use ONE geometry (grid,
-//   regions, thread-to-element map) and differ only in where an operand is
-//   read from, so their results are bitwise equal too.
+//   regions, thread-to-element map, order of the items) and differ only in
+//   where an operand is read from, so their results are bitwise equal too.
 //
 // chunk_reader replaces benchmarks/probe_graph_stream.py:mk_chunk_reader (the
 // Pallas TPU kernel that DMAs n_fetch chunks of gr x 128 f32 words from device
@@ -109,13 +124,15 @@ __device__ __forceinline__ Slice block_slice(long long g0, long long g1) {
   return Slice{b, e - b};
 }
 
-// Block + grid reduction of NACC per-thread partials: this block's sums go
-// to partial[par], one grid.sync(), then every block adds all the blocks'
-// sums in one fixed order, so `out` is bitwise the same in every thread.
-template <int NACC>
+// Block + grid reduction of NACC per-thread partials over blocks of NT
+// threads: this block's sums go to partial[par], one grid.sync(), then
+// every block adds all the blocks' sums in one fixed order, so `out` is
+// bitwise the same in every thread.
+template <int NT, int NACC>
 __device__ void grid_sum(cg::grid_group& grid, double* partial, int par,
                          double (*red)[kMaxAcc], double* tot,
                          const float (&acc)[NACC], float (&out)[NACC]) {
+  constexpr int NW = NT / 32;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
 #pragma unroll
@@ -129,13 +146,24 @@ __device__ void grid_sum(cg::grid_group& grid, double* partial, int par,
   double* part = partial + (size_t)par * gridDim.x * kMaxAcc;
   if (threadIdx.x < NACC) {
     double v = 0.0;
-    for (int w = 0; w < kWarps; ++w) v += red[w][threadIdx.x];
+    for (int w = 0; w < NW; ++w) v += red[w][threadIdx.x];
     part[(size_t)blockIdx.x * kMaxAcc + threadIdx.x] = v;
   }
   grid.sync();
-  for (int a = warp; a < NACC; a += kWarps) {
+  for (int a = warp; a < NACC; a += NW) {
+    // lane l adds the partials of blocks l, l + 32, ... in that order; the
+    // loads of eight of them are issued before the first add
     double v = 0.0;
-    for (unsigned b = lane; b < gridDim.x; b += 32) v += part[(size_t)b * kMaxAcc + a];
+    for (unsigned b0 = lane; b0 < gridDim.x; b0 += 32 * 8) {
+      double t[8];
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const unsigned b = b0 + 32 * q;
+        t[q] = b < gridDim.x ? part[(size_t)b * kMaxAcc + a] : 0.0;
+      }
+#pragma unroll
+      for (int q = 0; q < 8; ++q) v += t[q];
+    }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
     if (lane == 0) tot[a] = v;
@@ -263,7 +291,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM) pinned_stream_kernel(P
     pinned_sweep<WITH_S>(P, rest, rest_first, rest_step, nullptr, rs, ps, ss,
                          a, a2, part);
     float out[2];
-    grid_sum<2>(grid, P.partial, par, red, tot, part, out);
+    grid_sum<kThreads, 2>(grid, P.partial, par, red, tot, part, out);
     par ^= 1;
     acc = out[0] + out[1];
   }
@@ -271,6 +299,14 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM) pinned_stream_kernel(P
 }
 
 // ------------------------------------------------------------ resident_body
+
+// One block of kBodyThreads threads on every SM: the SM's whole shared
+// memory for one block (two blocks an SM hold 0.6% less, each losing its
+// own reserve), and up to 85 registers a thread, room for a trip's loads in
+// flight beside the trip being computed.
+constexpr int kBodyThreads = 768;
+constexpr int kBodyBlocksPerSM = 1;
+constexpr int kBodyWarps = kBodyThreads / 32;
 
 struct BodyParams {
   const void* r_in;
@@ -283,7 +319,6 @@ struct BodyParams {
   long long n;
   long long g1;        // groups [0, g1): r, p and x held in shared memory
   long long g2;        // groups [g1, g2): r and p held; [g2, G): streamed
-  int resident;        // the held regions are really held (else streamed)
   int iterations;
   float b;
 };
@@ -303,128 +338,240 @@ __device__ __forceinline__ Coefs coefs_from(const float (&d)[kMaxAcc]) {
   return c;
 }
 
-// One iteration's pass over a slice.  sm_r / sm_p / sm_x: this block's copy
-// of the slice in shared memory (storage type), or nullptr for device
-// memory (rs, ps, P.x in; P.r, P.p out).
-template <typename T>
-__device__ __forceinline__ void body_sweep(
-    const BodyParams& P, Slice sl, const T* rs, const T* ps, T* sm_r, T* sm_p,
-    const T* sm_x, const Coefs& c, float (&part)[kMaxAcc]) {
-  constexpr int W = Store<T>::W;
-  const T* x = static_cast<const T*>(P.x);
-  T* r_out = static_cast<T*>(P.r);
-  T* p_out = static_cast<T*>(P.p);
-  for (long long j = threadIdx.x; j < sl.len; j += kThreads) {
-    const long long i = (sl.begin + j) * W;
-    float rc[W], pc[W], xc[W], rn[W], pn[W];
-    if (sm_r != nullptr) {
-      Store<T>::load(sm_r, j * W, kNoBound, rc);
-      Store<T>::load(sm_p, j * W, kNoBound, pc);
-    } else {
-      Store<T>::load(rs, i, P.n, rc);
-      Store<T>::load(ps, i, P.n, pc);
-    }
-    if (sm_x != nullptr) Store<T>::load(sm_x, j * W, kNoBound, xc);
-    else Store<T>::load(x, i, P.n, xc);
+// A 16-byte group of storage type T as raw words, unpacked to f32 and packed
+// back with the rounding of Store<T>::store.
+template <typename T> struct Raw;
+template <> struct Raw<float> {
+  __device__ static void unpack(const uint4& u, float (&v)[4]) {
+    v[0] = __uint_as_float(u.x); v[1] = __uint_as_float(u.y);
+    v[2] = __uint_as_float(u.z); v[3] = __uint_as_float(u.w);
+  }
+  __device__ static uint4 pack(const float (&v)[4]) {
+    return make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]),
+                      __float_as_uint(v[2]), __float_as_uint(v[3]));
+  }
+};
+template <> struct Raw<__nv_bfloat16> {
+  __device__ static void unpack(const uint4& u, float (&v)[8]) {
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
-    for (int e = 0; e < W; ++e) {
-      const float a = affine_diag(P.b, i + e);
-      const float a0 = 2.f * a - c.rq;
-      const float u1 = (2.f * a) * xc[e];
-      pn[e] = -rc[e] + c.beta * pc[e];
-      const float q = a0 * pn[e] + c.c0 * xc[e] + c.c1 * u1;
-      rn[e] = rc[e] + c.crr * q;
-      const float a0r = a0 * rn[e];
-      const float a0p = a0 * pn[e];
-      part[0] += rn[e] * rn[e];
-      part[1] += a0r * rn[e];
-      part[2] += a0r * a0r;
-      part[3] += a0r * a0p;
-      part[4] += xc[e] * a0r;
-      part[5] += u1 * a0r;
+    for (int q = 0; q < 4; ++q) {
+      v[2 * q] = __uint_as_float(w[q] << 16);
+      v[2 * q + 1] = __uint_as_float(w[q] & 0xffff0000u);
     }
-    // r and p round to storage here, in shared memory as in device memory
-    if (sm_r != nullptr) {
-      Store<T>::store(sm_r, j * W, kNoBound, rn);
-      Store<T>::store(sm_p, j * W, kNoBound, pn);
-    } else {
-      Store<T>::store(r_out, i, P.n, rn);
-      Store<T>::store(p_out, i, P.n, pn);
+  }
+  __device__ static uint4 pack(const float (&v)[8]) {
+    uint32_t w[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * q], v[2 * q + 1]);
+      w[q] = *reinterpret_cast<const uint32_t*>(&h);
     }
+    return make_uint4(w[0], w[1], w[2], w[3]);
+  }
+};
+
+// The group at element i of a vector of n as raw words (zeros past n:
+// Store<T>::load), and the store of one (stores past n dropped).
+template <typename T>
+__device__ __forceinline__ uint4 load_group(const T* p, long long i,
+                                           long long n) {
+  if (i + Store<T>::W <= n) return *reinterpret_cast<const uint4*>(p + i);
+  float f[Store<T>::W];
+  Store<T>::load(p, i, n, f);
+  return Raw<T>::pack(f);
+}
+template <typename T>
+__device__ __forceinline__ void store_group(T* p, long long i, long long n,
+                                            const float (&v)[Store<T>::W]) {
+  if (i + Store<T>::W <= n) *reinterpret_cast<uint4*>(p + i) = Raw<T>::pack(v);
+  else Store<T>::store(p, i, n, v);
+}
+
+// The chunk body on one group at element i: r, p, x in, rn, pn out, the six
+// dots accumulated.
+template <int W>
+__device__ __forceinline__ void body_group(long long i, float b,
+                                           const float (&rc)[W],
+                                           const float (&pc)[W],
+                                           const float (&xc)[W], const Coefs& c,
+                                           float (&rn)[W], float (&pn)[W],
+                                           float (&part)[kMaxAcc]) {
+#pragma unroll
+  for (int e = 0; e < W; ++e) {
+    const float a = affine_diag(b, i + e);
+    const float a0 = 2.f * a - c.rq;
+    const float u1 = (2.f * a) * xc[e];
+    pn[e] = -rc[e] + c.beta * pc[e];
+    const float q = a0 * pn[e] + c.c0 * xc[e] + c.c1 * u1;
+    rn[e] = rc[e] + c.crr * q;
+    const float a0r = a0 * rn[e];
+    const float a0p = a0 * pn[e];
+    part[0] += rn[e] * rn[e];
+    part[1] += a0r * rn[e];
+    part[2] += a0r * a0r;
+    part[3] += a0r * a0p;
+    part[4] += xc[e] * a0r;
+    part[5] += u1 * a0r;
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads, kBlocksPerSM) resident_body_kernel(BodyParams P) {
+// What one trip reads from device memory: the held item's x (and, in the
+// streamed arm, its r and p) and the streamed item's r, p and x.
+struct Trip {
+  uint4 hr, hp, hx, sr, sp, sx;
+};
+
+// A block's items: held item j < LH is group j of its slice of region 0
+// (j < L0) or group j - L0 of its slice of region 1; in the resident arm
+// its r and p live in shared memory at slot j (x too in region 0).
+// Streamed item j < LS is group j of its slice of region 2.  Thread t takes
+// trips j = t, t + NT, ... (in reverse order in odd iterations): held item
+// j, then streamed item j.  Both arms run this one order, so their sums,
+// and results, are bitwise equal.  Each trip's loads are issued a trip
+// ahead -- the next iteration's first trip's before the grid-wide sum -- so
+// device memory is busy while a trip computes and while the grid waits.
+template <typename T, bool RES>
+__global__ void __launch_bounds__(kBodyThreads, kBodyBlocksPerSM)
+    resident_body_kernel(BodyParams P) {
   extern __shared__ uint4 dyn_smem[];
-  __shared__ double red[kWarps][kMaxAcc];
+  __shared__ double red[kBodyWarps][kMaxAcc];
   __shared__ double tot[kMaxAcc];
   cg::grid_group grid = cg::this_grid();
   constexpr int W = Store<T>::W;
+  constexpr int NT = kBodyThreads;
   const T* r_in = static_cast<const T*>(P.r_in);
   const T* p_in = static_cast<const T*>(P.p_in);
   const T* x = static_cast<const T*>(P.x);
   T* r_out = static_cast<T*>(P.r);
+  T* p_out = static_cast<T*>(P.p);
   const long long G = ceil_div(P.n, W);
   const Slice sl[3] = {block_slice(0, P.g1), block_slice(P.g1, P.g2),
                        block_slice(P.g2, G)};
-  // shared memory, in groups: r of regions 0 and 1, p of both, x of region 0
-  const long long held = sl[0].len + sl[1].len;
-  T* sm = reinterpret_cast<T*>(dyn_smem);
-  T* sm_r[2] = {sm, sm + sl[0].len * W};
-  T* sm_p[2] = {sm + held * W, sm + (held + sl[0].len) * W};
-  T* sm_x = sm + 2 * held * W;
-  const bool res = P.resident != 0;
+  const long long L0 = sl[0].len, LH = sl[0].len + sl[1].len;
+  const long long LS = sl[2].len;
+  const long long LT = LH > LS ? LH : LS;
+  // shared memory, in groups: r of the held items, p of them, x of region 0
+  T* sm_r = reinterpret_cast<T*>(dyn_smem);
+  T* sm_p = sm_r + LH * W;
+  T* sm_x = sm_r + 2 * LH * W;
+
+  auto held_at = [&](long long j) {
+    return j < L0 ? (sl[0].begin + j) * W : (sl[1].begin + j - L0) * W;
+  };
 
   // rv0 = sum r^2, and the copy-in of what is held (a thread reads back
   // only the slots it wrote: no barrier is needed)
   float acc0[1] = {0.f};
   for (int reg = 0; reg < 3; ++reg) {
-    for (long long j = threadIdx.x; j < sl[reg].len; j += kThreads) {
+    for (long long j = threadIdx.x; j < sl[reg].len; j += NT) {
       const long long i = (sl[reg].begin + j) * W;
       float v[W];
       Store<T>::load(r_in, i, P.n, v);
 #pragma unroll
       for (int e = 0; e < W; ++e) acc0[0] += v[e] * v[e];
-      if (res && reg < 2) {
-        Store<T>::store(sm_r[reg], j * W, kNoBound, v);
+      if (RES && reg < 2) {
+        const long long slot = (reg == 0 ? j : L0 + j) * W;
+        Store<T>::store(sm_r, slot, kNoBound, v);
         Store<T>::load(p_in, i, P.n, v);
-        Store<T>::store(sm_p[reg], j * W, kNoBound, v);
+        Store<T>::store(sm_p, slot, kNoBound, v);
         if (reg == 0) {
           Store<T>::load(x, i, P.n, v);
-          Store<T>::store(sm_x, j * W, kNoBound, v);
+          Store<T>::store(sm_x, slot, kNoBound, v);
         }
       }
     }
   }
   int par = 0;
   float rv0[1];
-  grid_sum<1>(grid, P.partial, par, red, tot, acc0, rv0);
+  grid_sum<NT, 1>(grid, P.partial, par, red, tot, acc0, rv0);
   par ^= 1;
   float dots[kMaxAcc] = {rv0[0], 0.f, 0.f, 0.f, 0.f, 0.f};
 
+  auto load_trip = [&](long long j, const T* rs, const T* ps, Trip& t) {
+    if (j < LH) {
+      const long long i = held_at(j);
+      if (!RES) {
+        t.hr = load_group(rs, i, P.n);
+        t.hp = load_group(ps, i, P.n);
+      }
+      if (!(RES && j < L0)) t.hx = load_group(x, i, P.n);
+    }
+    if (j < LS) {
+      const long long i = (sl[2].begin + j) * W;
+      t.sr = load_group(rs, i, P.n);
+      t.sp = load_group(ps, i, P.n);
+      t.sx = load_group(x, i, P.n);
+    }
+  };
+  auto run_trip = [&](long long j, const Trip& t, const Coefs& c,
+                      float (&part)[kMaxAcc]) {
+    float rc[W], pc[W], xc[W], rn[W], pn[W];
+    if (j < LH) {
+      const long long i = held_at(j);
+      if (RES) {
+        Store<T>::load(sm_r, j * W, kNoBound, rc);
+        Store<T>::load(sm_p, j * W, kNoBound, pc);
+      } else {
+        Raw<T>::unpack(t.hr, rc);
+        Raw<T>::unpack(t.hp, pc);
+      }
+      if (RES && j < L0) Store<T>::load(sm_x, j * W, kNoBound, xc);
+      else Raw<T>::unpack(t.hx, xc);
+      body_group<W>(i, P.b, rc, pc, xc, c, rn, pn, part);
+      // r and p round to storage here, in shared memory as in device memory
+      if (RES) {
+        Store<T>::store(sm_r, j * W, kNoBound, rn);
+        Store<T>::store(sm_p, j * W, kNoBound, pn);
+      } else {
+        store_group(r_out, i, P.n, rn);
+        store_group(p_out, i, P.n, pn);
+      }
+    }
+    if (j < LS) {
+      const long long i = (sl[2].begin + j) * W;
+      Raw<T>::unpack(t.sr, rc);
+      Raw<T>::unpack(t.sp, pc);
+      Raw<T>::unpack(t.sx, xc);
+      body_group<W>(i, P.b, rc, pc, xc, c, rn, pn, part);
+      store_group(r_out, i, P.n, rn);
+      store_group(p_out, i, P.n, pn);
+    }
+  };
+
+  // this thread's trips; odd iterations walk them backwards, so that an
+  // iteration starts on the lines the last one touched last
+  const long long trips =
+      threadIdx.x < LT ? (LT - 1 - threadIdx.x) / NT + 1 : 0;
+  Trip cur;
+  load_trip(threadIdx.x, r_in, p_in, cur);
   for (int k = 0; k < P.iterations; ++k) {
     const Coefs c = coefs_from(dots);
     const T* rs = k == 0 ? r_in : r_out;
-    const T* ps = k == 0 ? p_in : static_cast<const T*>(P.p);
+    const T* ps = k == 0 ? p_in : p_out;
+    const bool back = k & 1;
     float part[kMaxAcc] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    body_sweep<T>(P, sl[0], rs, ps, res ? sm_r[0] : nullptr,
-                  res ? sm_p[0] : nullptr, res ? sm_x : nullptr, c, part);
-    body_sweep<T>(P, sl[1], rs, ps, res ? sm_r[1] : nullptr,
-                  res ? sm_p[1] : nullptr, nullptr, c, part);
-    body_sweep<T>(P, sl[2], rs, ps, nullptr, nullptr, nullptr, c, part);
-    grid_sum<kMaxAcc>(grid, P.partial, par, red, tot, part, dots);
+    for (long long u = 0; u < trips; ++u) {
+      const long long j = threadIdx.x + (back ? trips - 1 - u : u) * NT;
+      Trip nxt;
+      const bool last = u + 1 == trips;
+      if (!last) load_trip(j + (back ? -NT : NT), rs, ps, nxt);
+      run_trip(j, cur, c, part);
+      // the next iteration's first trip is this one: its loads go after
+      // this trip's stores, which they read back
+      if (last && k + 1 < P.iterations) load_trip(j, r_out, p_out, nxt);
+      cur = nxt;
+    }
+    grid_sum<NT, kMaxAcc>(grid, P.partial, par, red, tot, part, dots);
     par ^= 1;
   }
 
-  if (res) {
+  if (RES) {
     // the held r goes back to device memory once
-    for (int reg = 0; reg < 2; ++reg) {
-      for (long long j = threadIdx.x; j < sl[reg].len; j += kThreads) {
-        float v[W];
-        Store<T>::load(sm_r[reg], j * W, kNoBound, v);
-        Store<T>::store(r_out, (sl[reg].begin + j) * W, P.n, v);
-      }
+    for (long long j = threadIdx.x; j < LH; j += NT) {
+      float v[W];
+      Store<T>::load(sm_r, j * W, kNoBound, v);
+      Store<T>::store(r_out, held_at(j), P.n, v);
     }
   }
   if (blockIdx.x == 0 && threadIdx.x == 0) *P.acc_out = dots[0] + dots[3];
@@ -432,11 +579,12 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM) resident_body_kernel(B
 
 // ------------------------------------------------------------------- host
 
-// kBlocksPerSM blocks on every SM, fewer when the vector is short; the
-// shared-memory slots a block may take (the SM's shared memory split among
-// its blocks, less what the system and the kernel's static arrays take).
-cudaError_t card_geometry(const void* fn, long long groups, int* grid,
-                          long long* slots) {
+// per_sm blocks of `threads` on every SM, fewer when the vector is short;
+// the shared-memory slots a block may take (the SM's shared memory split
+// among its blocks, less what the system and the kernel's static arrays
+// take).
+cudaError_t card_geometry(const void* fn, int threads, int blocks_per_sm,
+                          long long groups, int* grid, long long* slots) {
   int dev = 0, sms = 0, optin = 0, per_sm = 0, reserved = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
@@ -451,18 +599,19 @@ cudaError_t card_geometry(const void* fn, long long groups, int* grid,
   cudaFuncAttributes attr;
   e = cudaFuncGetAttributes(&attr, fn);
   if (e != cudaSuccess) return e;
-  const long long want = ceil_div(groups, kThreads);
-  const long long cap = (long long)sms * kBlocksPerSM;
+  const long long want = ceil_div(groups, threads);
+  const long long cap = (long long)sms * blocks_per_sm;
   *grid = (int)(want < 1 ? 1 : (want < cap ? want : cap));
-  long long bytes = per_sm / kBlocksPerSM - reserved;
+  long long bytes = per_sm / blocks_per_sm - reserved;
   if (bytes > optin) bytes = optin;
   *slots = (bytes - (long long)attr.sharedSizeBytes) / kSlot;
   if (*slots < 0) *slots = 0;
   return cudaSuccess;
 }
 
-cudaError_t launch(const void* fn, void** args, int grid, int smem_bytes,
-                   const cudaAccessPolicyWindow* window, cudaStream_t stream) {
+cudaError_t launch(const void* fn, int threads, void** args, int grid,
+                   int smem_bytes, const cudaAccessPolicyWindow* window,
+                   cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (e != cudaSuccess) return e;
@@ -471,12 +620,12 @@ cudaError_t launch(const void* fn, void** args, int grid, int smem_bytes,
   if (e != cudaSuccess) return e;
   e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads, smem_bytes);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads, smem_bytes);
   if (e != cudaSuccess) return e;
   if ((long long)per_sm * sms < grid) return cudaErrorCooperativeLaunchTooLarge;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(grid);
-  cfg.blockDim = dim3(kThreads);
+  cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem_bytes;
   cfg.stream = stream;
   cudaLaunchAttribute attrs[2];
@@ -583,8 +732,13 @@ __global__ void __launch_bounds__(kReadThreads)
   }
 }
 
-template <typename T>
-const void* body_kernel() { return (const void*)resident_body_kernel<T>; }
+const void* body_kernel(int bf16, int resident) {
+  if (bf16)
+    return resident ? (const void*)resident_body_kernel<__nv_bfloat16, true>
+                    : (const void*)resident_body_kernel<__nv_bfloat16, false>;
+  return resident ? (const void*)resident_body_kernel<float, true>
+                  : (const void*)resident_body_kernel<float, false>;
+}
 
 }  // namespace
 
@@ -602,8 +756,8 @@ int probes_pinned_geometry(long long n, int* grid, int* smem_bytes,
                            long long* g_held) {
   const long long G = ceil_div(n, 4);
   long long slots = 0;
-  cudaError_t e = card_geometry((const void*)pinned_stream_kernel<true>, G,
-                                grid, &slots);
+  cudaError_t e = card_geometry((const void*)pinned_stream_kernel<true>,
+                                kThreads, kBlocksPerSM, G, grid, &slots);
   if (e != cudaSuccess) return (int)e;
   const long long total = slots * *grid;
   *g_held = G < total ? G : total;
@@ -689,7 +843,7 @@ int probes_pinned_stream(const float* r_in, const float* p_in, const float* x,
       *l2_share = (double)win.hitRatio * (double)bytes / ((double)n * 4.0);
     }
   }
-  cudaError_t e = launch(fn, args, grid, hold ? smem_bytes : 0,
+  cudaError_t e = launch(fn, kThreads, args, grid, hold ? smem_bytes : 0,
                          windowed ? &win : nullptr, (cudaStream_t)stream);
   if (windowed) {
     cudaError_t e2 = cudaStreamSynchronize((cudaStream_t)stream);
@@ -709,8 +863,8 @@ int probes_body_geometry(int bf16, long long n, int* grid, int* smem_bytes,
   const int W = bf16 ? 8 : 4;
   const long long G = ceil_div(n, W);
   long long cap = 0;
-  const void* fn = bf16 ? body_kernel<__nv_bfloat16>() : body_kernel<float>();
-  cudaError_t e = card_geometry(fn, G, grid, &cap);
+  cudaError_t e = card_geometry(body_kernel(bf16, 1), kBodyThreads,
+                                kBodyBlocksPerSM, G, grid, &cap);
   if (e != cudaSuccess) return (int)e;
   const long long per_g = ceil_div(G, *grid);
   if (2 * per_g <= cap) {
@@ -746,13 +900,11 @@ int probes_resident_body(int bf16, const void* r_in, const void* p_in,
   P.n = n;
   P.g1 = g1;
   P.g2 = g2;
-  P.resident = resident;
   P.iterations = iterations;
   P.b = (float)(999.0 / (double)(n - 1));
   void* args[] = {&P};
-  const void* fn = bf16 ? body_kernel<__nv_bfloat16>() : body_kernel<float>();
-  return (int)launch(fn, args, grid, resident ? smem_bytes : 0, nullptr,
-                     (cudaStream_t)stream);
+  return (int)launch(body_kernel(bf16, resident), kBodyThreads, args, grid,
+                     resident ? smem_bytes : 0, nullptr, (cudaStream_t)stream);
 }
 
 // The sum of fetches [start, start + n_fetch) of gr-row chunks of v (rows of

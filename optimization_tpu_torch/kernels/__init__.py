@@ -27,7 +27,7 @@ from .streamed_cg import (KERNEL_MAX_K, AffineDiagonal, ElementwiseFn,
                           ShiftedDiagonal, prec_map, sphere_rayleigh_streamed,
                           stored_prec_map, stpcg_flat_streamed,
                           stpcg_flat_streamed_reference)
-from .fused import (GRAM_MAX_K, affine_stencil_matvec,
+from .fused import (affine_stencil_matvec,
                     affine_stencil_matvec_reference, axpy_selfdot,
                     axpy_selfdot_reference, cg_dots, cg_dots_reference,
                     diag_stencil_matvec, diag_stencil_matvec_reference,
@@ -45,7 +45,7 @@ __all__ = ["AffineDiagonal", "ElementwiseFn", "JacobiPower", "PrecMap",
            "affine_stencil_matvec_reference", "axpy_selfdot",
            "axpy_selfdot_reference", "cg_dots", "cg_dots_reference",
            "diag_stencil_matvec", "diag_stencil_matvec_reference",
-           "GRAM_MAX_K", "gram_pair", "gram_pair_reference", "stream3_probe",
+           "gram_pair", "gram_pair_reference", "stream3_probe",
            "stream3_probe_reference", "pinned_stream",
            "pinned_stream_reference", "resident_body",
            "resident_body_reference", "chunk_reader",

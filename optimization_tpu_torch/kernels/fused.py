@@ -57,14 +57,9 @@ __all__ = ["cg_dots", "cg_dots_reference", "axpy_selfdot",
            "axpy_selfdot_reference", "diag_stencil_matvec",
            "diag_stencil_matvec_reference", "affine_stencil_matvec",
            "affine_stencil_matvec_reference", "stream3_probe",
-           "stream3_probe_reference", "gram_pair", "gram_pair_reference",
-           "GRAM_MAX_K"]
+           "stream3_probe_reference", "gram_pair", "gram_pair_reference"]
 
 _STORAGE = (torch.float32, torch.bfloat16)
-# The largest k the gram_pair kernel takes: the LOBPCG basis width 3 nx up to
-# nx = 32.  csrc/fused.cu instantiates the kernel for KT = ceil(k / 16) up to
-# kGramMaxK / 16 = 6; this is the one range check.
-GRAM_MAX_K = 96
 
 
 # ---------------------------------------------------------------------------
@@ -314,11 +309,9 @@ def _gram_on_card(S: torch.Tensor, AS: torch.Tensor, BS: torch.Tensor) -> bool:
         raise ValueError(f"gram_pair: the kernel takes f32 or bf16 storage, "
                          f"one dtype for all blocks (got {S.dtype}, "
                          f"{AS.dtype}, {BS.dtype})")
-    m, k = S.shape[-2:]
-    if not 1 <= k <= GRAM_MAX_K or S.numel() == 0:
-        raise ValueError(f"gram_pair: the kernel takes 1 <= k <= "
-                         f"{GRAM_MAX_K} columns and a non-empty block (got "
-                         f"{tuple(S.shape)})")
+    if S.numel() == 0:
+        raise ValueError(f"gram_pair: the kernel takes a non-empty block "
+                         f"(got {tuple(S.shape)})")
     return True
 
 
@@ -341,8 +334,9 @@ def gram_pair(S: torch.Tensor, AS: torch.Tensor, BS: torch.Tensor):
     storage takes 3xTF32 tensor-core products (f32-accurate) and bf16
     storage exact bf16 products, both summed in f32; the blocks' partial
     sums are added in a fixed order, so a repeat is bitwise.  ``BS`` may be
-    ``S`` itself, and S is then read once.  At most ``GRAM_MAX_K``
-    columns."""
+    ``S`` itself, and S is then read once.  Any k: above 96 columns the
+    kernel computes the Grams in panels (``csrc/fused.cu``), with the same
+    summation order."""
     if not _gram_on_card(S, AS, BS):
         return gram_pair_reference(S, AS, BS)
     same = int(BS.data_ptr() == S.data_ptr() and BS.stride() == S.stride())

@@ -539,11 +539,17 @@ def _gram_inputs(shape, dtype, dev, seed=3):
 
 # k across the kernel's tile boundaries (16-column output tiles, 16-byte
 # rows at k % 4 == 0 in f32 and k % 8 == 0 in bf16), ragged m, and fleets of
-# sizes that do not divide the card's 132 SMs
-GRAM_CASES = [(1000, 48), (999, 30), (3, 777, 17), (200, F.GRAM_MAX_K),
+# sizes that do not divide the card's 132 SMs; above 96 columns the panel
+# route (2 x 2 panels of 64 at k = 97 and 120, of 96 at 192; 3 x 3 of 80 at
+# k = 200), aligned and not
+GRAM_CASES = [(1000, 48), (999, 30), (3, 777, 17), (200, 96),
               (5, 1), (1, 1), (7, 8), (999, 16), (100_001, 17), (7, 48),
               (100_001, 48), (999, 64), (1, 95), (7, 2000, 48),
-              (5, 999, 95), (13, 1000, 96)]
+              (5, 999, 95), (13, 1000, 96), (1000, 97), (100_001, 120),
+              (5, 999, 192), (7, 2000, 120), (999, 200), (3, 70, 97)]
+# k <= 96 with row streams long enough that a warp's chain of k-steps
+# passes fused.cu's kSplitSteps (chip_smoke.GRAM_LONG)
+GRAM_LONG = [(400_000, 48), (2, 100_000, 48), (100_000, 96)]
 
 
 @pytest.mark.parametrize("bs", ["distinct", "S"])
@@ -576,14 +582,48 @@ def test_gram_pair_matches_plain_version(dev, dtype, shape, bs):
     assert torch.equal(ga, ga2) and torch.equal(gb, gb2)
 
 
+@pytest.mark.parametrize("bs", ["distinct", "S"])
+@pytest.mark.parametrize("dtype", FUSED_DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", GRAM_LONG,
+                         ids=["x".join(map(str, c)) for c in GRAM_LONG])
+def test_gram_pair_long_chains_match_f64(dev, dtype, shape, bs):
+    """Long row streams: within 1e-5 sum|S||X| of the float64 product (the
+    tensor cores' one-way drift would pass it unsplit).  The plain version
+    is no yardstick here: its own f32 sums miss the tolerance on the fleet
+    (2.8 and 6.9 times it in f32 and bf16 on an H100)."""
+    S, AS, BS = _gram_inputs(shape, dtype, dev)
+    if bs == "S":
+        BS = S
+    before = F.gram_pair.launches
+    ga, gb = F.gram_pair(S, AS, BS)
+    assert F.gram_pair.launches == before + 1
+    Sd = S.double()
+    for got, X in ((ga, AS), (gb, BS)):
+        _assert_within(got, Sd.mT @ X.double(),
+                       1e-5 * (Sd.abs().mT @ X.double().abs()))
+    ga2, gb2 = F.gram_pair(S, AS, BS)
+    assert torch.equal(ga, ga2) and torch.equal(gb, gb2)
+
+
 def test_gram_pair_takes_S_twice_and_rejects(dev):
+    """S as BS; any k, up to LOBPCG's 3 nx at nx = 33, 40, 64 (the kernel
+    once refused k > 96 here): one launch a call, within
+    chip_smoke.GRAM_TOLERANCES of the plain version; f64 still refused."""
     S, AS, _ = _gram_inputs((500, 24), torch.float32, dev)
     ga, gb = F.gram_pair(S, AS, S)
     _assert_within(gb, S.double().mT @ S.double(),
                    1e-5 * (S.double().abs().mT @ S.double().abs()))
-    big = torch.ones(10, F.GRAM_MAX_K + 1, device=dev)
-    with pytest.raises(ValueError, match="k <="):
-        F.gram_pair(big, big, big)
+    for k in (97, 120, 192):
+        for dtype in FUSED_DTYPES:
+            S, AS, BS = _gram_inputs((3000, k), dtype, dev, seed=k)
+            before = F.gram_pair.launches
+            got = F.gram_pair(S, AS, BS)
+            assert F.gram_pair.launches == before + 1
+            Sd = S.double().abs().mT
+            for g, r, X in zip(got, F.gram_pair_reference(S, AS, BS),
+                               (AS, BS)):
+                assert g.shape == (k, k) and g.dtype == torch.float32
+                _assert_within(g, r, 1e-5 * (Sd @ X.double().abs()))
     x = torch.ones(10, 4, dtype=torch.float64, device=dev)
     with pytest.raises(ValueError, match="f32 or bf16"):
         F.gram_pair(x, x, x)
@@ -629,6 +669,63 @@ def test_lobpcg_f32_on_card_launches_gram_pair(dev):
     assert int(res.num_converged) >= 4 and bool(res.pencil_consistent)
     torch.testing.assert_close(res.theta.cpu(), torch.arange(1.0, 5.0),
                                rtol=0, atol=5e-2)
+
+
+def test_lobpcg_nx40_on_card_matches_cpu_route(dev):
+    """f32 LOBPCG at nx = 40 (a basis of 120 columns: gram_pair's panel
+    route) on the card against the CPU route (the plain Gram stage) on the
+    same X0.  Iterates with the convergence test disarmed (tau = 1e-30,
+    4 iterations): theta within 5e-4, f32's eigenvalue floor eps ||A|| =
+    4.8e-4 at m = 4000 (two f32 Gram stages that agree to 1e-5 sum|S||X|,
+    then f32 Rayleigh-Ritz steps; measured 1.7e-4 on an H100; a Gram-stage
+    error moves theta by far more).
+    Converged (tau = 1e-4): both converge to the truth within 5e-2 (f32's
+    floor at this m, as in chip_smoke phase 8), the card with 1 + its
+    iterations launches."""
+    import numpy as np
+
+    from optimization_tpu_torch.linalg import lobpcg, lobpcg_fleet
+
+    m, nx, nev = 4000, 40, 5
+    d = np.linspace(1.0, float(m), m, dtype=np.float32)
+    x0 = np.random.default_rng(40).standard_normal((m, nx)).astype(
+        np.float32)
+
+    def solve(device, **kw):
+        dt = torch.from_numpy(d).to(device)
+        return lobpcg(lambda S: dt[:, None] * S, T=lambda S: S / dt[:, None],
+                      X0=torch.from_numpy(x0).to(device), nev=nev,
+                      generator=torch.Generator(device=device).manual_seed(1),
+                      **kw)
+
+    fixed = dict(max_iterations=4, tau=1e-30)
+    card, cpu = solve(dev, **fixed), solve("cpu", **fixed)
+    assert int(card.num_iterations) == int(cpu.num_iterations) == 4
+    torch.testing.assert_close(card.theta.cpu(), cpu.theta, rtol=0,
+                               atol=5e-4)
+    before = F.gram_pair.launches
+    card = solve(dev, max_iterations=100, tau=1e-4)
+    torch.cuda.synchronize()
+    assert F.gram_pair.launches - before == 1 + int(card.num_iterations)
+    cpu = solve("cpu", max_iterations=100, tau=1e-4)
+    truth = torch.arange(1.0, nev + 1.0)
+    for res in (card, cpu):
+        assert int(res.num_converged) >= nev and bool(res.pencil_consistent)
+        torch.testing.assert_close(res.theta.cpu(), truth, rtol=0, atol=5e-2)
+    # a fleet of two at nx = 40: its batched Gram stage, (2, m, 120)
+    ds = torch.from_numpy(np.stack([d, 2.0 * d])).to(dev)
+    before = F.gram_pair.launches
+    fl = lobpcg_fleet(lambda S, dd: dd[:, None] * S, ds,
+                      T=lambda S, dd: S / dd[:, None], m=m, nx=nx, nev=nev,
+                      max_iterations=100, tau=1e-4,
+                      generator=torch.Generator(device=dev).manual_seed(2),
+                      rr_method="chol")
+    torch.cuda.synchronize()
+    assert F.gram_pair.launches - before == 1 + int(fl.num_iterations.max())
+    assert bool((fl.num_converged >= nev).all())
+    torch.testing.assert_close(fl.theta.cpu(),
+                               torch.stack([truth, 2.0 * truth]), rtol=0,
+                               atol=1e-1)
 
 
 # ---- the residency probe kernels (csrc/probes.cu) ----
@@ -681,11 +778,16 @@ def test_pinned_stream_matches_plain_version(dev, n, K, with_s):
 @pytest.mark.parametrize("storage", [torch.bfloat16, torch.float32],
                          ids=["bf16", "f32"])
 @pytest.mark.parametrize("K", [3, 10])
-@pytest.mark.parametrize("n", [1 << 18, 100_003, 100])
+@pytest.mark.parametrize("n", [1 << 18, 100_003, 100, 6_000_001,
+                               (1 << 23) + 3])
 def test_resident_body_matches_plain_version(dev, n, K, storage):
     """r within 1e-3 (bf16: a flipped storage rounding here and there; a
-    rounding left out would show as ~4e-3) or 1e-5 (f32) norm to norm, acc within 1e-3 / 1e-4; the resident and
-    streamed arms and a repeat bit for bit."""
+    rounding left out would show as ~4e-3) or 1e-5 (f32) norm to norm, acc
+    within 1e-3 / 1e-4; the resident and streamed arms and a repeat bit for
+    bit.  The three small n fit shared memory whole; at 6,000,001 and
+    2^23 + 3 a part is held (x in part, or r and p in part with the rest
+    streamed: the held and streamed items share a thread's trips), and the
+    arms stay bitwise equal there too."""
     from optimization_tpu_torch.kernels import probes as P
 
     r, p, x = _probe_vectors(n, storage, dev, n % 991)
@@ -693,7 +795,12 @@ def test_resident_body_matches_plain_version(dev, n, K, storage):
     before = P.resident_body.launches
     out = P.resident_body(r, p, x, iterations=K)
     assert P.resident_body.launches == before + 1
-    assert P.resident_body.last_held["rp_shared"] == 1.0
+    held = P.resident_body.last_held
+    if n <= 1 << 18:
+        assert held["rp_shared"] == 1.0
+    else:
+        assert 0.0 < held["rp_shared"] <= 1.0
+        assert held["rp_shared"] < 1.0 or held["x_shared"] < 1.0
     streamed = P.resident_body(r, p, x, iterations=K, resident=False)
     again = P.resident_body(r, p, x, iterations=K)
     torch.cuda.synchronize()
@@ -1071,10 +1178,12 @@ def test_laplacian_solver_on_card_matches_cpu(dev, engine):
     assert float(rel) < 1e-4
 
 
-def test_sharded_gram_pair_launches_the_kernel_at_world_one(dev):
+@pytest.mark.parametrize("k", [24, 120])
+def test_sharded_gram_pair_launches_the_kernel_at_world_one(dev, k):
     """``parallel.collectives.sharded_gram_pair`` on a one-rank NCCL mesh:
     the local pair is one ``gram_pair`` launch, held against the plain
-    version (chip_smoke.GRAM_TOLERANCES), then one all-reduce."""
+    version (chip_smoke.GRAM_TOLERANCES), then one all-reduce; k = 120 is
+    LOBPCG's Gram stage at nx = 40 (the panel route)."""
     import torch.distributed as dist
 
     from optimization_tpu_torch.parallel import collectives, model_mesh
@@ -1084,7 +1193,7 @@ def test_sharded_gram_pair_launches_the_kernel_at_world_one(dev):
     try:
         assert dist.get_backend() == "nccl"
         gen = torch.Generator(device=dev).manual_seed(9)
-        S, AS, BS = (torch.randn(1000, 24, generator=gen, device=dev)
+        S, AS, BS = (torch.randn(1000, k, generator=gen, device=dev)
                      for _ in range(3))
         before = F.gram_pair.launches
         ga, gb = collectives.sharded_gram_pair(S, AS, BS, mesh)

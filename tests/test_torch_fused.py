@@ -177,7 +177,10 @@ def test_stream3_probe_matches_jax(n, dt):
     np.testing.assert_array_equal(t.numpy(), j)
 
 
-GRAM_SHAPES = [(256, 8), (1000, 24), (513, 30)]
+# k > 96: LOBPCG's basis at nx = 33, 40 and 64, the card kernel's panel
+# route (the plain version on the CPU has no panels; the contract is JAX's)
+GRAM_SHAPES = [(256, 8), (1000, 24), (513, 30), (300, 97), (600, 120),
+               (451, 192)]
 GRAM_INPUTS = {"f32": np.float32, "bf16": "bfloat16", "f64": np.float64}
 
 

@@ -446,6 +446,45 @@ def test_f32_goes_through_gram_pair_and_matches_jax(monkeypatch):
                                atol=5e-5)
 
 
+def test_f32_nx40_matches_jax(monkeypatch):
+    """nx = 40: a basis of 3 nx = 120 columns, which the card's Gram kernel
+    takes in panels (on the CPU the plain version runs; the contract is
+    JAX's, whose Gram GEMMs have no width limit).  A = diag(1..m) at
+    m = 400, the exact inverse preconditioner, f32.  Disarmed (tau = 1e-30,
+    4 iterations): theta within 5e-5 of JAX's, as at nx = 12 above.
+    Converged: tau = 1e-3, because a 120-column basis at m = 400 leaves
+    f32 residuals above tau = 1e-4 (both packages then run to the cap with
+    none converged, measured on a CPU); both converge nev pairs to the
+    truth within 5e-2 and within 2e-2 of each other, iterations within 1."""
+    calls = _count_gram(monkeypatch)
+    m, nx = 400, 40
+    d = np.linspace(1.0, float(m), m, dtype=np.float32)
+    x0 = np.random.default_rng(40).standard_normal((m, nx)).astype(
+        np.float32)
+    dj, dt = jnp.asarray(d), torch.from_numpy(d)
+
+    def both(**kw):
+        jr = j_lobpcg(lambda S: dj[:, None] * S, T=lambda S: S / dj[:, None],
+                      X0=jnp.asarray(x0), nev=NEV, **kw)
+        tr = t_lobpcg(lambda S: dt[:, None] * S, T=lambda S: S / dt[:, None],
+                      X0=torch.from_numpy(x0), nev=NEV, **kw)
+        return jr, tr
+
+    jr, tr = both(max_iterations=4, tau=1e-30)
+    assert len(calls) == 1 + 4 and set(calls) == {torch.float32}
+    np.testing.assert_allclose(tr.theta.numpy(), np.asarray(jr.theta),
+                               atol=5e-5)
+    jr, tr = both(max_iterations=20, tau=1e-3)
+    assert int(tr.num_converged) == int(jr.num_converged) == NEV
+    assert abs(int(tr.num_iterations) - int(jr.num_iterations)) <= 1
+    for theta in (tr.theta.numpy(), np.asarray(jr.theta)):
+        np.testing.assert_allclose(theta.astype(np.float64),
+                                   np.arange(1.0, NEV + 1.0), atol=5e-2)
+    np.testing.assert_allclose(tr.theta.numpy(), np.asarray(jr.theta),
+                               atol=2e-2)
+    assert bool(tr.pencil_consistent)
+
+
 def test_f64_keeps_matmul(monkeypatch):
     calls = _count_gram(monkeypatch)
     jk, tk = _ops("standard")

@@ -192,7 +192,16 @@ non-zero exit and no result line:
    eager flat engine (``flat_qm``), gated on equal statuses, f* within
    1e-4 relative, CG within 10% and kernel launches = subproblems, CG it/s
    printed for both;
-25. each streaming kernel's GB/s as a fraction of the measured ceiling, the
+25. the examples (``optimization_tpu_torch/examples``): every example's
+   ``main()`` in process on the card at the JAX example's sizes, each
+   applying the JAX example's acceptance check; its wall time, statuses
+   and counts and its ``gram_pair`` launches (> 0 exactly for the examples
+   whose path runs LOBPCG), every launch held against the plain version on
+   its own S, AS, BS (phase 7's tolerance) and counted on the kernels line;
+26. ``python -m optimization_tpu_torch.examples.lobpcg_example`` in a
+   subprocess, as a user runs it: exit 0, the same iteration and converged
+   counts as phase 25's run;
+27. each streaming kernel's GB/s as a fraction of the measured ceiling, the
    kernel table as one JSON line (each kernel's launches on its path, its
    error, its time, its plain version's, its bound and the library call's,
    null where no single PyTorch call computes the function), then the
@@ -3817,6 +3826,109 @@ def general_phase(torch, dev, label):
             "plain_ms": plain3, "bound_ms": bound3, "bound_by": by3,
             "library_ms": None}
 
+
+# ---- the examples (phases 25-26) ----
+
+DIGEST_KEYS = ("status", "statuses", "iters", "nc", "certified", "n_cert",
+               "low_status", "switch_iteration", "high_iters", "p_final")
+
+
+def digest(out, path=""):
+    """The statuses and counts of an example's result as ``key=value``
+    items (per-instance lists for a fleet's or a stream's rows)."""
+    items = []
+    for key, v in out.items():
+        name = f"{path}{key}"
+        if isinstance(v, dict):
+            items += digest(v, name + ".")
+        elif key in DIGEST_KEYS:
+            items.append(f"{name}={v}")
+        elif key in ("instances", "rows"):
+            items += [f"{name}.{k}={[r[k] for r in v]}"
+                      for k in ("status", "iters", "certified")]
+    return items
+
+
+def examples_phase(torch, dev, label):
+    """Phase 25: every example's ``main()`` in process on the card, at the
+    JAX example's sizes (each applies the JAX example's acceptance check
+    and raises if it fails); its wall time, statuses and counts and its
+    gram_pair launches, which must be > 0 exactly for the examples whose
+    path runs LOBPCG (``examples.LOBPCG_EXAMPLES``).
+    Returns ``lobpcg_example``'s result for phase 26."""
+    import importlib
+
+    from optimization_tpu_torch.examples import EXAMPLES, LOBPCG_EXAMPLES
+    from optimization_tpu_torch.kernels import fused as F
+
+    print(f"phase 25: the {len(EXAMPLES)} examples, each main() in process "
+          f"on the card at the JAX example's sizes [{label}]", flush=True)
+    t_phase = time.perf_counter()
+    results = {}
+    for name in EXAMPLES:
+        module = importlib.import_module(
+            f"optimization_tpu_torch.examples.{name}")
+        before = F.gram_pair.launches
+        results[name], secs = timed_solve(torch, dev,
+                                          lambda: module.main([]))
+        launches = F.gram_pair.launches - before
+        print(f"  [{name}] {secs:.2f} s, gram_pair launches {launches}: "
+              f"{' '.join(digest(results[name]))} [{label}]", flush=True)
+        if (launches > 0) != (name in LOBPCG_EXAMPLES):
+            raise AssertionError(f"{name}: {launches} gram_pair launches")
+    print(f"phase 25: {time.perf_counter() - t_phase:.1f} s [{label}]",
+          flush=True)
+    return results["lobpcg_example"]
+
+
+def example_as_a_user_phase(label, inproc):
+    """Phase 26: ``python -m optimization_tpu_torch.examples.lobpcg_example``
+    in a subprocess, as a user runs it (on the card by default): exit 0,
+    and the same iteration and convergence counts as phase 25's in-process
+    run of the same seeds.  Its gram_pair launches are that process's own,
+    outside the kernels line's count and the holding of phase 25."""
+    print(f"phase 26: python -m optimization_tpu_torch.examples."
+          f"lobpcg_example in a subprocess [{label}]", flush=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "optimization_tpu_torch.examples."
+         "lobpcg_example"], cwd=ROOT, capture_output=True, text=True,
+        timeout=600)
+    secs = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        print(f"  | {line}", flush=True)
+    if proc.returncode != 0:
+        print(proc.stderr, flush=True)
+        raise AssertionError(f"lobpcg_example exited {proc.returncode}")
+    for tag, key in (("[LOBPCG diag-500]", "diag"),
+                     ("[LOBPCG structured-1e5]", "big")):
+        want = f"{tag} iters={inproc[key]['iters']} nc={inproc[key]['nc']} "
+        if not any(line.startswith(want)
+                   for line in proc.stdout.splitlines()):
+            raise AssertionError(f"lobpcg_example as a module: no line "
+                                 f"{want!r}")
+    print(f"  exit 0 in {secs:.1f} s (the interpreter and the card's set-up "
+          f"included); iterations and converged counts equal to phase "
+          f"25's [{label}]", flush=True)
+
+
+def check_held(held, launches, what):
+    """Print and gate a ``held_gram_pair`` block: every launch held, each
+    within its tolerance."""
+    shapes = ", ".join(f"{'x'.join(map(str, shape))}{' BS = S' * same}"
+                       for shape, same in sorted(held["shapes"]))
+    print(f"gram_pair launches {what}: {launches}, each held against the "
+          f"plain version on its inputs ({held['calls']} calls at "
+          f"{shapes}): max |err| {held['err']:.3e} (entries up to "
+          f"{held['scale']:.3e}), at most {held['ratio']:.3f} of the "
+          f"tolerance (<= 1)", flush=True)
+    if launches == 0:
+        raise AssertionError(f"no gram_pair launch {what}")
+    if held["calls"] != launches or not held["ratio"] <= 1:
+        raise AssertionError(f"gram_pair {what}: a launch was not held, or "
+                             f"disagrees with its plain version")
+
+
 def ceiling_summary(ceiling, rates, label):
     print(f"bandwidth ceiling: stream3_probe {ceiling:.0f} GB/s at n = 2^24 "
           f"f32 [{label}]", flush=True)
@@ -3883,18 +3995,7 @@ def main():
         pose_routes_phase(torch, dev, label, *pose)
     pose_launches = F.gram_pair.launches
     # ---- end of the pose path's gram_pair runs ----
-    shapes = ", ".join(f"{'x'.join(map(str, shape))}{' BS = S' * same}"
-                       for shape, same in sorted(held["shapes"]))
-    print(f"gram_pair launches on the pose path (phases 20-21): "
-          f"{pose_launches}, each held against the plain version on its "
-          f"inputs ({held['calls']} calls at {shapes}): max |err| "
-          f"{held['err']:.3e} (entries up to {held['scale']:.3e}), at most "
-          f"{held['ratio']:.3f} of the tolerance (<= 1)", flush=True)
-    if pose_launches == 0:
-        raise AssertionError("the pose path launched no gram_pair")
-    if held["calls"] != pose_launches or not held["ratio"] <= 1:
-        raise AssertionError("gram_pair on the pose path: a launch was not "
-                             "held, or disagrees with its plain version")
+    check_held(held, pose_launches, "on the pose path (phases 20-21)")
     errs7["gram_pair"] = max(errs7["gram_pair"], held["err"])
     # ---- range sync's and the parallel package's gram_pair runs ----
     F.gram_pair.launches = 0
@@ -3903,25 +4004,24 @@ def main():
         parallel_phase(torch, dev, label)
     last_launches = F.gram_pair.launches
     # ---- end of phases 22-23's gram_pair runs ----
-    shapes = ", ".join(f"{'x'.join(map(str, shape))}{' BS = S' * same}"
-                       for shape, same in sorted(held["shapes"]))
-    print(f"gram_pair launches in phases 22-23: {last_launches}, each held "
-          f"against the plain version on its inputs ({held['calls']} calls "
-          f"at {shapes}): max |err| {held['err']:.3e} (entries up to "
-          f"{held['scale']:.3e}), at most {held['ratio']:.3f} of the "
-          f"tolerance (<= 1)", flush=True)
-    if last_launches == 0:
-        raise AssertionError("phases 22-23 launched no gram_pair")
-    if held["calls"] != last_launches or not held["ratio"] <= 1:
-        raise AssertionError("gram_pair in phases 22-23: a launch was not "
-                             "held, or disagrees with its plain version")
+    check_held(held, last_launches, "in phases 22-23")
     errs7["gram_pair"] = max(errs7["gram_pair"], held["err"])
     rank3_kernel = general_phase(torch, dev, label)
+    # ---- the examples' gram_pair runs: the count starts at 0 here ----
+    F.gram_pair.launches = 0
+    with held_gram_pair(torch) as held:
+        lobpcg_example = examples_phase(torch, dev, label)
+    example_launches = F.gram_pair.launches
+    # ---- end of the examples' gram_pair runs ----
+    check_held(held, example_launches, "in the examples (phase 25)")
+    errs7["gram_pair"] = max(errs7["gram_pair"], held["err"])
+    example_as_a_user_phase(label, lobpcg_example)
     ceiling_summary(ceiling, {"stpcg_flat_streamed": streamed_gbs,
                               "stpcg_flat_streamed[prec]": prec_gbs,
                               **rates, **graph_rates}, label)
 
-    launches = {"gram_pair": gram_launches + pose_launches + last_launches,
+    launches = {"gram_pair": gram_launches + pose_launches + last_launches
+                + example_launches,
                 "stream3_probe": stream3_launches}
     new_kernels = [{
         "name": name, "route": "cuda",

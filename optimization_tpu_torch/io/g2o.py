@@ -2,7 +2,8 @@
 ``optimization_tpu/io/g2o.py``; the port's own copy).
 
 The de-facto interchange format of pose-synchronization problems is g2o.
-The fast path is the repository's C++ parser (``native/g2o_loader.cpp``),
+The fast path is the C++ parser ``csrc/g2o_loader.cpp`` (the port's own
+copy of ``native/g2o_loader.cpp``, kept byte for byte equal to it),
 compiled here with the host C++ compiler into the git-ignored
 ``optimization_tpu_torch/_build/libg2o_loader-<hash>.so`` at first use (the
 hash covers the source and the flags, so an edited source builds anew) and
@@ -31,7 +32,7 @@ import numpy as np
 __all__ = ["PoseGraph", "load_g2o", "save_g2o", "rotmat_to_quat",
            "native_available", "build_native"]
 
-_SOURCE = Path(__file__).resolve().parents[2] / "native" / "g2o_loader.cpp"
+_SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "g2o_loader.cpp"
 _BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 # The C++ runtime is linked in and its symbols hidden: a compiler whose own
 # libstdc++ differs from the one the process (torch) has loaded would

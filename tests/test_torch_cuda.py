@@ -33,6 +33,7 @@ CPU.
 import pytest
 import torch
 
+from optimization_tpu_torch.examples import EXAMPLES, LOBPCG_EXAMPLES
 from optimization_tpu_torch.kernels import fused as F
 from optimization_tpu_torch.kernels import streamed_cg as T
 
@@ -1229,3 +1230,48 @@ def test_range_sync_f32_pipeline_on_the_card(dev):
     rot_err, t_err = alignment_errors(out.R, out.t, R_true,
                                       t_true - t_true[0][None])
     assert float(rot_err) < 1e-3 and float(t_err) < 1e-2
+
+
+# ---- the examples (optimization_tpu_torch/examples) ----
+
+def _example(name):
+    import importlib
+
+    return importlib.import_module(f"optimization_tpu_torch.examples.{name}")
+
+
+@pytest.mark.parametrize("name", EXAMPLES)
+def test_example_on_the_card_meets_its_check(dev, name):
+    """``run(device="cuda")`` at the JAX example's sizes in f32: the JAX
+    example's own acceptance check where it has one, every number finite,
+    and gram_pair launched exactly by the examples that run LOBPCG."""
+    import math
+
+    from test_torch_examples_run import _numbers
+
+    module = _example(name)
+    before = F.gram_pair.launches
+    out = module.run("cuda")
+    if hasattr(module, "accept"):
+        module.accept(out)
+    assert all(math.isfinite(v) for v in _numbers(out))
+    assert (F.gram_pair.launches > before) == (name in LOBPCG_EXAMPLES)
+
+
+def test_lobpcg_example_launches_gram_pair_once_a_block_iteration(dev):
+    """Each of the example's two f32 solves launches gram_pair 1 +
+    iterations times (the initial Gram stage, then one an iteration)."""
+    before = F.gram_pair.launches
+    out = _example("lobpcg_example").run("cuda")
+    assert out["diag"]["nc"] == 5 and out["big"]["nc"] == 4
+    assert F.gram_pair.launches - before == (
+        2 + out["diag"]["iters"] + out["big"]["iters"])
+
+
+@pytest.mark.parametrize("name", EXAMPLES)
+def test_example_main_raises_without_a_card(name, monkeypatch):
+    """Without a card, ``main()`` raises before any work unless it is given
+    ``--device cpu`` (``tests/test_torch_examples_run.py`` runs that)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _example(name).main([])

@@ -42,6 +42,18 @@ def test_native_loader_builds_into_the_port():
     assert path.parent.parent.name == "optimization_tpu_torch"
 
 
+def test_native_source_is_the_ports_own_identical_copy():
+    """The C++ loader builds from the port's own ``csrc/g2o_loader.cpp``,
+    not from ``native/`` (the JAX side's), and the copy is byte for byte
+    ``native/g2o_loader.cpp``, so the two parsers cannot drift apart."""
+    from pathlib import Path
+
+    package = Path(g2o.__file__).resolve().parents[1]
+    assert g2o._SOURCE == package / "csrc" / "g2o_loader.cpp"
+    assert g2o._SOURCE.read_bytes() == (
+        package.parent / "native" / "g2o_loader.cpp").read_bytes()
+
+
 @pytest.mark.parametrize("native", NATIVE, ids=["python", "native"])
 @pytest.mark.parametrize("kind", ["se3", "se2"])
 def test_loaders_match_jax(tmp_path, kind, native):

@@ -9,18 +9,20 @@ non-zero exit and no result line:
 1. device: a CUDA device is required (there is no CPU path); prints
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` and
    turns TF32 off;
-2. build: compiles ``optimization_tpu_torch/csrc/streamed_cg.cu``,
-   ``csrc/fused.cu`` and ``csrc/probes.cu`` (the two residency probes and
-   the chunk reader) with nvcc from this checkout, all at once, and prints
-   each build's seconds;
+2. build: compiles ``optimization_tpu_torch/csrc/streamed_cg.cu`` (ranks
+   1-4), ``csrc/streamed_cg_any.cu`` (any rank), ``csrc/fused.cu`` and
+   ``csrc/probes.cu`` (the two residency probes and the chunk reader) with
+   nvcc from this checkout, all at once, and prints each build's seconds
+   and ``-Xptxas -v`` report;
 3. kernel parity: ``stpcg_flat_streamed`` on the card against its plain
    PyTorch version on the same inputs, at n = 2^20 and a ragged n, over
    storage dtype x body x init x Delta x fixture, then its preconditioned
    variant over P (the shifted-Jacobi powers e = 1/2 and 1/4, a stored P
    unrelated to the diagonal) x storage dtype x body x Delta, each plus a
    bitwise repeat; then the general rank (``GEN_OPS``: K = 1, 3, 4 with
-   every term form -- generated, stored, wrapped callable) over n x storage
-   dtype x body x init x Delta, and every ``prec_chunk`` form (the
+   every term form -- generated, stored, wrapped callable -- and K = 5, 8,
+   16 with ``gen_weights``' distinct weights of every form) over n x
+   storage dtype x body x init x Delta, and every ``prec_chunk`` form (the
    JacobiPower on A0, a stored P, a wrapped callable's P) at each K, each
    case launched twice and the two bit for bit equal;
 4. main path: the headline TNT solve (``optimization_tpu_torch/headline.py``)
@@ -183,15 +185,20 @@ non-zero exit and no result line:
    through the host), held to the world-1 results where gloo takes CUDA
    tensors; every ``gram_pair`` launch of phases 22-23 held against the
    plain version on its own inputs;
-24. the kernel at rank K = 1, 3, 4: one 50-CG subproblem each at n = 2^24
-   f32 (K = 1 and 4 on a kappa ~ 1000 operator, K = 3 the rank-3 TNT's own
-   subproblem at its 11th outer iteration), held against the plain version
-   and timed beside its bytes bound; then the rank-3 TNT (``Rank3``: the
-   sphere Rayleigh quotient with a quartic term, k = 3) at n = 2^24,
-   ``headline.tier_params``, through the kernel (``flat_solve``) and the
-   eager flat engine (``flat_qm``), gated on equal statuses, f* within
-   1e-4 relative, CG within 10% and kernel launches = subproblems, CG it/s
-   printed for both;
+24. the kernel at rank K = 1, 3, 4 and (``csrc/streamed_cg_any.cu``)
+   K = 5, 8, 16, 32 f32 with ``gen_weights``' mix of generated and stored
+   terms, K = 8 bf16 and K = 8 with a generated P: one 50-CG subproblem
+   each at n = 2^24 (on a kappa ~ 1000 operator; K = 3 and 8 also the
+   rank-3 and rank-8 TNT's own subproblems at their 11th outer
+   iteration), held against the plain version and timed beside its bound
+   (``subproblem_bound``: bytes or operations); the any-K kernel's fixed
+   cost a CG iteration at K = 8, 16, 64 (n = 2^16); then the rank-3 and
+   rank-8 TNT (``Quartic``: the sphere Rayleigh quotient with one quartic
+   term, k = 3, or six, k = 8, three of their c_j stored and three
+   generated) at n = 2^24, ``headline.tier_params``, through the kernel
+   (``flat_solve``) and the eager flat engine (``flat_qm``), gated on equal
+   statuses and outer counts, f* within 1e-4 relative, CG within 10% and
+   kernel launches = subproblems, CG it/s printed for both;
 25. the examples (``optimization_tpu_torch/examples``): every example's
    ``main()`` in process on the card at the JAX example's sizes, each
    applying the JAX example's acceptance check; its wall time, statuses
@@ -231,7 +238,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 N_PARITY = (1 << 20, 999_999)       # the second is not a multiple of 1024
 N_MAIN = 1 << 24
 SHORT = 10                          # CG iterations: see check_parity
-SOURCES = ("streamed_cg", "fused", "probes")
+SOURCES = ("streamed_cg", "streamed_cg_any", "fused", "probes")
 N_FUSED = (1 << 24, 999_999, 100)   # fused kernel parity sizes
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"f32": 67e12, "tf32": 495e12, "bf16": 989e12}
@@ -489,19 +496,21 @@ def parity_phase(torch, dev):
                              "differ")
     gcases = general_parity(torch, dev)
     print(f"phase 3: {cases} sphere cases + 2 bitwise repeats, {gcases} "
-          f"general cases (K = 1, 3, 4) each with a bitwise repeat passed",
-          flush=True)
+          f"general cases (K = 1, 3, 4, 5, 8, 16) each with a bitwise repeat "
+          f"passed", flush=True)
 
 
 
-# ---- the general rank k (K = 1, 3, 4): phase 3's cases, phase 24 ----
+# ---- the general rank k: phase 3's cases, phase 24 ----
 
 GEN_AUX = (0.5, 0.75)
 # (a0, weights) of phase 3's general cases: every term form among them
-# (the forms of tests/test_torch_streamed_cg.py); phase 24 times its own
+# (the forms of tests/test_torch_streamed_cg.py); K >= 5
+# (csrc/streamed_cg_any.cu) takes gen_weights (None); phase 24 times its own
 GEN_OPS = {1: ("affine", ("stored",)),
            3: ("shifted", ("one", "twice", "fn")),
-           4: ("fn", ("one", "twice", "stored", "fn"))}
+           4: ("fn", ("one", "twice", "stored", "fn")),
+           5: ("shifted", None), 8: ("fn", None), 16: ("stored", None)}
 GEN_PREC_FORMS = ("jacobi", "quarter", "stored", "fn")
 
 
@@ -521,6 +530,37 @@ def gen_term(torch, form, n, dev, spread=8.0):
             lambda i, aux: 0.5 + aux[1] * ((i % 97).float() / 8.0))
     return {"one": None, "affine": aff, "twice": ScaledDiagonal(aff),
             "shifted": ShiftedDiagonal(aff)}[form]
+
+
+GEN_CYCLE = ("twice", "stored", "fn", "affine")
+
+
+def gen_weights(torch, k, n, dev):
+    """k distinct weights of order 1 for the rank K >= 5 cases: the weight
+    1, then ScaledDiagonal, stored, wrapped and affine in turn, each with
+    its own coefficients (values in [0.5, 2]).  Weights repeated across j
+    (U with equal columns) give H outlying eigenvalues at which CG's step
+    count moves by 2 when only the order of the sums changes; with these,
+    the plain version on permuted indices stops within 1 of itself up to
+    K = 212 (n = 2^16)."""
+    from optimization_tpu_torch.kernels.streamed_cg import (
+        AffineDiagonal, ElementwiseFn, ScaledDiagonal)
+
+    def weight(j):
+        form = GEN_CYCLE[(j - 1) % 4]
+        if form == "twice":
+            return ScaledDiagonal(AffineDiagonal(0.25 + 0.002 * j,
+                                                 0.5 / (n - 1)))
+        if form == "affine":
+            return AffineDiagonal(0.5 + 0.003 * j, 1.0 / (n - 1))
+        if form == "stored":
+            return 0.5 + ((torch.arange(n, device=dev) + 7 * j) % 13
+                          ).float() / 12.0
+        m = 89 + j
+        return ElementwiseFn(lambda i, aux: 0.5 + aux[1] * ((i % m).float()
+                                                             / m))
+
+    return (None,) + tuple(weight(j) for j in range(1, k))
 
 
 def gen_args(torch, k, n, dtype, dev, seed=3):
@@ -568,28 +608,37 @@ def gen_prec(torch, form, a0c, aux, n, dev):
     return pc, prec_map(pc, a0c, aux, n, dev)
 
 
+def gen_operator(torch, k, n, dev):
+    """(label, a0_chunk, weights) of phase 3's rank-k operator."""
+    a0_form, w_forms = GEN_OPS[k]
+    a0c = gen_term(torch, a0_form, n, dev)
+    if w_forms is None:
+        return f"{a0_form}/gen_weights", a0c, gen_weights(torch, k, n, dev)
+    return (f"{a0_form}/{','.join(w_forms)}", a0c,
+            tuple(gen_term(torch, f, n, dev) for f in w_forms))
+
+
 def bitwise_same(torch, r1, r2):
     return (torch.equal(r1.s, r2.s)
             and all(torch.equal(u, v) for u, v in zip(r1[1:], r2[1:])))
 
 
 def general_parity(torch, dev):
-    """Phase 3's general cases: the kernel at K = 1, 3, 4 against its plain
-    version over n x storage x body x init x Delta, then every prec_chunk
-    form; each case launched twice, the two bit for bit equal.  Returns the
-    number of cases."""
+    """Phase 3's general cases: the kernel at K = 1, 3, 4 (csrc/
+    streamed_cg.cu) and 5, 8, 16 (csrc/streamed_cg_any.cu) against its
+    plain version over n x storage x body x init x Delta, then every
+    prec_chunk form; each case launched twice, the two bit for bit equal.
+    Returns the number of cases."""
     from optimization_tpu_torch.kernels.streamed_cg import (
         stpcg_flat_streamed, stpcg_flat_streamed_reference)
 
     cases = 0
     kw = dict(max_iterations=300, kappa_fgr=1e-3, theta=0.9)
     for k, n, dtype, body, with_init in itertools.product(
-            (1, 3, 4), N_PARITY, (torch.float32, torch.bfloat16),
+            GEN_OPS, N_PARITY, (torch.float32, torch.bfloat16),
             ("pair", "single"), (False, True)):
         g, x, B, aux = gen_args(torch, k, n, dtype, dev)
-        a0_form, w_forms = GEN_OPS[k]
-        a0c = gen_term(torch, a0_form, n, dev)
-        weights = tuple(gen_term(torch, f, n, dev) for f in w_forms)
+        forms, a0c, weights = gen_operator(torch, k, n, dev)
         init = (gen_init(torch, g, x, B, a0c, weights, aux) if with_init
                 else None)
         # Delta 0.15 ends on the boundary after some interior iterations
@@ -602,9 +651,8 @@ def general_parity(torch, dev):
             again = stpcg_flat_streamed(*args, **kwargs)
             ref = stpcg_flat_streamed_reference(*args, **kwargs)
             torch.cuda.synchronize()
-            label = (f"K={k} {a0_form}/{','.join(w_forms)} n={n} "
-                     f"{str(dtype)[6:]} {body} init={int(with_init)} "
-                     f"Delta={Delta:g}")
+            label = (f"K={k} {forms} n={n} {str(dtype)[6:]} {body} "
+                     f"init={int(with_init)} Delta={Delta:g}")
             check_parity(torch, res, ref, dtype, label)
             if not bitwise_same(torch, res, again):
                 raise AssertionError(f"two launches differ: {label}")
@@ -615,12 +663,10 @@ def general_parity(torch, dev):
     # 26/25 at K = 3, n = 2^20 on an H100); the JacobiPower at the
     # preconditioned tolerances of check_parity(prec=True)
     for k, n, dtype, form in itertools.product(
-            (1, 3, 4), N_PARITY, (torch.float32, torch.bfloat16),
+            GEN_OPS, N_PARITY, (torch.float32, torch.bfloat16),
             GEN_PREC_FORMS):
         g, x, B, aux = gen_args(torch, k, n, dtype, dev, seed=5)
-        a0_form, w_forms = GEN_OPS[k]
-        a0c = gen_term(torch, a0_form, n, dev)
-        weights = tuple(gen_term(torch, f, n, dev) for f in w_forms)
+        _, a0c, weights = gen_operator(torch, k, n, dev)
         pc, pmap = gen_prec(torch, form, a0c, aux, n, dev)
         body = "pair" if n == N_PARITY[0] else "single"
         for Delta in ((1e6, 0.15) if dtype == torch.float32 else (0.15,)):
@@ -3625,7 +3671,7 @@ def gloo_rank_main(rank, world, tmp):
 
 
 
-# ---- the rank-3 path (phase 24) ----
+# ---- the rank-3 and rank-8 paths (phase 24) ----
 
 R3_MU = 10.0
 # headline.tier_params (at most 30 outer, <= 50 CG each) with |grad| <=
@@ -3633,17 +3679,23 @@ R3_MU = 10.0
 # f32's floor (where the two engines' late subproblems part); at n = 2^24
 # both engines run to the 30-outer cap (|grad| 0.18 on an H100)
 R3_GRAD_TOL = 2e-2
+# the rank-8 problem's generated c_j: c0 + spread i / (n - 1), in [0, 1]
+R8_AFFINE = ((0.25, 0.5), (0.9, -0.8), (0.1, 0.3))
 
 
-class Rank3:
-    """The rank-3 problem of tests/test_torch_streamed_cg.py at size n on
-    the card: f(x) = <x, a x> + (mu/4) q^2, q = <x, c x>, a = 1 + 999 i /
-    (n - 1) (kappa = 1000), c uniform in [0, 1) from a seeded generator on
-    the card, mu = 10.  Its projected Hessian is A0 + U B U' with A0 = 2a
-    + mu q c - lam, U = (x, a x, c x): k = 3, a0 a wrapped callable of aux
-    = (lam, q), weights (None, a, stored c)."""
+class Quartic:
+    """The quartic sphere problems of tests/test_torch_streamed_cg.py at
+    size n on the card: f(x) = <x, a x> + (mu/4) sum_j q_j^2, q_j = <x, c_j
+    x>, a = 1 + 999 i / (n - 1) (kappa = 1000), mu = 10; ``stored`` c_j
+    uniform in [0, 1) from a seeded generator on the card, then one
+    generated c_j (an AffineDiagonal) for each (c0, spread) of ``affine``.
+    Its projected Hessian is A0 + U B U' with A0 = 2a + mu sum_j q_j c_j -
+    lam, U = (x, a x, c_1 x, ...): k = 2 + the number of c_j, a0 a wrapped
+    callable of aux = (lam, q_1, ...), weights (None, a, c_1, ...).  One
+    stored c is the rank-3 problem (``Rank3``), in its arithmetic; three
+    stored and ``R8_AFFINE`` the rank-8 one (``Rank8``)."""
 
-    def __init__(self, torch, n, dev, seed=13):
+    def __init__(self, torch, n, dev, seed=13, stored=1, affine=()):
         from optimization_tpu_torch.kernels.streamed_cg import (
             AffineDiagonal, ElementwiseFn)
 
@@ -3651,24 +3703,50 @@ class Rank3:
         self.diag = AffineDiagonal(1.0, 999.0 / (n - 1))
         self.a = self.diag.values(n, dev)
         gen = torch.Generator(device=dev).manual_seed(seed)
-        self.c = torch.rand(n, generator=gen, device=dev)
-        a, c = self.a, self.c
-        self.a0fn = ElementwiseFn(
-            lambda i, aux: 2.0 * a + (R3_MU * aux[1]) * c - aux[0])
-        self.weights = (None, self.diag, self.c)
+        self.stored = [torch.rand(n, generator=gen, device=dev)
+                       for _ in range(stored)]
+        self.generated = [AffineDiagonal(c0, sp / (n - 1))
+                          for c0, sp in affine]
+        self.cs = self.stored + [c.values(n, dev) for c in self.generated]
+        a, cs = self.a, self.cs
+
+        def a0(i, aux):
+            d = 2.0 * a
+            for j, c in enumerate(cs):
+                d = d + (R3_MU * aux[1 + j]) * c
+            return d - aux[0]
+
+        self.a0fn = ElementwiseFn(a0)
+        self.weights = (None, self.diag, *self.stored, *self.generated)
+        self.k = len(self.weights)
+
+    def qs(self, x):
+        return [self.torch.dot(x, c * x) for c in self.cs]
+
+    def d(self, qs):
+        """2a + mu sum_j q_j c_j: grad f = d x on the sphere."""
+        d = 2.0 * self.a
+        for q, c in zip(qs, self.cs):
+            d = d + R3_MU * q * c
+        return d
 
     def operator(self, x):
-        """(B, lam, q) at the unit x."""
-        torch, a, c = self.torch, self.a, self.c
-        q = torch.dot(x, c * x)
-        lam = torch.dot(x, (2.0 * a + R3_MU * q * c) * x)
-        z = torch.zeros_like(q)
-        B = torch.stack([
-            torch.stack([2.0 * lam + 2.0 * R3_MU * q * q, z - 2.0,
-                         -3.0 * R3_MU * q]),
-            torch.stack([z - 2.0, z, z]),
-            torch.stack([-3.0 * R3_MU * q, z, z + 2.0 * R3_MU])])
-        return B, lam, q
+        """(B, lam, (q_1, ...)) at the unit x."""
+        torch = self.torch
+        qs = self.qs(x)
+        lam = torch.dot(x, self.d(qs) * x)
+        z = torch.zeros_like(lam)
+        b00 = 2.0 * lam
+        for q in qs:
+            b00 = b00 + 2.0 * R3_MU * q * q
+        m = len(qs)
+        rows = [torch.stack([b00, z - 2.0]
+                            + [-3.0 * R3_MU * q for q in qs]),
+                torch.stack([z - 2.0, z] + [z] * m)]
+        for j, q in enumerate(qs):
+            rows.append(torch.stack([-3.0 * R3_MU * q, z] + [
+                z + 2.0 * R3_MU if t == j else z for t in range(m)]))
+        return torch.stack(rows), lam, qs
 
     def problem(self, engine):
         """The RiemannianProblem: ``streamed`` (the kernel through
@@ -3679,28 +3757,30 @@ class Rank3:
             stpcg_flat_streamed)
         from optimization_tpu_torch.manifolds.sphere import sphere
 
-        torch, a, c, M = self.torch, self.a, self.c, sphere()
+        torch, a, M = self.torch, self.a, sphere()
 
         def f(x, _):
-            q = torch.dot(x, c * x)
-            return torch.dot(x, a * x) + 0.25 * R3_MU * q * q
+            t = torch.dot(x, a * x)
+            for q in self.qs(x):
+                t = t + 0.25 * R3_MU * q * q
+            return t
 
         def grad(x, _):
-            q = torch.dot(x, c * x)
-            return M.proj(x, (2.0 * a + R3_MU * q * c) * x)
+            return M.proj(x, self.d(self.qs(x)) * x)
 
         def flat_solve(g, x, _, aux, Delta, params):
-            B, lam, q = self.operator(x)
+            B, lam, qs = self.operator(x)
             return stpcg_flat_streamed(
-                g, x, B, Delta, (lam, q), a0_chunk=self.a0fn,
+                g, x, B, Delta, (lam, *qs), a0_chunk=self.a0fn,
                 weights=self.weights,
                 max_iterations=params.max_TPCG_iterations,
                 kappa_fgr=params.kappa_fgr, theta=params.theta)
 
         def flat_qm(x, _, aux=None):
-            B, lam, q = self.operator(x)
-            a0 = 2.0 * a + (R3_MU * q) * c - lam
-            return (lambda v: a0 * v), (x, a * x, c * x), B
+            B, lam, qs = self.operator(x)
+            a0 = self.d(qs) - lam
+            return ((lambda v: a0 * v), (x, a * x, *(c * x for c in self.cs)),
+                    B)
 
         if engine == "streamed":
             return RiemannianProblem(f=f, manifold=M, grad=grad,
@@ -3708,84 +3788,117 @@ class Rank3:
         return RiemannianProblem(f=f, manifold=M, grad=grad, flat_qm=flat_qm)
 
 
-def timed_subproblem(torch, label, tag, args, kw, words_it, words_once,
-                     k):
+def Rank3(torch, n, dev, seed=13):
+    """The rank-3 problem: one stored c (k = 3)."""
+    return Quartic(torch, n, dev, seed)
+
+
+def Rank8(torch, n, dev, seed=13):
+    """The rank-8 problem: three stored c_j and R8_AFFINE's three generated
+    ones (k = 8), so a stored and a generated weight run at k > 4."""
+    return Quartic(torch, n, dev, seed, stored=3, affine=R8_AFFINE)
+
+
+def term_cost(t, a0=False):
+    """(bytes an iteration, bytes once, f32 operations an iteration) an
+    element of one term of the kernel's operator (a weight, or ``a0``):
+    a stored or wrapped term is read once a pass (4 B) and a wrapped one
+    written once when evaluated; a generated term costs c + b i (2 ops,
+    and 1 more for 2t, 2 for 2t - aux0); a weight adds u = w x (1, none
+    for the weight 1) and its two multiply-adds (into q = Hp and into
+    U'(A0 r), 4)."""
+    from optimization_tpu_torch.kernels.streamed_cg import (
+        ElementwiseFn, ScaledDiagonal, ShiftedDiagonal)
+
+    wrap = ScaledDiagonal if not a0 else ShiftedDiagonal
+    inner = t.a if isinstance(t, wrap) else t
+    extra = (2 if a0 else 1) if isinstance(t, wrap) else 0
+    if t is None:
+        return 0, 0, 4
+    own = 0 if a0 else 5
+    if isinstance(inner, ElementwiseFn):
+        return 4, 4, own + extra
+    if hasattr(inner, "shape"):
+        return 4, 0, own + extra
+    return 0, 0, own + 2 + extra
+
+
+def subproblem_bound(n, its, a0c, weights, prec_chunk=None, word=4,
+                     init=False):
+    """(ms, "bytes" or "operations") of one subproblem of ``its`` CG
+    iterations on the card: each iteration the pair body's 6n words of the
+    storage type (5 deferring, 7 applying) plus each stored term's n f32
+    words, and ~20 operations an element for the body's own arithmetic
+    (p, r, the four dots, s) plus each term's (``term_cost``); once, the
+    init pass (g and x read, the stored terms, V'V: (k+2)(k+3) operations
+    an element) unless ``init``, each wrapped term's evaluation and, with
+    P, the tail's read and write of s.  A generated P adds its |a0| + c and
+    rsqrt (3 operations, 4 for the quarter power) and p w per weight; a
+    stored or wrapped one n words a pass."""
+    k = len(weights)
+    costs = [term_cost(a0c, a0=True)] + [term_cost(w) for w in weights]
+    b_it = 6 * word + sum(c[0] for c in costs)
+    b_once = sum(c[1] for c in costs)
+    ops_it = 20 + sum(c[2] for c in costs)
+    if prec_chunk is not None:
+        if hasattr(prec_chunk, "e"):
+            ops_it += (3 if prec_chunk.e == 0.5 else 4) + k + 2
+        else:
+            pb = term_cost(prec_chunk)
+            b_it, b_once, ops_it = b_it + pb[0], b_once + pb[1], ops_it + k + 2
+        b_once += 2 * word
+    ops_once = 0
+    if not init:
+        b_once += 2 * word + sum(c[0] for c in costs)
+        ops_once = (k + 2) * (k + 3) + ops_it
+    return bound((b_it * its + b_once) * n, (ops_it * its + ops_once) * n)
+
+
+def timed_subproblem(torch, label, tag, args, kw, plain_reps=3):
     """One subproblem: the kernel held against its plain version, then
-    both timed by CUDA events; (its, err, ms, plain_ms, bound_ms, bound_by).
-    The bound: words_it n-words an iteration (6 for the pair body, plus one
-    for each stored or wrapped term) and words_once n-words once (a wrapped
-    callable's evaluation), ~20 + 4K f32 operations an element an
-    iteration."""
+    both timed by CUDA events, beside ``subproblem_bound`` of its own
+    iterations; (its, err, ms, plain_ms, bound_ms, bound_by)."""
     from optimization_tpu_torch.kernels.streamed_cg import (
         stpcg_flat_streamed, stpcg_flat_streamed_reference)
 
     n = args[0].shape[0]
     res = stpcg_flat_streamed(*args, **kw)
     ref = stpcg_flat_streamed_reference(*args, **kw)
-    err = check_parity(torch, res, ref, torch.float32, tag)
+    err = check_parity(torch, res, ref, args[0].dtype, tag)
     its = int(res.num_iterations)
     ms = time_ms(torch, lambda: stpcg_flat_streamed(*args, **kw), 10)
     plain_ms = time_ms(torch,
-                       lambda: stpcg_flat_streamed_reference(*args, **kw), 3)
-    nbytes = (words_it * its + words_once) * n * 4
-    bound_ms, bound_by = bound(nbytes, (20.0 + 4.0 * k) * n * its)
+                       lambda: stpcg_flat_streamed_reference(*args, **kw),
+                       plain_reps)
+    bound_ms, bound_by = subproblem_bound(
+        n, its, kw["a0_chunk"], kw["weights"], kw.get("prec_chunk"),
+        args[0].element_size(), kw.get("init") is not None)
     print(f"  {tag}: {its} CG it, kernel {ms:.3f} ms = "
           f"{ms / max(its, 1):.4f} ms an iteration, plain {plain_ms:.3f} ms, "
-          f"bound {bound_ms:.4f} ms ({bound_by}: ({words_it} its + "
-          f"{words_once}) n words), {bound_ms / ms:.3f} of it [{label}]",
-          flush=True)
+          f"bound {bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.3f} of it "
+          f"[{label}]", flush=True)
     return its, err, ms, plain_ms, bound_ms, bound_by
 
 
-def general_phase(torch, dev, label):
-    """Phase 24: the kernel at K = 1, 3, 4 on one 50-CG subproblem at
-    n = 2^24 f32, each beside its bytes bound, then the rank-3 TNT at
-    n = 2^24 through the kernel and through the eager flat engine.  Returns
-    the rank-3 kernel's entry of the kernels line."""
+# the K >= 5 subproblems of phase 24: (K, storage, P), 50 CG at n = 2^24
+GEN_TIMED = ((5, "f32", None), (8, "f32", None), (16, "f32", None),
+             (32, "f32", None), (8, "bf16", None), (8, "f32", "jacobi"))
+
+
+def quartic_tnt(torch, dev, label, prob, tag, x0, params):
+    """A quartic problem's TNT through the kernel (``flat_solve``) and the
+    eager flat engine (``flat_qm``) at n = 2^24; gated on equal statuses
+    and outer counts, f* within 1e-4 relative, CG within 10% and kernel
+    launches = subproblems.  Returns the kernel's launches."""
     from optimization_tpu_torch import headline as H
     from optimization_tpu_torch.core.types import TNTStatus
     from optimization_tpu_torch.kernels.streamed_cg import (
-        AffineDiagonal, stpcg_flat_streamed)
+        stpcg_flat_streamed)
 
-    n = N_MAIN
-    print(f"phase 24: the kernel at rank K = 1, 3, 4 (50-CG subproblems, "
-          f"n = 2^24 f32) and the rank-3 TNT at n = 2^24 [{label}]",
-          flush=True)
-    # K = 1 and 4: a positive-definite operator with kappa ~ 1000 at a
-    # random point and no truncation (kappa_fgr = 0): 50 interior steps
-    wide = AffineDiagonal(1.0, 999.0 / (n - 1))
-    fixed = dict(max_iterations=50, kappa_fgr=0.0, theta=0.5)
-    for k, weights, words_it, words_once in (
-            (1, (None,), 6, 0),
-            (4, tuple(gen_term(torch, f, n, dev)
-                      for f in ("one", "twice", "stored", "fn")), 8, 1)):
-        g, x, B, aux = gen_args(torch, k, n, torch.float32, dev, seed=7)
-        timed_subproblem(torch, label, f"K={k} subproblem",
-                         (g, x, B, 1e6, aux),
-                         dict(fixed, a0_chunk=wide, weights=weights),
-                         words_it, words_once, k)
-
-    # K = 3: the rank-3 TNT's own subproblem at its 11th outer iteration
-    r3 = Rank3(torch, n, dev)
-    probs = {name: r3.problem(name) for name in ("streamed", "flat")}
-    params = H.tier_params(R3_GRAD_TOL)
-    x0 = H.initial_point(n, torch.float32, dev, 5)
-    k_mid = 10
-    mid = H.run_tier(probs["streamed"], x0,
-                     H.tier_params(R3_GRAD_TOL, max_iterations=k_mid))
-    x = mid.result.x
-    B, lam, q = r3.operator(x)
-    g = probs["streamed"].rgrad(x)
-    kw3 = dict(a0_chunk=r3.a0fn, weights=r3.weights, max_iterations=50,
-               kappa_fgr=params.kappa_fgr, theta=params.theta)
-    its3, err3, ms3, plain3, bound3, by3 = timed_subproblem(
-        torch, label, f"K=3 rank-3 subproblem (outer {k_mid + 1})",
-        (g, x, B, mid.result.trust_region_radius[k_mid], (lam, q)), kw3,
-        8, 1, 3)
-
-    for prob in probs.values():            # warm-up: first launches
-        H.run_tier(prob, x0, H.tier_params(0.0, max_iterations=1))
-    # ---- the rank-3 path's run: the count starts at 0 here ----
+    probs = {name: prob.problem(name) for name in ("streamed", "flat")}
+    for p in probs.values():               # warm-up: first launches
+        H.run_tier(p, x0, H.tier_params(0.0, max_iterations=1))
+    # ---- the path's run: the count starts at 0 here ----
     stpcg_flat_streamed.launches = 0
     kr = H.run_tier(probs["streamed"], x0, params)
     launches = stpcg_flat_streamed.launches
@@ -3793,7 +3906,7 @@ def general_phase(torch, dev, label):
     fr = H.run_tier(probs["flat"], x0, params)
     for name, t in (("kernel, flat_solve", kr), ("eager flat engine, "
                                                   "flat_qm", fr)):
-        print(f"  rank-3 TNT ({name}): {t.outer} outer / {t.inner} CG in "
+        print(f"  {tag} TNT ({name}): {t.outer} outer / {t.inner} CG in "
               f"{t.seconds:.3f} s = {t.cg_per_s:.0f} CG it/s, f* = "
               f"{t.fstar:.7f}, |g| = {float(t.result.gradfx_norm):.3e}, "
               f"{TNTStatus(int(t.result.status)).name} [{label}]",
@@ -3802,6 +3915,7 @@ def general_phase(torch, dev, label):
         TNTStatus.GRADIENT, TNTStatus.PRECONDITIONED_GRADIENT))
     xs = kr.result.x
     ok = (int(kr.result.status) == int(fr.result.status)
+          and kr.outer == fr.outer
           and abs(kr.fstar - fr.fstar) <= 1e-4 * abs(fr.fstar)
           and abs(kr.inner - fr.inner) <= 0.1 * max(kr.inner, fr.inner)
           and launches == subproblems and math.isfinite(kr.fstar)
@@ -3812,19 +3926,101 @@ def general_phase(torch, dev, label):
             print(f"  {name}: |g| {t.result.gradient_norms[:t.outer + 1]}"
                   f", CG {t.result.inner_iterations[:t.outer]}", flush=True)
         raise AssertionError(
-            f"rank-3 TNT: status {int(kr.result.status)}/"
-            f"{int(fr.result.status)}, f* {kr.fstar}/{fr.fstar}, CG "
-            f"{kr.inner}/{fr.inner}, launches {launches} for {subproblems} "
-            f"subproblems")
-    print(f"  gates passed: statuses equal, |df*| = "
+            f"{tag} TNT: status {int(kr.result.status)}/"
+            f"{int(fr.result.status)}, outer {kr.outer}/{fr.outer}, f* "
+            f"{kr.fstar}/{fr.fstar}, CG {kr.inner}/{fr.inner}, launches "
+            f"{launches} for {subproblems} subproblems")
+    print(f"  gates passed: statuses and outer counts equal, |df*| = "
           f"{abs(kr.fstar - fr.fstar):.3e} within 1e-4 relative, CG within "
           f"10%, kernel launches {launches} = subproblems", flush=True)
-    return {"name": "stpcg_flat_streamed[k=3]", "route": "cuda",
-            "source": "optimization_tpu_torch/csrc/streamed_cg.cu",
+    return launches
+
+
+def general_phase(torch, dev, label):
+    """Phase 24: the kernel at K = 1, 3, 4 and (``csrc/streamed_cg_any.cu``)
+    K = 5, 8, 16, 32, bf16 at K = 8 and a generated P at K = 8, each on one
+    50-CG subproblem at n = 2^24 beside its bound; the any-K kernel's fixed
+    cost an iteration at K = 8, 16, 64; then the rank-3 and the rank-8 TNT
+    at n = 2^24 through the kernel and through the eager flat engine.
+    Returns the rank-3 and rank-8 kernels' entries of the kernels line."""
+    from optimization_tpu_torch import headline as H
+    from optimization_tpu_torch.kernels.streamed_cg import (
+        AffineDiagonal, stpcg_flat_streamed)
+
+    n = N_MAIN
+    print(f"phase 24: the kernel at rank K = 1, 3, 4, 5, 8, 16, 32 (50-CG "
+          f"subproblems, n = 2^24) and the rank-3 and rank-8 TNT at "
+          f"n = 2^24 [{label}]", flush=True)
+    # K = 1 and 4: a positive-definite operator with kappa ~ 1000 at a
+    # random point and no truncation (kappa_fgr = 0): 50 interior steps
+    wide = AffineDiagonal(1.0, 999.0 / (n - 1))
+    fixed = dict(max_iterations=50, kappa_fgr=0.0, theta=0.5)
+    for k, weights in ((1, (None,)),
+                       (4, tuple(gen_term(torch, f, n, dev)
+                                 for f in ("one", "twice", "stored", "fn")))):
+        g, x, B, aux = gen_args(torch, k, n, torch.float32, dev, seed=7)
+        timed_subproblem(torch, label, f"K={k} subproblem",
+                         (g, x, B, 1e6, aux),
+                         dict(fixed, a0_chunk=wide, weights=weights))
+    # K >= 5: gen_weights' mix (a quarter stored, a quarter wrapped, the
+    # rest generated, and the weight 1); the plain version at K = 32 runs
+    # ~0.8 s a call, timed over 1 call
+    for k, storage, pform in GEN_TIMED:
+        dtype = torch.bfloat16 if storage == "bf16" else torch.float32
+        g, x, B, aux = gen_args(torch, k, n, dtype, dev, seed=7)
+        weights = gen_weights(torch, k, n, dev)
+        kw = dict(fixed, a0_chunk=wide, weights=weights)
+        if pform:
+            pc, pm = gen_prec(torch, pform, wide, aux, n, dev)
+            kw.update(prec_chunk=pc, prec=pm)
+        timed_subproblem(
+            torch, label, f"K={k} {storage}{' P=' + pform if pform else ''}"
+            f" subproblem", (g, x, B, 1e6, aux), kw,
+            plain_reps=1 if k >= 16 else 3)
+    # the fixed cost of a CG iteration (K-sized algebra, the two-barrier
+    # reduction, the pass over 2^16 elements): the slope from 10 to 50 CG
+    for k in (8, 16, 64):
+        m = 1 << 16
+        g, x, B, aux = gen_args(torch, k, m, torch.float32, dev, seed=7)
+        kw = dict(fixed, a0_chunk=AffineDiagonal(1.0, 999.0 / (m - 1)),
+                  weights=gen_weights(torch, k, m, dev))
+        t = [time_ms(torch, lambda its=its: stpcg_flat_streamed(
+            g, x, B, 1e6, aux, **dict(kw, max_iterations=its)), 10)
+            for its in (10, 50)]
+        print(f"  K={k}: a CG iteration at n = 2^16 (its fixed cost) "
+              f"{(t[1] - t[0]) / 40 * 1e3:.2f} us [{label}]", flush=True)
+
+    entries = []
+    params = H.tier_params(R3_GRAD_TOL)
+    for prob, tag, seed in ((Rank3(torch, n, dev), "rank-3", 5),
+                            (Rank8(torch, n, dev), "rank-8", 5)):
+        # the problem's own subproblem at its 11th outer iteration
+        streamed = prob.problem("streamed")
+        x0 = H.initial_point(n, torch.float32, dev, seed)
+        k_mid = 10
+        mid = H.run_tier(streamed, x0,
+                         H.tier_params(R3_GRAD_TOL, max_iterations=k_mid))
+        x = mid.result.x
+        B, lam, qs = prob.operator(x)
+        g = streamed.rgrad(x)
+        kw = dict(a0_chunk=prob.a0fn, weights=prob.weights,
+                  max_iterations=50, kappa_fgr=params.kappa_fgr,
+                  theta=params.theta)
+        args = (g, x, B, mid.result.trust_region_radius[k_mid], (lam, *qs))
+        its, err, ms, plain, bnd, by = timed_subproblem(
+            torch, label, f"K={prob.k} {tag} subproblem (outer "
+            f"{k_mid + 1})", args, kw)
+        launches = quartic_tnt(torch, dev, label, prob, tag, x0, params)
+        entries.append({
+            "name": f"stpcg_flat_streamed[k={prob.k}]", "route": "cuda",
+            "source": ("optimization_tpu_torch/csrc/streamed_cg.cu"
+                       if prob.k <= 4 else
+                       "optimization_tpu_torch/csrc/streamed_cg_any.cu"),
             "replaces": "optimization_tpu/kernels/streamed_cg.py:95",
-            "launches": launches, "max_abs_err": err3, "ms": ms3,
-            "plain_ms": plain3, "bound_ms": bound3, "bound_by": by3,
-            "library_ms": None}
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
+            "library_ms": None})
+    return entries
 
 
 # ---- the examples (phases 25-26) ----
@@ -4006,7 +4202,7 @@ def main():
     # ---- end of phases 22-23's gram_pair runs ----
     check_held(held, last_launches, "in phases 22-23")
     errs7["gram_pair"] = max(errs7["gram_pair"], held["err"])
-    rank3_kernel = general_phase(torch, dev, label)
+    rank_kernels = general_phase(torch, dev, label)
     # ---- the examples' gram_pair runs: the count starts at 0 here ----
     F.gram_pair.launches = 0
     with held_gram_pair(torch) as held:
@@ -4032,7 +4228,7 @@ def main():
         for name in ("gram_pair", "stream3_probe")]
     print(json.dumps({"kernels": [kernel] + fused_kernels + new_kernels
                       + [prec_kernel] + probe_kernels + [chunk_kernel]
-                      + [rank3_kernel]}))
+                      + rank_kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

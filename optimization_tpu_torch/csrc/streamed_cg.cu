@@ -1,20 +1,24 @@
-// Whole-loop streamed trust-region CG for the H100 (sm_90a).
+// Whole-loop streamed trust-region CG for the H100 (sm_90a): the register
+// instantiations, K = 1-4.
 //
 // Replaces optimization_tpu/kernels/streamed_cg.py:_mk_kernel (the Pallas
 // TPU kernel behind stpcg_flat_streamed).  One launch solves one
 // Steihaug-Toint trust-region subproblem  min <g,s> + 1/2 <s,Hs>, |s| <= Delta
-// for H = A0 + U B U' of any rank K <= 4 (a template parameter), with
+// for H = A0 + U B U' of rank K = 1-4 (a template parameter), with
 //
 //   A0    = diag(a0),   U = (w_1 .* x, ..., w_K .* x),   B any K x K,
 //
-// a0 and each w_j one per-element term t(i), described in Params:
+// a0 and each w_j one per-element term t(i) (csrc/streamed_cg.cuh):
 //   - the weight 1 (u_j = x; weights only);
 //   - c + b * i, regenerated in registers (f32, no fused multiply-add);
 //   - a stored f32 vector, read once a pass (16-byte loads);
 // each taken as t, 2t (the JAX package's ScaledDiagonal) or 2t - aux0 (its
 // ShiftedDiagonal).  The sphere Rayleigh family is K = 2 with a0 = 2a - aux0,
 // U = (x, 2a .* x): the same arithmetic, in the same order, as the kernel
-// that took that family alone.
+// that took that family alone.  K >= 5 runs csrc/streamed_cg_any.cu, which
+// keeps the K-sized state in shared memory; this file holds it in registers
+// (K weight values for each of the W elements of a 16-byte load, the
+// K-vector carry and two K x K matrices), which stops paying at K = 3-4.
 //
 // The loop follows the Chronopoulos-Gear recurrences of the Pallas kernel:
 // one fused pass over r, p, x (+ s on applying halves) and ONE grid-wide
@@ -49,10 +53,7 @@
 // keeping the whole CG loop inside one persistent cooperative launch, so no
 // host round trip or kernel boundary sits between iterations.  A generated
 // preconditioner adds no bytes (plus 2n for the un-transform tail, once per
-// subproblem); a stored one adds n words per pass.  K is capped at 4 by the
-// register budget: the half's group holds K weight values for each of the
-// W elements of a 16-byte load beside the K-vector carry and the two K x K
-// matrices (the Python wrapper refuses K > 4 on the card).
+// subproblem); a stored one adds n words per pass.
 //
 // Structure: a persistent cooperative grid (co-resident blocks only) walks
 // the vectors with grid-stride loops.  Each half reduces its per-thread f32
@@ -73,6 +74,7 @@
 #include <stdint.h>
 
 #include "storage.cuh"
+#include "streamed_cg.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -80,7 +82,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxK = 4;
+constexpr int kUnrolledK = 4;   // the ranks instantiated here
 
 // Reduction widths: the init pass (rv, ar, nr, m[K], mA[K], UU upper) and a
 // half (rv, ar, nr, pa, mA[K]); the scratch holds the wider per block.
@@ -91,32 +93,11 @@ __host__ __device__ constexpr int nacc(int K) {
   return init_width(K) > 4 + K ? init_width(K) : 4 + K;
 }
 
-// The preconditioner's form (template parameter PK of the kernel).
-constexpr int kPrecNone = 0;
-constexpr int kPrecJacobi = 1;   // p = (|a0| + c)^(-e), generated
-constexpr int kPrecStored = 2;   // p read from a stored f32 vector
-
-// A per-element term t(i) (a0 or a weight).
-constexpr int kTermOne = 0;      // the weight 1 (u = x); weights only
-constexpr int kTermStored = 2;   // ptr[i]; 1 is c + b * i, regenerated
-constexpr int kFormSelf = 0;     // t
-constexpr int kFormTwice = 1;    // 2t
-constexpr int kFormShift = 2;    // 2t - aux0
-
-// Layout shared with the ctypes Structure in kernels/streamed_cg.py.
-struct Term {
-  const float* ptr;
-  float c;
-  float b;
-  int mode;
-  int form;
-};
-
 struct Params {
   const void* g;
   const void* x;
   Term a0;
-  Term w[kMaxK];
+  Term w[kUnrolledK];
   const float* prec;     // stored p (kPrecStored)
   float prec_c;          // c of the generated p
   int prec_quarter;      // e = 1/4 (else e = 1/2)
@@ -136,59 +117,6 @@ struct Params {
   int pair;
   int with_init;
 };
-
-// W consecutive f32 values of a stored vector (16-byte loads; 0 past n).
-template <int W>
-__device__ __forceinline__ void load_f32(const float* v, long long i,
-                                         long long n, float (&out)[W]) {
-#pragma unroll
-  for (int h = 0; h < W; h += 4) {
-    float q[4];
-    Store<float>::load(v, i + h, n, q);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) out[h + e] = q[e];
-  }
-}
-
-// A term's t(i) for W consecutive indices: read, or exactly as f32
-// evaluates c + b * f32(i) (no fused multiply-add, so it matches the plain
-// version's separate multiply and add).
-template <int W>
-__device__ __forceinline__ void term_base(const Term& t, long long i,
-                                          long long n, float (&v)[W]) {
-  if (t.mode == kTermStored) {
-    load_f32<W>(t.ptr, i, n, v);
-  } else {
-#pragma unroll
-    for (int e = 0; e < W; ++e)
-      v[e] = __fadd_rn(t.c, __fmul_rn(t.b, __ll2float_rn(i + e)));
-  }
-}
-
-// t, 2t or 2t - aux0 of a group's t(i) (one uniform branch a group).
-template <int W>
-__device__ __forceinline__ void term_form(int form, float aux0,
-                                          const float (&t)[W], float (&v)[W]) {
-  if (form == kFormTwice) {
-#pragma unroll
-    for (int e = 0; e < W; ++e) v[e] = 2.f * t[e];
-  } else if (form == kFormShift) {
-#pragma unroll
-    for (int e = 0; e < W; ++e) v[e] = __fsub_rn(2.f * t[e], aux0);
-  } else {
-#pragma unroll
-    for (int e = 0; e < W; ++e) v[e] = t[e];
-  }
-}
-
-template <int W>
-__device__ __forceinline__ void term_group(const Term& t, float aux0,
-                                           long long i, long long n,
-                                           float (&v)[W]) {
-  float base[W];
-  term_base<W>(t, i, n, base);
-  term_form<W>(t.form, aux0, base, v);
-}
 
 // The preconditioner's diagonal p(i) for W consecutive indices, from the
 // group's (unfolded) a0 (kPrecJacobi) or read from the stored vector; 0 past
@@ -264,13 +192,6 @@ __device__ __forceinline__ void matk(const float (&M)[K][K], const float (&v)[K]
                                      float (&out)[K]) {
 #pragma unroll
   for (int i = 0; i < K; ++i) out[i] = kdot<K>(M[i], v);
-}
-
-__device__ __forceinline__ float pow_static(float x, float e) {
-  if (e == 0.f) return 1.f;
-  if (e == 0.5f) return sqrtf(x);
-  if (e == 1.f) return x;
-  return expf(e * logf(x));
 }
 
 // Block + grid reduction of NACC per-thread partials (NACC <= STRIDE, the
@@ -704,9 +625,6 @@ const void* kernel_of(int bf16, int prec_kind, int k, int sphere) {
 
 extern "C" {
 
-// The largest rank K the kernel is instantiated for.
-int streamed_cg_max_k() { return kMaxK; }
-
 // Number of blocks the launch for n elements uses (co-resident at most, for
 // this instantiation's registers); the caller sizes the partial buffer as
 // 2 * grid * streamed_cg_nacc(k).  prec_kind: 0 none, 1 the generated
@@ -733,7 +651,7 @@ int streamed_cg_grid(int bf16, int prec_kind, int k, int sphere, long long n,
 }
 
 int streamed_cg_nacc(int k) {
-  return (k >= 1 && k <= kMaxK) ? nacc(k) : 0;
+  return (k >= 1 && k <= kUnrolledK) ? nacc(k) : 0;
 }
 
 const char* streamed_cg_error_string(int code) {
@@ -762,7 +680,7 @@ int streamed_cg_launch(int bf16, int prec_kind, int k, int sphere,
   P.g = g;
   P.x = x;
   P.a0 = terms[0];
-  for (int j = 0; j < kMaxK; ++j)
+  for (int j = 0; j < kUnrolledK; ++j)
     P.w[j] = j < k ? terms[1 + j] : Term{nullptr, 0.f, 0.f, kTermOne, kFormSelf};
   P.prec = prec;
   P.prec_c = prec_c;

@@ -1,11 +1,12 @@
 """Hand-written Hopper kernels, each beside its plain PyTorch version.
 
 - :mod:`streamed_cg` — the whole-loop trust-region CG
-  (``stpcg_flat_streamed``) for A0 + U B U' of any rank k (k <= 4 on the
-  card) with generated, stored or wrapped-callable (``ElementwiseFn``)
-  terms, and its preconditioned variant (a ``JacobiPower`` on A0, a stored
-  or a wrapped P), CUDA C++ in ``csrc/streamed_cg.cu``; replaces the Pallas
-  kernel ``optimization_tpu/kernels/streamed_cg.py:_mk_kernel``.
+  (``stpcg_flat_streamed``) for A0 + U B U' of any rank k with generated,
+  stored or wrapped-callable (``ElementwiseFn``) terms, and its
+  preconditioned variant (a ``JacobiPower`` on A0, a stored or a wrapped
+  P), CUDA C++ in ``csrc/streamed_cg.cu`` (k = 1-4) and
+  ``csrc/streamed_cg_any.cu`` (k >= 5); replaces the Pallas kernel
+  ``optimization_tpu/kernels/streamed_cg.py:_mk_kernel``.
 - :mod:`fused` — ``cg_dots``, ``axpy_selfdot``, ``gram_pair``,
   ``diag_stencil_matvec``, ``stream3_probe`` and ``affine_stencil_matvec``,
   CUDA C++ in ``csrc/fused.cu``; replace the Pallas kernels of the same
@@ -22,7 +23,7 @@
   gather behind the graph operators' verdict).
 """
 
-from .streamed_cg import (KERNEL_MAX_K, AffineDiagonal, ElementwiseFn,
+from .streamed_cg import (AffineDiagonal, ElementwiseFn,
                           JacobiPower, PrecMap, ScaledDiagonal,
                           ShiftedDiagonal, prec_map, sphere_rayleigh_streamed,
                           stored_prec_map, stpcg_flat_streamed,
@@ -39,7 +40,6 @@ from .probes import (chunk_offsets, chunk_reader, chunk_reader_reference,
 
 __all__ = ["AffineDiagonal", "ElementwiseFn", "JacobiPower", "PrecMap",
            "ScaledDiagonal", "ShiftedDiagonal", "prec_map", "stored_prec_map",
-           "KERNEL_MAX_K",
            "sphere_rayleigh_streamed", "stpcg_flat_streamed",
            "stpcg_flat_streamed_reference", "affine_stencil_matvec",
            "affine_stencil_matvec_reference", "axpy_selfdot",

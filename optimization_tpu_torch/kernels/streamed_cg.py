@@ -8,9 +8,11 @@ update, the boundary sigma-step, the kernel-of-H escape, the truncation
 target |r_k| <= |r_0| min(kappa, |r_0|^theta)).
 
 - On a CUDA tensor, :func:`stpcg_flat_streamed` launches the hand-written
-  kernel ``csrc/streamed_cg.cu`` (one persistent cooperative launch per
-  subproblem; the scalars it returns stay on the card).  It raises if the
-  kernel does not build or launch; it never falls back.
+  kernel (one persistent cooperative launch per subproblem; the scalars it
+  returns stay on the card): ``csrc/streamed_cg.cu`` at k = 1-4 (the
+  K-sized state in registers) and ``csrc/streamed_cg_any.cu`` at k >= 5
+  (the K-sized state in shared memory, or device memory past its lines).
+  It raises if the kernel does not build or launch; it never falls back.
 - On a CPU tensor it runs :func:`stpcg_flat_streamed_reference`, the plain
   PyTorch transcription of the Pallas kernel's recurrences over whole
   vectors: same init group, same ``half()``, same pair and single bodies.
@@ -32,10 +34,8 @@ CUDA kernel cannot, so each per-element term t(i) is a descriptor:
 any term, taken as a0 itself.  ``weights`` is a tuple of k >= 1 entries,
 each ``None`` (u = x), a :class:`ScaledDiagonal` ``(a)`` (w = 2a) or any
 term.  :func:`sphere_rayleigh_streamed` builds the sphere Rayleigh bundle
-(k = 2: A0 = 2a - rq, U = (x, 2a .* x)).  The card route takes k <= 4
-(the register budget of ``csrc/streamed_cg.cu``) and raises
-``NotImplementedError`` above; the plain version takes any k.  A rank-3
-call, with a0 and the third weight stored::
+(k = 2: A0 = 2a - rq, U = (x, 2a .* x)).  Both routes take any k >= 1.
+A rank-3 call, with a0 and the third weight stored::
 
     stpcg_flat_streamed(g, x, B3, Delta, (lam, q), a0_chunk=a0,
                         weights=(None, AffineDiagonal(1.0, b), c))
@@ -76,11 +76,11 @@ from ..linalg.flat_cg import FlatCGInit, FlatCGResult
 __all__ = ["stpcg_flat_streamed", "stpcg_flat_streamed_reference",
            "sphere_rayleigh_streamed", "AffineDiagonal", "ShiftedDiagonal",
            "ScaledDiagonal", "ElementwiseFn", "JacobiPower", "PrecMap",
-           "prec_map", "stored_prec_map", "KERNEL_MAX_K"]
+           "prec_map", "stored_prec_map", "any_k_layout"]
 
 _STORAGE = (torch.float32, torch.bfloat16)
 _ALIGN = 16                     # bytes per vector load in the kernel
-KERNEL_MAX_K = 4                # the card route's largest k (register budget)
+_UNROLLED_K = 4                 # csrc/streamed_cg.cu's ranks; above, _any.cu
 
 
 @dataclasses.dataclass(frozen=True)
@@ -471,21 +471,27 @@ def stpcg_flat_streamed_reference(
               else _term_values(ev(prec_chunk), n, aux, dev))
         a0 = pv * pv * a0
         us = [pv * xf if w is None else (pv * w) * xf for w in ws]
-    Bt = _f32(B, dev)
-    Bl = [[Bt[i, j] for j in range(k_lr)] for i in range(k_lr)]
+    Bm_ = _f32(B, dev).reshape(k_lr, k_lr)
     Delta_t = _f32(Delta, dev)
     Delta2 = Delta_t * Delta_t
     eps2 = _f32(epsilon, dev) ** 2
     tiny = torch.finfo(f32).tiny
 
+    # the k-vector algebra in the Pallas kernel's order (_kdot, _matk: a
+    # sum over j = 0..k-1, each product rounded, then added), a column of
+    # M at a time
     def kdot(u, v):
-        t = u[0] * v[0]
-        for j in range(1, len(u)):
-            t = t + u[j] * v[j]
+        uv = u * v
+        t = uv[0]
+        for j in range(1, k_lr):
+            t = t + uv[j]
         return t
 
     def matk(M, v):
-        return [kdot(row, v) for row in M]
+        t = M[:, 0] * v[0]
+        for j in range(1, k_lr):
+            t = t + M[:, j] * v[j]
+        return t
 
     def dot(u, v):
         return torch.sum(u * v)
@@ -493,21 +499,21 @@ def stpcg_flat_streamed_reference(
     if init is not None:
         rv0, ar0, nr0 = (_f32(init.rv, dev), _f32(init.ar, dev),
                          _f32(init.nr, dev))
-        m0 = [_f32(init.m[j], dev) for j in range(k_lr)]
-        mA0 = [_f32(init.mA[j], dev) for j in range(k_lr)]
-        UU = [[_f32(init.UU[i, j], dev) for j in range(k_lr)]
-              for i in range(k_lr)]
+        m0 = _f32(init.m, dev).reshape(k_lr)
+        mA0 = _f32(init.mA, dev).reshape(k_lr)
+        UU = _f32(init.UU, dev).reshape(k_lr, k_lr)
     else:
         gf = g.to(f32) if prec_chunk is None else pv * g.to(f32)
         a0g = a0 * gf
         rv0, ar0, nr0 = dot(gf, gf), dot(a0g, gf), dot(a0g, a0g)
-        m0 = [dot(u, gf) for u in us]
-        mA0 = [dot(u, a0g) for u in us]
+        m0 = torch.stack([dot(u, gf) for u in us])
+        mA0 = torch.stack([dot(u, a0g) for u in us])
         # the upper triangle of U'U, mirrored
         UU = [[None] * k_lr for _ in range(k_lr)]
         for i in range(k_lr):
             for j in range(i, k_lr):
                 UU[i][j] = UU[j][i] = dot(us[i], us[j])
+        UU = torch.stack([torch.stack(row) for row in UU])
 
     r0n = torch.sqrt(rv0)
     target = r0n * torch.minimum(_f32(kappa_fgr, dev), r0n ** theta)
@@ -517,7 +523,7 @@ def stpcg_flat_streamed_reference(
     s = torch.empty_like(g)
     r = g if prec_chunk is None else gf.to(sdt)
     p = torch.empty_like(g)
-    zk = [zero] * k_lr
+    zk = torch.zeros(k_lr, dtype=f32, device=dev)
     c = dict(k=torch.zeros((), dtype=torch.int32, device=dev),
              rv=rv0, ar=ar0, nr=nr0, pa=zero, nAp=zero, rv_prev=zero,
              alpha_prev=one, pr=zero, kappa_prev=one, s_p=zero, sk2=zero,
@@ -533,7 +539,7 @@ def stpcg_flat_streamed_reference(
                            c["rv"] / torch.where(first, one, c["rv_prev"]))
         m, mA, mB, mp = c["m"], c["mA"], c["mB"], c["mp"]
 
-        Bm = matk(Bl, m)
+        Bm = matk(Bm_, m)
         wr = c["ar"] + kdot(m, Bm)
         kappa = wr - (beta / c["alpha_prev"]) * c["rv"]
         pp_k = c["rv"] + beta * beta * c["pp_prev"]
@@ -541,7 +547,7 @@ def stpcg_flat_streamed_reference(
         sp_k = beta * (c["s_p"] + c["alpha_prev"] * c["pp_prev"])
 
         # kernel-of-H safeguard via the |q|^2 recurrence
-        Bmp = matk(Bl, mp)
+        Bmp = matk(Bm_, mp)
         UUBm = matk(UU, Bm)
         UUBmp = matk(UU, Bmp)
         ww = c["nr"] + 2.0 * kdot(mA, Bm) + kdot(Bm, UUBm)
@@ -571,11 +577,11 @@ def stpcg_flat_streamed_reference(
                         + 0.5 * sigma * sigma * kappa,
                         c["mval"] - 0.5 * alpha * c["rv"]))
 
-        mp_k = [-m[j] + beta * mp[j] for j in range(k_lr)]
-        mB2 = [-mA[j] + beta * mB[j] for j in range(k_lr)]
-        Bmpk = matk(Bl, mp_k)
+        mp_k = -m + beta * mp
+        mB2 = -mA + beta * mB
+        Bmpk = matk(Bm_, mp_k)
         UUBmpk = matk(UU, Bmpk)
-        m2 = [m[j] + crr * (mB2[j] + UUBmpk[j]) for j in range(k_lr)]
+        m2 = m + crr * (mB2 + UUBmpk)
         nAp2 = c["nr"] - 2.0 * beta * c["pa"] + beta * beta * c["nAp"]
 
         # ---- the streamed pass over whole vectors ----
@@ -590,7 +596,7 @@ def stpcg_flat_streamed_reference(
         a0p2 = a0 * p2
         rv2, ar2, nr2, pa2 = (dot(r2, r2), dot(a0r2, r2), dot(a0r2, a0r2),
                               dot(a0r2, a0p2))
-        mA2 = [dot(u, a0r2) for u in us]
+        mA2 = torch.stack([dot(u, a0r2) for u in us])
         if apply_s:
             # s and p hold garbage (possibly NaN) before their first
             # write, and 0 * NaN = NaN: select, don't scale
@@ -659,27 +665,35 @@ _ONE, _AFFINE, _STORED = 0, 1, 2          # Term.mode
 _SELF, _TWICE, _SHIFT = 0, 1, 2           # Term.form
 
 
-def _lib() -> ctypes.CDLL:
+def _lib(name: str = "streamed_cg") -> ctypes.CDLL:
+    """The built library ``csrc/<name>.cu`` (``streamed_cg`` or
+    ``streamed_cg_any``) with its C signatures set."""
     from ..csrc.build import load
 
-    lib = load("streamed_cg")
+    lib = load(name)
     if not getattr(lib, "_argtypes_set", False):
         vp, i32, i64, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                            ctypes.c_float)
-        lib.streamed_cg_max_k.argtypes = []
-        lib.streamed_cg_max_k.restype = i32
-        lib.streamed_cg_grid.argtypes = [i32, i32, i32, i32, i64,
-                                         ctypes.POINTER(i32)]
-        lib.streamed_cg_grid.restype = i32
-        lib.streamed_cg_nacc.argtypes = [i32]
-        lib.streamed_cg_nacc.restype = i32
+        lib.streamed_cg_error_string = getattr(lib, f"{name}_error_string")
         lib.streamed_cg_error_string.argtypes = [i32]
         lib.streamed_cg_error_string.restype = ctypes.c_char_p
-        lib.streamed_cg_launch.argtypes = [
-            i32, i32, i32, i32, vp, vp, vp, vp, vp, vp, vp,
-            i32, vp, vp, vp, i32, i64, i32, f, f, f, i32, i32, vp, f, i32,
-            vp]
-        lib.streamed_cg_launch.restype = i32
+        if name == "streamed_cg":
+            lib.streamed_cg_grid.argtypes = [i32, i32, i32, i32, i64,
+                                             ctypes.POINTER(i32)]
+            lib.streamed_cg_nacc.argtypes = [i32]
+            lib.streamed_cg_launch.argtypes = [
+                i32, i32, i32, i32, vp, vp, vp, vp, vp, vp, vp,
+                i32, vp, vp, vp, i32, i64, i32, f, f, f, i32, i32, vp, f, i32,
+                vp]
+        else:
+            lib.streamed_cg_any_grid.argtypes = [
+                i32, i32, i32, i32, i64, ctypes.POINTER(i32),
+                ctypes.POINTER(i64)]
+            lib.streamed_cg_any_layout.argtypes = [
+                i32, i32, i32, i32, ctypes.POINTER(i64)]
+            lib.streamed_cg_any_launch.argtypes = [
+                i32, i32, i32, vp, vp, vp, vp, vp, vp, vp, i32, vp, vp, vp,
+                i32, i64, i32, f, f, f, i32, i32, vp, f, i32, vp]
         lib._argtypes_set = True
     return lib
 
@@ -689,6 +703,25 @@ def _raise_on(lib, code: int, what: str) -> None:
         msg = lib.streamed_cg_error_string(code).decode()
         raise RuntimeError(f"streamed_cg {what} failed: CUDA error {code} "
                            f"({msg})")
+
+
+_PLACES = ("terms", "vectors", "dot_partials", "B_and_UU", "init_tile")
+
+
+def any_k_layout(k: int, *, bf16: bool = False, prec_kind: int = 0,
+                 with_init: bool = False, device=None) -> dict:
+    """Where ``csrc/streamed_cg_any.cu`` keeps each array at rank ``k`` on
+    the current card: ``{"terms": True, ..., "smem_bytes": b}`` (True:
+    shared memory; False: device memory).  ``prec_kind``: 0 none, 1 a
+    JacobiPower, 2 a stored or wrapped P.  Needs the card."""
+    lib = _lib("streamed_cg_any")
+    out = (ctypes.c_longlong * 6)()
+    with torch.cuda.device(device):
+        _raise_on(lib, lib.streamed_cg_any_layout(int(bf16), prec_kind, k,
+                                                  int(with_init), out),
+                  "layout query")
+    return {**{name: bool(out[q]) for q, name in enumerate(_PLACES)},
+            "smem_bytes": int(out[5])}
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -752,8 +785,8 @@ def stpcg_flat_streamed(
 
     On a CPU tensor this runs :func:`stpcg_flat_streamed_reference`; on a
     CUDA tensor it launches the kernel (counted in
-    ``stpcg_flat_streamed.launches``) for k <= ``KERNEL_MAX_K``, and raises
-    ``NotImplementedError`` above.
+    ``stpcg_flat_streamed.launches``): ``csrc/streamed_cg.cu`` for
+    k <= 4, ``csrc/streamed_cg_any.cu`` above.
     """
     _check(g, x, B, aux_scalars, a0_chunk, weights, body_kind, init,
            prec_chunk, prec)
@@ -768,13 +801,6 @@ def stpcg_flat_streamed(
                          f"kernel) or CPU tensors (the plain version), not "
                          f"{g.device.type}")
     k_lr = len(weights)
-    if k_lr > KERNEL_MAX_K:
-        raise NotImplementedError(
-            f"the card route takes k <= {KERNEL_MAX_K} (k = {k_lr}): each "
-            f"thread of csrc/streamed_cg.cu holds k weight values for every "
-            f"element of a 16-byte load beside the k-vector carry and two "
-            f"k x k matrices, and k > {KERNEL_MAX_K} overruns the register "
-            f"budget; the plain version (CPU tensors) takes any k")
     dev = g.device
     n = g.shape[0]
     bf16 = int(g.dtype == torch.bfloat16)
@@ -810,7 +836,13 @@ def stpcg_flat_streamed(
                   _f32(init.mA, dev).reshape(k_lr),
                   _f32(init.UU, dev).reshape(k_lr * k_lr)]
     scal = torch.cat(parts)
-    Bd = _f32(B, dev).reshape(k_lr * k_lr).contiguous()
+    Bd = _f32(B, dev).reshape(k_lr, k_lr)
+    if k_lr > _UNROLLED_K:
+        res = _launch_any(bf16, prec_kind, k_lr, g, x, terms, Bd, scal,
+                          len(aux), n, stored_p, prec_chunk, max_iterations,
+                          kappa_fgr, theta, epsilon, body_kind, init)
+        return _result(*res, scal)
+    Bd = Bd.reshape(k_lr * k_lr).contiguous()
 
     lib = _lib()
     with torch.cuda.device(dev):
@@ -838,7 +870,52 @@ def stpcg_flat_streamed(
             torch.cuda.current_stream(dev).cuda_stream)
         _raise_on(lib, code, "launch")
     stpcg_flat_streamed.launches += 1
+    return _result(s, res, scal)
 
+
+def _launch_any(bf16, prec_kind, k, g, x, terms, B, scal, n_aux, n, stored_p,
+                prec_chunk, max_iterations, kappa_fgr, theta, epsilon,
+                body_kind, init):
+    """One launch of ``csrc/streamed_cg_any.cu`` (k >= 5): the term
+    descriptors go to the card as a device array (through pinned memory,
+    without a host wait), B as B' (its threads read B's columns), and the
+    global scratch is sized by the library for the grid it picks.
+    Returns (s, res)."""
+    dev = g.device
+    lib = _lib("streamed_cg_any")
+    raw = torch.frombuffer(bytearray(bytes(terms)), dtype=torch.uint8)
+    dterms = raw.pin_memory().to(dev, non_blocking=True)
+    Bt = B.T.contiguous()
+    generated = prec_kind == 1
+    with torch.cuda.device(dev):
+        grid, nbytes = ctypes.c_int(0), ctypes.c_longlong(0)
+        _raise_on(lib, lib.streamed_cg_any_grid(
+            bf16, prec_kind, k, int(init is not None), n, ctypes.byref(grid),
+            ctypes.byref(nbytes)), "occupancy query")
+        s = torch.empty_like(g)
+        r = torch.empty_like(g)
+        p = torch.empty_like(g)
+        res = torch.empty(4, dtype=torch.float32, device=dev)
+        scratch = torch.empty(nbytes.value, dtype=torch.uint8, device=dev)
+        code = lib.streamed_cg_any_launch(
+            bf16, prec_kind, k, g.data_ptr(), x.data_ptr(),
+            dterms.data_ptr(), s.data_ptr(), r.data_ptr(), p.data_ptr(),
+            scal.data_ptr(), n_aux, Bt.data_ptr(), res.data_ptr(),
+            scratch.data_ptr(), grid.value, n, int(max_iterations),
+            float(kappa_fgr), float(theta), float(epsilon),
+            int(body_kind == "pair"), int(init is not None),
+            stored_p.data_ptr() if stored_p is not None else None,
+            float(prec_chunk.c) if generated else 0.0,
+            int(generated and prec_chunk.e == 0.25),
+            torch.cuda.current_stream(dev).cuda_stream)
+        _raise_on(lib, code, "launch")
+    stpcg_flat_streamed.launches += 1
+    return s, res
+
+
+def _result(s, res, scal) -> FlatCGResult:
+    """The FlatCGResult of a launch's s and res = (k, boundary, |s|^2,
+    model value), on the card."""
     boundary = res[1] > 0.5
     m_norm = torch.where(boundary, scal[0], torch.sqrt(res[2]))
     return FlatCGResult(s=s, update_step_M_norm=m_norm,

@@ -227,7 +227,7 @@ def test_escalation_and_least_squares_stay_on_card(dev):
 
 
 
-# ---- the general rank k: K = 1, 3, 4 on the card, K > 4 refused ----
+# ---- the general rank k: K = 1-4 (streamed_cg.cu), K >= 5 (_any.cu) ----
 
 GEN_AUX = (0.5, 0.75)
 
@@ -372,21 +372,142 @@ def test_sphere_family_in_the_general_form_is_bitwise_the_same_on_card(dev):
                                                      runs[1][1:]))
 
 
-def test_kernel_refuses_k_above_four(dev):
-    """K > 4 raises NotImplementedError naming the register budget, and
-    launches nothing; the plain version takes it."""
-    n = 1 << 12
-    g, x, B, aux = _gen_args(5, n, torch.float32, dev)
-    weights = (None,) * 5
+def _gen_weights(k, n, dev):
+    """k distinct weights of order 1 (``chip_smoke.gen_weights``): the
+    weight 1, then ScaledDiagonal, stored, wrapped and affine in turn, each
+    with its own coefficients; weights repeated across j give H outliers
+    at which the step count moves by 2 with the order of the sums alone."""
+    forms = ("twice", "stored", "fn", "affine")
+
+    def weight(j):
+        form = forms[(j - 1) % 4]
+        if form == "twice":
+            return T.ScaledDiagonal(T.AffineDiagonal(0.25 + 0.002 * j,
+                                                     0.5 / (n - 1)))
+        if form == "affine":
+            return T.AffineDiagonal(0.5 + 0.003 * j, 1.0 / (n - 1))
+        if form == "stored":
+            return 0.5 + ((torch.arange(n, device=dev) + 7 * j) % 13
+                          ).float() / 12.0
+        m = 89 + j
+        return T.ElementwiseFn(
+            lambda i, aux: 0.5 + aux[1] * ((i % m).float() / m))
+
+    return (None,) + tuple(weight(j) for j in range(1, k))
+
+
+# (K, n, storage, body, init, P): csrc/streamed_cg_any.cu at K = 5, 6, 8,
+# 16, 33, 64, at 115 and 116 (the last K whose B and U'U fit in shared
+# memory beside the dot partials, and the first that reads them from
+# device memory) and 212 (the dot partials and the init tile in device
+# memory too); every term form (a0 from _gen_term's forms in turn), every
+# P form, f32 and bf16, ragged n
+ANY_K_CASES = [
+    (5, 1 << 20, torch.float32, "pair", False, None),
+    (6, 100_003, torch.bfloat16, "single", True, None),
+    (8, 1 << 18, torch.float32, "single", False, "jacobi"),
+    (8, 100_003, torch.float32, "pair", True, None),
+    (16, 1 << 20, torch.bfloat16, "pair", False, None),
+    (16, 1 << 18, torch.float32, "pair", False, "stored"),
+    (33, 100_003, torch.float32, "single", False, "quarter"),
+    (33, 1 << 18, torch.bfloat16, "pair", False, "fn"),
+    (64, 1 << 18, torch.float32, "pair", False, None),
+    (64, 100_003, torch.float32, "single", True, None),
+    (115, 1 << 16, torch.float32, "pair", False, None),
+    (116, 1 << 16, torch.float32, "pair", False, None),
+    (116, 65_539, torch.float32, "single", True, None),
+    (212, 1 << 16, torch.float32, "single", False, None),
+]
+A0_FORMS = ("shifted", "fn", "stored", "affine")
+
+
+@pytest.mark.parametrize(
+    "k,n,storage,body,with_init,pform", ANY_K_CASES,
+    ids=[f"K{c[0]}-{c[1]}-{str(c[2])[6:]}-{c[3]}"
+         f"{'-init' if c[4] else ''}{'-' + c[5] if c[5] else ''}"
+         for c in ANY_K_CASES])
+def test_kernel_matches_plain_version_above_four(dev, k, n, storage, body,
+                                                 with_init, pform):
+    """Rank K >= 5 on the card (csrc/streamed_cg_any.cu) against the plain
+    version at the K <= 4 cases' tolerances (module docstring; a stored or
+    wrapped P unrelated to A0: counts within 3), Delta 1e6 in f32 and 0.4
+    in bf16; one launch counted a call, and a second launch bit for bit
+    the first."""
+    g, x, B, aux = _gen_args(k, n, storage, dev)
+    a0c = _gen_term(A0_FORMS[k % 4], n, dev)
+    weights = _gen_weights(k, n, dev)
+    kw = dict(a0_chunk=a0c, weights=weights, max_iterations=300,
+              kappa_fgr=1e-3, theta=0.9, body_kind=body)
+    if with_init:
+        kw["init"] = _gen_init(g, x, B, a0c, weights, aux)
+    if pform in ("jacobi", "quarter"):
+        pc = T.JacobiPower(1.0, 0.5 if pform == "jacobi" else 0.25)
+    elif pform == "stored":
+        pc = torch.rsqrt(1.0 + 0.25 * (torch.arange(n, device=dev) % 13)
+                         .float())
+    elif pform == "fn":
+        pc = T.ElementwiseFn(
+            lambda i, a: torch.rsqrt(1.0 + a[1] * (i % 5).float()))
+    if pform:
+        kw.update(prec_chunk=pc, prec=T.prec_map(pc, a0c, aux, n, dev))
+    Delta = 1e6 if storage == torch.float32 else 0.4
     before = T.stpcg_flat_streamed.launches
-    with pytest.raises(NotImplementedError, match="register budget"):
-        T.stpcg_flat_streamed(g, x, B, 1.0, aux, a0_chunk=_gen_term(
-            "affine", n, dev), weights=weights)
-    assert T.stpcg_flat_streamed.launches == before
-    ref = T.stpcg_flat_streamed_reference(
-        g, x, B, 1.0, aux, a0_chunk=_gen_term("affine", n, dev),
-        weights=weights)
-    assert bool(torch.isfinite(ref.s).all())
+    res = T.stpcg_flat_streamed(g, x, B, Delta, aux, **kw)
+    assert T.stpcg_flat_streamed.launches == before + 1
+    again = T.stpcg_flat_streamed(g, x, B, Delta, aux, **kw)
+    ref = T.stpcg_flat_streamed_reference(g, x, B, Delta, aux, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(res.s, again.s)
+    assert all(torch.equal(u, v) for u, v in zip(res[1:], again[1:]))
+    assert res.s.dtype == storage and res.s.device == g.device
+    tol, dit = (3e-2, 3) if storage == torch.bfloat16 else (2e-3, 1)
+    if pform in ("stored", "fn"):
+        dit = 3
+    assert abs(int(res.num_iterations) - int(ref.num_iterations)) <= dit
+    if storage == torch.float32:
+        assert int(ref.num_iterations) > 3
+        torch.testing.assert_close(res.update_step_M_norm,
+                                   ref.update_step_M_norm, rtol=1e-3, atol=0)
+    _assert_step_close(res.s, ref.s, tol)
+
+
+def test_any_k_layout_lines(dev):
+    """Where csrc/streamed_cg_any.cu keeps its arrays on this card: B' and
+    U'U in shared memory up to K = 115 and in device memory from 116, the
+    init tile from K = 210 and the dot partials from 212; with init= there
+    is no tile (at K = 5 the tile is the largest array).  (An H100:
+    232,448 bytes of shared memory a block.)"""
+    if torch.cuda.get_device_properties(0).major != 9:
+        pytest.skip("the lines are stated for a Hopper card")
+    lay = T.any_k_layout
+    assert lay(64)["B_and_UU"] and lay(115)["B_and_UU"]
+    assert not lay(116)["B_and_UU"] and lay(116)["dot_partials"]
+    assert lay(209)["init_tile"] and not lay(210)["init_tile"]
+    assert lay(211)["dot_partials"] and not lay(212)["dot_partials"]
+    assert lay(212)["terms"] and lay(212)["vectors"]
+    assert lay(5, with_init=True)["smem_bytes"] < lay(5)["smem_bytes"]
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+def test_unrolled_ranks_match_plain_version(dev, k):
+    """K = 1-4 keep csrc/streamed_cg.cu's register instantiations (K = 2
+    in the general layout here, not the sphere's) and match the plain
+    version at their tolerances with _gen_weights' order-1 weights."""
+    n = 1 << 18
+    g, x, B, aux = _gen_args(k, n, torch.float32, dev)
+    kw = dict(a0_chunk=_gen_term("shifted", n, dev),
+              weights=_gen_weights(k, n, dev), max_iterations=300,
+              kappa_fgr=1e-3, theta=0.9)
+    before = T.stpcg_flat_streamed.launches
+    res = T.stpcg_flat_streamed(g, x, B, 1e6, aux, **kw)
+    ref = T.stpcg_flat_streamed_reference(g, x, B, 1e6, aux, **kw)
+    torch.cuda.synchronize()
+    assert T.stpcg_flat_streamed.launches == before + 1
+    assert abs(int(res.num_iterations) - int(ref.num_iterations)) <= 1
+    assert int(ref.num_iterations) > 3
+    torch.testing.assert_close(res.update_step_M_norm,
+                               ref.update_step_M_norm, rtol=1e-3, atol=0)
+    _assert_step_close(res.s, ref.s, 2e-3)
 
 # ---- the fused kernels (kernels/fused.py, csrc/fused.cu) ----
 

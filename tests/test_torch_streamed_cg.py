@@ -650,7 +650,8 @@ def _assert_gen_parity(jr, tr, storage, prec=False):
 
 
 # (a0, weights, Delta, body, init, storage, B indefinite): k = 1, 3, 4, 5,
-# every term form in a0 and in the weights
+# 6, 8, every term form in a0 and in the weights (k >= 5 is the card's
+# csrc/streamed_cg_any.cu)
 GEN_CASES = [
     ("affine", ("one",), 1e6, "pair", False, "f32", False),
     ("stored", ("stored",), 1.0, "single", True, "bf16", False),
@@ -668,6 +669,16 @@ GEN_CASES = [
      False),
     ("shifted", ("one", "twice", "stored", "fn", "affine"), 1e6, "pair",
      False, "f32", False),
+    ("fn", ("one", "twice", "stored", "fn", "affine", "stored"), 1e6, "pair",
+     True, "f32", False),
+    ("shifted", ("stored", "one", "fn", "twice", "affine", "one"), 0.5,
+     "single", False, "bf16", False),
+    ("affine", ("one", "twice", "stored", "fn", "affine", "stored", "fn",
+                "twice"), 1e6, "single", False, "f32", False),
+    ("stored", ("fn", "one", "affine", "twice", "stored", "one", "fn",
+                "stored"), 5.0, "pair", False, "f32", True),
+    ("fn", ("twice", "stored", "one", "affine", "fn", "stored", "twice",
+            "one"), 0.4, "pair", True, "bf16", False),
 ]
 
 
@@ -688,7 +699,8 @@ def test_general_k_plain_version_matches_pallas(a0, ws, Delta, body,
     _assert_gen_parity(jr, tr, storage)
 
 
-# (P, a0, weights, Delta, body, storage): every prec_chunk form at k = 1, 3, 4
+# (P, a0, weights, Delta, body, storage): every prec_chunk form at k = 1, 3,
+# 4, and k = 6
 GEN_PREC_CASES = [
     ("jacobi", "shifted", ("one", "twice", "stored"), 1e6, "pair", "f32"),
     ("quarter", "fn", ("one", "fn", "affine"), 0.5, "single", "bf16"),
@@ -697,6 +709,8 @@ GEN_PREC_CASES = [
     ("fn", "affine", ("stored",), 1e6, "pair", "f32"),
     ("quarter", "stored", ("one", "twice", "fn", "affine"), 1e6, "pair",
      "f32"),
+    ("jacobi", "fn", ("one", "stored", "twice", "affine", "fn", "stored"),
+     1e6, "single", "f32"),
 ]
 
 
@@ -976,6 +990,238 @@ def test_rank3_tnt_through_flat_solve_matches_jax():
         relative_decrease_tolerance=0.0, stepsize_tolerance=0.0,
         preconditioned_gradient_tolerance=0.0)
     rng = np.random.default_rng(11)
+    x0 = rng.standard_normal(N).astype(np.float32)
+    x0 /= np.linalg.norm(x0)
+    jr = jtnt.solve(jp, jnp.asarray(x0), params)
+    tparams = params_from_jax(params)
+    tr = ttnt.solve(tp, torch.from_numpy(x0), tparams)
+    qr = ttnt.solve(tq, torch.from_numpy(x0), tparams)
+    k = int(jr.num_iterations)
+    assert int(tr.status) == int(jr.status) == TNTStatus.GRADIENT
+    assert int(tr.num_iterations) == k and k > 10
+    ji = np.asarray(jr.inner_iterations)[:k]
+    ti = tr.inner_iterations[:k].numpy()
+    assert np.abs(ti - ji).max() <= 1, (ti, ji)
+    assert ji.sum() > 100
+    np.testing.assert_allclose(float(tr.f), float(jr.f), rtol=1e-5)
+    assert int(qr.status) == int(tr.status)
+    assert int(qr.num_iterations) == k
+    np.testing.assert_allclose(float(qr.f), float(tr.f), rtol=1e-5)
+
+
+# ------------------------------------------ the rank-8 path: TNT, k = 8 --
+#
+# The same family with six quartic terms, f(x) = <x, a x> + (mu/4) sum_j
+# q_j^2, q_j = <x, c_j x>, j = 1..6: c_1..c_3 stored (index formulas on the
+# JAX side, as the rank-3 path's c, from three seeds), c_4..c_6 affine
+# (c0 + spread i / (n - 1), values in [0, 1]), so that a stored and a
+# generated weight both run at k > 4.  On the unit sphere grad f = d x with
+# d = 2a + mu sum_j q_j c_j, lam = <x, d x>, and the projected Hessian is
+# A0 + U B U' with A0 = d - lam, U = (x, a x, c_1 x, ..., c_6 x) and
+# B[0, 0] = 2 lam + 2 mu sum_j q_j^2, B[0, 1] = B[1, 0] = -2,
+# B[0, 1 + j] = B[1 + j, 0] = -3 mu q_j, B[1 + j, 1 + j] = 2 mu (j >= 1).
+
+R8_SEEDS = tuple(tuple(int(v) for v in np.random.default_rng(s).integers(
+    1, 10007, 2)) for s in (21, 22, 23))
+R8_AFFINE = ((0.25, 0.5), (0.9, -0.8), (0.1, 0.3))   # (c0, spread)
+
+
+def _r8_stored(j, i):
+    """c_(j+1)(i), j < 3, for an int32 (JAX) or int64 (torch) index, f32."""
+    s0, s1 = R8_SEEDS[j]
+    if isinstance(i, torch.Tensor):
+        return ((i * s1 + s0) % 10007).float() / 10007.0
+    return ((i * s1 + s0) % 10007).astype(jnp.float32) / 10007.0
+
+
+def quartic_operator(x, a, cs, mu=MU):
+    """(a0, U, B, lam, q) of the projected Hessian at the unit x of
+    <x, a x> + (mu/4) sum_j <x, c_j x>^2 (torch, any float dtype):
+    A0 = diag(a0), U = (x, a x, c_1 x, ...), q the (len(cs),) q_j."""
+    q = torch.stack([torch.dot(x, c * x) for c in cs])
+    d = 2.0 * a
+    for qj, c in zip(q, cs):
+        d = d + (mu * qj) * c
+    lam = torch.dot(x, d * x)
+    k = len(cs) + 2
+    B = torch.zeros((k, k), dtype=x.dtype)
+    B[0, 0] = 2.0 * lam + 2.0 * mu * torch.sum(q * q)
+    B[0, 1] = B[1, 0] = -2.0
+    B[0, 2:] = B[2:, 0] = -3.0 * mu * q
+    B[2:, 2:] = 2.0 * mu * torch.eye(k - 2, dtype=x.dtype)
+    return d - lam, (x, a * x, *(c * x for c in cs)), B, lam, q
+
+
+def test_rank8_operator_is_the_projected_hessian():
+    """In f64 with autograd: (A0 + U B U') v == P Hess f v - lam v for
+    tangent v at random points of the sphere, six quartic terms (k = 8);
+    and with one term it is the rank-3 operator."""
+    n = 64
+    rng = np.random.default_rng(9)
+    a = torch.from_numpy(1.0 + 999.0 / (n - 1) * np.arange(n))
+    cs = [torch.from_numpy(rng.uniform(0.0, 1.0, n)) for _ in range(6)]
+
+    def f(x):
+        t = torch.dot(x, a * x)
+        for c in cs:
+            q = torch.dot(x, c * x)
+            t = t + 0.25 * MU * q * q
+        return t
+
+    for _ in range(3):
+        x = torch.from_numpy(rng.standard_normal(n))
+        x = x / torch.linalg.vector_norm(x)
+        v = torch.from_numpy(rng.standard_normal(n))
+        v = v - torch.dot(x, v) * x
+        a0, U, B, lam, _ = quartic_operator(x, a, cs)
+        assert B.shape == (8, 8) and len(U) == 8
+        Ut = torch.stack(U)
+        Hv = a0 * v + Ut.T @ (B @ (Ut @ v))
+        egrad = torch.func.grad(f)(x)
+        ehv = torch.func.jvp(torch.func.grad(f), (x,), (v,))[1]
+        ref = ehv - torch.dot(x, ehv) * x - lam * v
+        torch.testing.assert_close(lam, torch.dot(x, egrad), rtol=1e-12,
+                                   atol=0)
+        torch.testing.assert_close(Hv, ref, rtol=1e-10, atol=1e-10)
+        one = quartic_operator(x, a, cs[:1])
+        for u, w in zip(one, rank3_operator(x, a, cs[0])):
+            if isinstance(u, tuple):
+                assert all(torch.allclose(p, r, rtol=1e-15) for p, r in
+                           zip(u, w))
+            else:
+                torch.testing.assert_close(u.reshape(w.shape), w,
+                                           rtol=1e-15, atol=0)
+
+
+def _r8_problems():
+    """The rank-8 problem in both packages: (JAX problem with the
+    interpret-mode kernel behind flat_solve, the port's problem with the
+    plain version behind flat_solve, the port's problem with flat_qm)."""
+    from optimization_tpu import RiemannianProblem as JProblem
+    from optimization_tpu.manifolds import sphere as jsphere
+    from optimization_tpu_torch import RiemannianProblem as TProblem
+    from optimization_tpu_torch.manifolds import sphere as tsphere
+
+    def a_chunk(i0, aux):
+        return 1.0 + jnp.float32(R3_B) * _idx(i0).astype(jnp.float32)
+
+    def c_chunk(j):
+        if j < 3:
+            return lambda i0, aux: _r8_stored(j, _idx(i0))
+        c0, sp = R8_AFFINE[j - 3]
+        return lambda i0, aux: (jnp.float32(c0) + jnp.float32(sp / (N - 1))
+                                * _idx(i0).astype(jnp.float32))
+
+    c_chunks = [c_chunk(j) for j in range(6)]
+
+    def a0_chunk(i0, aux):
+        d = 2.0 * a_chunk(i0, aux)
+        for j in range(6):
+            d = d + (MU * aux[1 + j]) * c_chunks[j](i0, aux)
+        return d - aux[0]
+
+    ji = jnp.arange(N, dtype=jnp.int32)
+    ja = 1.0 + jnp.float32(R3_B) * ji.astype(jnp.float32)
+    jcs = [_r8_stored(j, ji) for j in range(3)] + [
+        jnp.float32(c0) + jnp.float32(sp / (N - 1)) * ji.astype(jnp.float32)
+        for c0, sp in R8_AFFINE]
+    JM = jsphere()
+
+    def jqd(x):
+        q = [jnp.dot(x, c * x) for c in jcs]
+        d = 2.0 * ja
+        for qj, c in zip(q, jcs):
+            d = d + MU * qj * c
+        return q, d
+
+    def jf(x, _):
+        x = x.astype(jnp.float32)
+        t = jnp.dot(x, ja * x)
+        for c in jcs:
+            q = jnp.dot(x, c * x)
+            t = t + 0.25 * MU * q * q
+        return t
+
+    def jgrad(x, _):
+        return JM.proj(x, jqd(x)[1] * x)
+
+    def jflat_solve(g, x, _, aux, Delta, params):
+        q, d = jqd(x)
+        lam = jnp.dot(x, d * x)
+        qv = jnp.stack(q)
+        B = jnp.zeros((8, 8), jnp.float32)
+        B = B.at[0, 0].set(2.0 * lam + 2.0 * MU * jnp.sum(qv * qv))
+        B = B.at[0, 1].set(-2.0).at[1, 0].set(-2.0)
+        B = B.at[0, 2:].set(-3.0 * MU * qv).at[2:, 0].set(-3.0 * MU * qv)
+        B = B.at[2:, 2:].set(2.0 * MU * jnp.eye(6, dtype=jnp.float32))
+        return J.stpcg_flat_streamed(
+            g, x, B, Delta, aux_scalars=(lam, *q), a0_chunk=a0_chunk,
+            weights=(None, a_chunk, *c_chunks), chunk_rows=CR,
+            interpret=True, max_iterations=params.max_TPCG_iterations,
+            kappa_fgr=params.kappa_fgr, theta=params.theta)
+
+    diag = T.AffineDiagonal(1.0, R3_B)
+    ta = diag.values(N, "cpu")
+    ti = torch.arange(N)
+    tstored = [_r8_stored(j, ti) for j in range(3)]
+    taff = [T.AffineDiagonal(c0, sp / (N - 1)) for c0, sp in R8_AFFINE]
+    tcs = tstored + [c.values(N, "cpu") for c in taff]
+    TM = tsphere()
+
+    def ta0(i, aux):
+        d = 2.0 * ta
+        for j, c in enumerate(tcs):
+            d = d + (MU * aux[1 + j]) * c
+        return d - aux[0]
+
+    a0fn = T.ElementwiseFn(ta0)
+
+    def tf(x, _):
+        t = torch.dot(x, ta * x)
+        for c in tcs:
+            q = torch.dot(x, c * x)
+            t = t + 0.25 * MU * q * q
+        return t
+
+    def tgrad(x, _):
+        a0, _, _, lam, _ = quartic_operator(x, ta, tcs)
+        return TM.proj(x, (a0 + lam) * x)
+
+    def tflat_solve(g, x, _, aux, Delta, params):
+        _, _, B, lam, q = quartic_operator(x, ta, tcs)
+        return T.stpcg_flat_streamed(
+            g, x, B, Delta, (lam, *q), a0_chunk=a0fn,
+            weights=(None, diag, *tstored, *taff),
+            max_iterations=params.max_TPCG_iterations,
+            kappa_fgr=params.kappa_fgr, theta=params.theta)
+
+    def tflat_qm(x, _, aux=None):
+        a0, U, B, _, _ = quartic_operator(x, ta, tcs)
+        return (lambda v: a0 * v), U, B
+
+    return (JProblem(f=jf, manifold=JM, grad=jgrad, flat_solve=jflat_solve),
+            TProblem(f=tf, manifold=TM, grad=tgrad, flat_solve=tflat_solve),
+            TProblem(f=tf, manifold=TM, grad=tgrad, flat_qm=tflat_qm))
+
+
+def test_rank8_tnt_through_flat_solve_matches_jax():
+    """TNT through ``flat_solve`` on the rank-8 operator: the port's plain
+    version against JAX's ``tnt.solve`` with the interpret-mode kernel (k =
+    8), f32 at n = 8192 from one numpy start, |grad| <= 2e-2 (reached at
+    outer iteration 16): same status and outer count, CG counts within 1 an
+    outer iteration, f within 1e-5 relative; the port's eager flat engine
+    through ``flat_qm`` ends the same way."""
+    from optimization_tpu.solvers import tnt as jtnt
+    from optimization_tpu_torch.core.types import TNTStatus
+    from optimization_tpu_torch.interop import params_from_jax
+    from optimization_tpu_torch.solvers import tnt as ttnt
+
+    jp, tp, tq = _r8_problems()
+    params = jtnt.TNTParams(
+        max_iterations=30, max_TPCG_iterations=50, gradient_tolerance=2e-2,
+        relative_decrease_tolerance=0.0, stepsize_tolerance=0.0,
+        preconditioned_gradient_tolerance=0.0)
+    rng = np.random.default_rng(17)
     x0 = rng.standard_normal(N).astype(np.float32)
     x0 /= np.linalg.norm(x0)
     jr = jtnt.solve(jp, jnp.asarray(x0), params)

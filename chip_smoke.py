@@ -10,8 +10,9 @@ non-zero exit and no result line:
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` and
    turns TF32 off;
 2. build: compiles ``optimization_tpu_torch/csrc/streamed_cg.cu`` (ranks
-   1-4), ``csrc/streamed_cg_any.cu`` (any rank), ``csrc/fused.cu`` and
-   ``csrc/probes.cu`` (the two residency probes and the chunk reader) with
+   1-4), ``csrc/streamed_cg_any.cu`` (any rank), ``csrc/fused.cu``,
+   ``csrc/gram_pair.cu`` and ``csrc/probes.cu`` (the two residency probes
+   and the chunk reader) with
    nvcc from this checkout, all at once, and prints each build's seconds
    and ``-Xptxas -v`` report;
 3. kernel parity: ``stpcg_flat_streamed`` on the card against its plain
@@ -42,18 +43,22 @@ non-zero exit and no result line:
    the stencil's plain version); launch counts, the gradient reached and
    the agreement of f checked; then each fused kernel timed against its
    plain version at n = 2^24 f32;
-7. ``gram_pair`` against its plain version (and a float64 product) at
-   100,000 x 48, 999 x 30, 16 x 10,000 x 48, 5,000 x 96 (the widest
-   single-panel k), 30,000 x 8, 16 and 24 and 3,000 x 8 and 24 (the pose
-   path's spectral inits and certificates at n = 10^4 and 1,000: nx = 8,
-   then S of 3 nx), and the panel route's 100,000 x 97, 120 and 192 and
-   16 x 10,000 x 120 (nx = 33, 40, 64), with BS distinct and with BS = S
-   (the route that reads S once), ``stream3_probe`` at n = 2^24, 999,999
-   and 100, f32 and bf16, bitwise repeats; gram_pair timed at 100,000 x 48
-   (BS distinct and BS = S, the LOBPCG call), 16 x 10,000 x 48 and each
-   k > 96 shape (BS distinct and BS = S) in f32 and bf16 beside its plain
-   version, the one-call library product (``torch.matmul``) and its bound;
-   stream3_probe's GB/s at n = 2^24 f32 is the measured bandwidth ceiling;
+7. ``gram_pair`` (``csrc/gram_pair.cu``) against its plain version (and a
+   float64 product) at 100,000 x 48, 999 x 30, 16 x 10,000 x 48, 5,000 x
+   96, 30,000 x 8, 16, 24 and 33 and 3,000 x 8 and 24 (the pose path's
+   spectral inits and certificates at n = 10^4 and 1,000: nx = 8, then S
+   of 3 nx), the fleet 3 x 777 x 17 (instances that start off 16-byte
+   boundaries), and the panel route's 100,000 x 97, 120, 128, 129 and
+   192, 20,000 x 256 and 16 x 10,000 x 120 (nx = 33, 40, 64), with BS
+   distinct and with BS = S (the route that reads S once),
+   ``stream3_probe`` at n = 2^24, 999,999 and 100, f32 and bf16, bitwise
+   repeats; gram_pair timed at 100,000 x 48 (BS distinct and BS = S, the
+   LOBPCG call), 16 x 10,000 x 48 and each k > 96 shape (BS distinct and
+   BS = S) in f32 and bf16 beside its plain version, the one-call library
+   product (``torch.matmul``) and its bound, warm and, where the inputs
+   fit in the 50 MB L2, cold (the fraction of the bound on the cold
+   time); stream3_probe's GB/s at n = 2^24 f32 is the measured bandwidth
+   ceiling;
 8. the eigensolver path: ``lobpcg`` on config3 (m = 1e5, nx = 16, nev = 5,
    A = diag(linspace(1, m)), the exact inverse preconditioner; a converged
    f32 solve with ``rr_method`` "eigh" then "chol", gated at
@@ -238,7 +243,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 N_PARITY = (1 << 20, 999_999)       # the second is not a multiple of 1024
 N_MAIN = 1 << 24
 SHORT = 10                          # CG iterations: see check_parity
-SOURCES = ("streamed_cg", "streamed_cg_any", "fused", "probes")
+SOURCES = ("streamed_cg", "streamed_cg_any", "fused", "gram_pair",
+           "probes")
 N_FUSED = (1 << 24, 999_999, 100)   # fused kernel parity sizes
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"f32": 67e12, "tf32": 495e12, "bf16": 989e12}
@@ -932,6 +938,7 @@ def fused_parity_phase(torch, dev):
     return errs
 
 
+SOURCE_OF = {"gram_pair": "gram_pair.cu", "stream3_probe": "fused.cu"}
 FUSED_REPLACES = {"cg_dots": 86, "axpy_selfdot": 130, "gram_pair": 185,
                   "diag_stencil_matvec": 279, "stream3_probe": 325,
                   "affine_stencil_matvec": 370}
@@ -1090,9 +1097,9 @@ GRAM_TOLERANCES = """\
       kernel's 3xTF32 tensor-core products (hi*hi + hi*lo + lo*hi) are
       within 3 2^-22 |S X| of the f32 products cuBLAS takes (no TF32 on
       its side); bf16 storage: bf16 x bf16 products, exact in f32 on both;
-      both sum in f32 in other orders (the kernel per mma accumulator over
-      a block's row tiles, then the blocks in double; cuBLAS in its own
-      split); at the long-chain shapes (GRAM_LONG) against the float64
+      both sum in f32 in other orders (the kernel a wgmma chain a row tile,
+      folded into f32 sums over a block's tiles, then the blocks in double;
+      cuBLAS in its own split); at the long-chain shapes (GRAM_LONG) against the float64
       product alone: there the plain version's own f32 sums can miss the
       same tolerance (its err/tol against float64 is printed, not gated);
     stream3_probe: f32 bit for bit (the same three roundings in the same
@@ -1100,15 +1107,17 @@ GRAM_TOLERANCES = """\
       each bf16 operation, the kernel once on store.
 """
 GRAM_SHAPES = ((100_000, 48), (999, 30), (16, 10_000, 48), (5_000, 96),
-               (30_000, 8), (30_000, 16), (30_000, 24), (3_000, 8),
-               (3_000, 24))
-# k > 96, the panel route: LOBPCG's basis of nx = 33, 40 and 64 (3 nx
-# columns) at config3's m, and config10's fleet at nx = 40
-GRAM_WIDE = ((100_000, 97), (100_000, 120), (100_000, 192),
-             (16, 10_000, 120))
-# k <= 96 with a warp's chain of k-steps past fused.cu's kSplitSteps: a
-# long row stream a block (4 times config3's m; a fleet of 2 at config3's
-# m; LOBPCG's nx = 32 at config3's m)
+               (30_000, 8), (30_000, 16), (30_000, 24), (30_000, 33),
+               (3_000, 8), (3_000, 24), (3, 777, 17))
+# k > 96: LOBPCG's basis of nx = 33, 40 and 64 (3 nx columns) at config3's
+# m, and config10's fleet at nx = 40; k = 128 (two full 64-column slabs,
+# one chunk), 129 (three slabs, two chunks, rows not 16-byte aligned), 256
+# (two full chunks of 128)
+GRAM_WIDE = ((100_000, 97), (100_000, 120), (100_000, 128), (100_000, 129),
+             (100_000, 192), (20_000, 256), (16, 10_000, 120))
+# long row streams a block: chains the kernel folds every row tile (4
+# times config3's m; a fleet of 2 at config3's m; LOBPCG's nx = 32 at
+# config3's m)
 GRAM_LONG = ((400_000, 48), (2, 100_000, 48), (100_000, 96))
 # the timed shapes: config3's Gram stage with BS distinct and BS = S (the
 # LOBPCG call without B, the path's; its entry in the kernels line), and
@@ -1117,6 +1126,43 @@ GRAM_TIMED = (((100_000, 48), False), ((100_000, 48), True),
               ((16, 10_000, 48), False)) + tuple(
     (shape, same) for shape in GRAM_WIDE for same in (False, True))
 N_STREAM3 = (1 << 24, 999_999, 100)
+
+
+L2_BYTES = 50 * 2**20     # the H100's L2 (data sheet)
+
+
+def gram_fits_l2(shape, same, dtype, torch):
+    """Whether one gram_pair call's inputs fit in the L2 (then a warm
+    loop reads them from L2, and the time held to the device-memory bound
+    is the cold one)."""
+    size = 2 if dtype == torch.bfloat16 else 4
+    return (2 if same else 3) * math.prod(shape) * size < L2_BYTES
+
+
+def l2_flush_buffer(torch, dev):
+    """128 MB on the card whose reading evicts the L2 (time_cold_ms)."""
+    return torch.ones(32 * 2**20, dtype=torch.float32, device=dev)
+
+
+def time_cold_ms(torch, fn, reps, flush):
+    """Mean milliseconds per call by CUDA events with the L2 flushed
+    before each call: ``flush`` (``l2_flush_buffer``, 128 MB) is read
+    through outside the timed events.  It is read, not written: written, the
+    L2 would hold its dirty lines, and their write-back would land inside
+    the timed call.  A spin kernel before each flush holds the card while
+    the host enqueues the call, so the events time the device's work."""
+    fn()
+    torch.cuda.synchronize()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    for start, stop in events:
+        torch.cuda._sleep(2_000_000)
+        flush.sum()
+        start.record()
+        fn()
+        stop.record()
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in events) / reps
 
 
 def gram_bound(shape, same, dtype, torch):
@@ -1229,8 +1275,10 @@ def gram_stream3_phase(torch, dev, label):
           f"repeats passed", flush=True)
 
     # kernel, plain version and the library call (one cuBLAS product of S'
-    # and [AS | BS], built outside the timed region; full f32, TF32 off)
+    # and [AS | BS], built outside the timed region; full f32, TF32 off);
+    # the kernel warm and, where its inputs fit in L2, cold too
     times, wide = {}, []
+    flush = l2_flush_buffer(torch, dev)
     for (shape, same), dtype in itertools.product(
             GRAM_TIMED, (torch.float32, torch.bfloat16)):
         gen = torch.Generator(device=dev).manual_seed(4)
@@ -1239,28 +1287,36 @@ def gram_stream3_phase(torch, dev, label):
         X = S if same else BS
         SX = torch.cat((AS, X), -1)
         ms = time_ms(torch, lambda: F.gram_pair(S, AS, X), 50)
+        cold_ms = (time_cold_ms(torch, lambda: F.gram_pair(S, AS, X), 20,
+                                flush)
+                   if gram_fits_l2(shape, same, dtype, torch) else None)
         plain_ms = time_ms(torch, lambda: F.gram_pair_reference(S, AS, X),
                            50)
         lib_ms = time_ms(torch, lambda: torch.matmul(S.mT, SX), 50)
         bound_ms, bound_by = gram_bound(shape, same, dtype, torch)
+        held_ms = cold_ms if cold_ms is not None else ms
         rows, k = S.numel() // shape[-1], shape[-1]
         words = 2 if same else 3
-        gbs = words * rows * k * S.element_size() / ms / 1e6
+        gbs = words * rows * k * S.element_size() / held_ms / 1e6
+        cold = f", cold {cold_ms:.4f} ms" if cold_ms is not None else ""
         print(f"  gram_pair {'x'.join(map(str, shape))} "
               f"{'BS = S' if same else 'BS distinct'} {str(dtype)[6:]}: "
-              f"kernel {ms:.4f} ms (~{gbs:.0f} GB/s at {words}mk words), "
-              f"plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
-              f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.3f} of the "
-              f"bound [{label}]", flush=True)
+              f"kernel warm {ms:.4f} ms{cold} (~{gbs:.0f} GB/s at {words}mk "
+              f"words), plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_by}), {bound_ms / held_ms:.3f} "
+              f"of the bound{' (cold)' if cold else ''} [{label}]",
+              flush=True)
         if same and dtype == torch.float32 and shape == GRAM_TIMED[1][0]:
-            times["gram_pair"] = dict(ms=ms, plain_ms=plain_ms,
-                                      bound_ms=bound_ms, bound_by=bound_by,
-                                      library_ms=lib_ms)
+            # the path's shape fits in L2: the line's ms is the cold time
+            times["gram_pair"] = dict(ms=held_ms, warm_ms=ms,
+                                      plain_ms=plain_ms, bound_ms=bound_ms,
+                                      bound_by=bound_by, library_ms=lib_ms)
         if k > 96:
             wide.append({"shape": list(shape), "bs": "S" if same else
                          "distinct", "dtype": str(dtype)[6:], "ms": ms,
-                         "plain_ms": plain_ms, "bound_ms": bound_ms,
-                         "bound_by": bound_by, "library_ms": lib_ms})
+                         "cold_ms": cold_ms, "plain_ms": plain_ms,
+                         "bound_ms": bound_ms, "bound_by": bound_by,
+                         "library_ms": lib_ms})
     # the k > 96 route's shapes ride in gram_pair's entry of the kernels line
     times["gram_pair"]["wide"] = {"max_abs_err": wide_err, "calls": wide}
 
@@ -1406,7 +1462,7 @@ def lobpcg_phase(torch, dev, label):
           f"{gap:.3e}, {secs:.3f} s [{label}]", flush=True)
     if not (gap < 5e-2 and int(f64.num_converged) >= nev):
         raise AssertionError("config3: the f32 route disagrees with f64")
-    # nx = 40: a basis of 120 columns, gram_pair's k > 96 panel route
+    # nx = 40: a basis of 120 columns, gram_pair's panel route (k > 64)
     wide, secs = timed_solve(
         torch, dev, lambda: config3(torch.float32, "eigh", 100, 1e-4, 40))
     expected += 1 + int(wide.num_iterations)
@@ -4221,7 +4277,7 @@ def main():
                 "stream3_probe": stream3_launches}
     new_kernels = [{
         "name": name, "route": "cuda",
-        "source": "optimization_tpu_torch/csrc/fused.cu",
+        "source": f"optimization_tpu_torch/csrc/{SOURCE_OF[name]}",
         "replaces": f"optimization_tpu/kernels/fused.py:{FUSED_REPLACES[name]}",
         "launches": launches[name], "max_abs_err": errs7[name],
         **times7[name]}

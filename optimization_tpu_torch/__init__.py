@@ -20,7 +20,7 @@ reduction kernels of ``csrc/fused.cu``), ``euclidean_gradient_descent`` and
 ``euclidean_tnls`` (least squares: ``linalg.lsqr``, ``solvers.tnls``,
 ``LeastSquaresProblem``); the eigensolvers ``linalg.lobpcg`` /
 ``linalg.lobpcg_fleet`` (their Gram stage in the ``gram_pair`` kernel of
-``csrc/fused.cu``) and ``linalg.jacobi_eigh``; the convex solvers ``solvers.prox`` (six proximal
+``csrc/gram_pair.cu``) and ``linalg.jacobi_eigh``; the convex solvers ``solvers.prox`` (six proximal
 operators), ``solvers.proximal_gradient`` (ISTA / FISTA on a
 ``CompositeProblem``) and ``solvers.admm`` (simple, accelerated, residual
 balancing); the host-chunked drivers ``driver.drive`` (gradient descent,

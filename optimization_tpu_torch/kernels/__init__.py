@@ -9,8 +9,10 @@
   ``optimization_tpu/kernels/streamed_cg.py:_mk_kernel``.
 - :mod:`fused` — ``cg_dots``, ``axpy_selfdot``, ``gram_pair``,
   ``diag_stencil_matvec``, ``stream3_probe`` and ``affine_stencil_matvec``,
-  CUDA C++ in ``csrc/fused.cu``; replace the Pallas kernels of the same
-  names in ``optimization_tpu/kernels/fused.py`` (all six of them).
+  CUDA C++ in ``csrc/fused.cu`` (``gram_pair`` in ``csrc/gram_pair.cu``:
+  TMA and ``wgmma``, its launch plan ``fused.gram_plan``); replace the
+  Pallas kernels of the same names in
+  ``optimization_tpu/kernels/fused.py`` (all six of them).
   ``gram_pair`` is the LOBPCG Gram stage (``linalg/lobpcg.py``),
   ``stream3_probe`` the measured bandwidth ceiling of ``chip_smoke.py``.
 

@@ -15,12 +15,14 @@ kernels:
   stream with no stencil work, the measured bandwidth ceiling;
 - :func:`gram_pair` — ``(S'AS, S'BS)`` from (m, k) blocks, or a fleet of
   them (F, m, k), on the tensor cores (S read once when ``BS`` is ``S``):
-  the LOBPCG Gram stage.
+  the LOBPCG Gram stage; its kernel is ``csrc/gram_pair.cu`` (TMA and
+  ``wgmma``), and :func:`gram_plan` is its launch plan.
 
 Each wrapper takes a tensor on the CPU to its plain PyTorch version
 (``*_reference``), the function the CPU tests hold against the JAX kernels,
 and a tensor on a CUDA device to the hand-written kernel of
-``csrc/fused.cu`` (f32 or bf16 storage; any other dtype raises).  It never
+``csrc/fused.cu`` or ``csrc/gram_pair.cu`` (f32 or bf16 storage; any
+other dtype raises).  It never
 falls back.  Each kernel launch adds one to the wrapper's ``launches``.
 
 The plain versions keep the JAX package's contracts:
@@ -48,6 +50,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -57,7 +60,8 @@ __all__ = ["cg_dots", "cg_dots_reference", "axpy_selfdot",
            "axpy_selfdot_reference", "diag_stencil_matvec",
            "diag_stencil_matvec_reference", "affine_stencil_matvec",
            "affine_stencil_matvec_reference", "stream3_probe",
-           "stream3_probe_reference", "gram_pair", "gram_pair_reference"]
+           "stream3_probe_reference", "gram_pair", "gram_pair_reference",
+           "gram_plan", "GramPlan"]
 
 _STORAGE = (torch.float32, torch.bfloat16)
 
@@ -137,6 +141,7 @@ def _lib() -> ctypes.CDLL:
         lib.fused_grid.restype = i32
         lib.fused_error_string.argtypes = [i32]
         lib.fused_error_string.restype = ctypes.c_char_p
+        lib.error_string = lib.fused_error_string
         lib.fused_cg_dots.argtypes = [i32, vp, vp, vp, i64, i32, vp, vp, vp]
         lib.fused_cg_dots.restype = i32
         lib.fused_axpy_selfdot.argtypes = [i32, vp, vp, vp, vp, i64, i32, vp,
@@ -146,19 +151,13 @@ def _lib() -> ctypes.CDLL:
         lib.fused_stencil.restype = i32
         lib.fused_stream3.argtypes = [i32, vp, vp, vp, i64, f, i32, vp]
         lib.fused_stream3.restype = i32
-        lib.fused_gram_geometry.argtypes = [i32, i32, i64, i32, i32,
-                                            ctypes.POINTER(i32)]
-        lib.fused_gram_geometry.restype = i32
-        lib.fused_gram_pair.argtypes = [i32, vp, vp, vp, i32, i64, i32, i32,
-                                        i32, vp, vp, vp]
-        lib.fused_gram_pair.restype = i32
         lib._argtypes_set = True
     return lib
 
 
 def _raise_on(lib, code: int, what: str) -> None:
     if code != 0:
-        msg = lib.fused_error_string(code).decode()
+        msg = lib.error_string(code).decode()
         raise RuntimeError(f"{what} failed: CUDA error {code} ({msg})")
 
 
@@ -315,16 +314,153 @@ def _gram_on_card(S: torch.Tensor, AS: torch.Tensor, BS: torch.Tensor) -> bool:
     return True
 
 
+# ---- gram_pair's launch plan (csrc/gram_pair.cu:make_plan, the same) ----
+
+SMEM_CAP = 232_448       # a block's opt-in shared memory on the H100
+_SLACK, _BAR_BYTES, _MAX_STAGES, _NP_MAX = 1024, 256, 8, 128
+_SPAN = 144              # route "rows": a row's landing slot (bytes)
+
+
+class GramPlan(NamedTuple):
+    """How ``csrc/gram_pair.cu`` runs one call (the C side's ``GramPlan``
+    field for field, then ``grid``)."""
+
+    route: str      # "tma2d": row tiles by 2-D tensor map; "span": a tile's
+    #                 rows of each array by one bulk copy; "rows": each
+    #                 row's box by a bulk copy (rows not 16-byte aligned)
+    box_cols: int   # columns of a 128-byte box: 32 f32, 64 bf16
+    slabs: int      # 64-column M slabs of AS and of BS
+    chunks: int     # N chunks of S's columns
+    np: int         # columns of a chunk (a multiple of 16, <= 128)
+    panels: int     # slabs x chunks blocks a row stream
+    cluster: int    # blocks a cluster
+    rows: int       # rows of a staged tile
+    stages: int     # the ring's depth
+    boxes: int      # 128-byte boxes a stage
+    reuse: bool     # S's chunk is the BS slab (BS is S, one panel)
+    smem: int       # dynamic shared memory bytes
+    grid: int       # row streams per instance (one wave of the card)
+
+
+ROUTES = ("tma2d", "span", "rows")
+
+
+def _landing(route, boxes, size, k, same, rows):
+    """Bytes a stage lands before the consumers lay them out ("span": each
+    array's rows and 32 bytes for its ends; "rows": 144 bytes a row and
+    box), in whole KiB."""
+    if route == "span":
+        b = (2 if same else 3) * (-(-(rows * k * size + 32) // 16) * 16)
+    elif route == "rows":
+        b = boxes * rows * _SPAN
+    else:
+        b = 0
+    return -(-b // 1024) * 1024
+
+
+def _fit(route, boxes, np_, bf16, k, same):
+    """(rows, stages, smem): the longest tile of 128, 64, 32 rows that
+    leaves three stages, f32's four transposed chunks beside the ring."""
+    size = 2 if bf16 else 4
+    budget = SMEM_CAP - _SLACK - _BAR_BYTES
+    for rows in (128, 64, 32):
+        stage = boxes * rows * 128 + _landing(route, boxes, size, k, same,
+                                              rows)
+        trans = 0 if bf16 else 4 * np_ * rows * 4
+        stages = min(_MAX_STAGES, (budget - trans) // stage)
+        smem = _SLACK + _BAR_BYTES + stages * stage + trans
+        if stages >= 3:
+            break
+    return rows, stages, smem
+
+
+def gram_plan(m: int, k: int, dtype, same: bool, fleet: int = 1, *,
+              aligned: bool = True, sms: int = 132,
+              blocks_per_sm: int = 1) -> GramPlan:
+    """The launch plan of ``gram_pair`` on the card for (F, m, k) blocks of
+    ``dtype`` (f32 or bf16), ``same`` when BS is S, ``aligned`` when the
+    three bases are 16-byte aligned; ``sms`` and ``blocks_per_sm`` (the
+    kernel's occupancy) set the row streams.
+
+    Output: (2k x k, transposed) in ``slabs`` x ``chunks`` panels of 2
+    slabs of 64 X columns (one a warpgroup) by ``np`` S columns, one block
+    each.  A row tile of ``rows`` rows lands in a stage of ``boxes``
+    128-byte boxes a row: AS's slab, BS's (S's when BS is S), S's chunk
+    unless that is BS's slab.  Rows not 16-byte aligned land unswizzled
+    first ("span", or "rows" where a span leaves fewer than two stages).
+    See :func:`_fit` for the tile and the ring."""
+    if k < 1 or m < 1 or fleet < 1:
+        raise ValueError(f"gram_plan: m, k, fleet must be >= 1 (got {m}, "
+                         f"{k}, {fleet})")
+    bf16 = dtype == torch.bfloat16
+    size = 2 if bf16 else 4
+    route = "tma2d" if aligned and (k * size) % 16 == 0 else "span"
+    box_cols = 128 // size
+    slabs = -(-k // 64)
+    chunks = -(-k // _NP_MAX)
+    per = -(-k // chunks)               # S columns a chunk
+    np_ = -(-per // 16) * 16
+    panels = slabs * chunks
+    reuse = bool(same) and panels == 1
+    boxes = 2 * (64 // box_cols) + (0 if reuse else -(-np_ // box_cols))
+    rows, stages, smem = _fit(route, boxes, np_, bf16, k, same)
+    if route == "span" and stages < 2:
+        route = "rows"
+        rows, stages, smem = _fit(route, boxes, np_, bf16, k, same)
+    tiles = -(-m // rows)
+    grid = max(1, min(tiles, sms * blocks_per_sm // (fleet * panels)))
+    return GramPlan(route, box_cols, slabs, chunks, np_, panels, 1, rows,
+                    stages, boxes, reuse, smem, grid)
+
+
+def _gram_lib() -> ctypes.CDLL:
+    from ..csrc.build import load
+
+    lib = load("gram_pair")
+    if not getattr(lib, "_argtypes_set", False):
+        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.gram_pair_error_string.argtypes = [i32]
+        lib.gram_pair_error_string.restype = ctypes.c_char_p
+        lib.error_string = lib.gram_pair_error_string
+        lib.gram_pair_plan.argtypes = [i32, i32, i64, i32, i32, i32,
+                                       ctypes.POINTER(i32)]
+        lib.gram_pair_plan.restype = i32
+        lib.gram_pair_geometry.argtypes = [i32, i32, i64, i32, i32, i32,
+                                           ctypes.POINTER(i32)]
+        lib.gram_pair_geometry.restype = i32
+        lib.gram_pair_run.argtypes = [i32, vp, vp, vp, i32, i64, i32, i32,
+                                      i32, vp, vp, vp]
+        lib.gram_pair_run.restype = i32
+        lib._argtypes_set = True
+    return lib
+
+
+def card_gram_plan(m: int, k: int, dtype, same: bool, fleet: int = 1, *,
+                   aligned: bool = True, device=None) -> GramPlan:
+    """The C side's plan of the same call, on the current card (its SM
+    count and the kernel's occupancy set ``grid``)."""
+    with torch.cuda.device(device):
+        lib = _gram_lib()
+        out = (ctypes.c_int * 13)()
+        _raise_on(lib, lib.gram_pair_plan(
+            int(dtype == torch.bfloat16), fleet, m, k, int(same),
+            int(aligned), out), "gram_pair_plan")
+    v = list(out)
+    return GramPlan(ROUTES[v[0]], *v[1:10], bool(v[10]), *v[11:])
+
+
 @functools.lru_cache(maxsize=None)
 def _gram_geometry(device: int, bf16: int, fleet: int, m: int, k: int,
-                   same: int) -> int:
-    """Blocks per instance of a gram_pair launch: one wave over the fleet,
-    from the card's SM count and the kernel's occupancy, asked once per
-    shape (which also opts the kernel in to its shared memory)."""
-    lib = _lib()
+                   same: int, aligned: int) -> int:
+    """Row streams per instance of a gram_pair launch: one wave over the
+    fleet's panels, from the card's SM count and the kernel's occupancy,
+    asked once per shape (which also opts the kernel in to its shared
+    memory)."""
+    lib = _gram_lib()
     grid = ctypes.c_int(0)
-    _raise_on(lib, lib.fused_gram_geometry(
-        bf16, fleet, m, k, same, ctypes.byref(grid)), "fused_gram_geometry")
+    _raise_on(lib, lib.gram_pair_geometry(
+        bf16, fleet, m, k, same, aligned, ctypes.byref(grid)),
+        "gram_pair_geometry")
     return grid.value
 
 
@@ -334,9 +470,9 @@ def gram_pair(S: torch.Tensor, AS: torch.Tensor, BS: torch.Tensor):
     storage takes 3xTF32 tensor-core products (f32-accurate) and bf16
     storage exact bf16 products, both summed in f32; the blocks' partial
     sums are added in a fixed order, so a repeat is bitwise.  ``BS`` may be
-    ``S`` itself, and S is then read once.  Any k: above 96 columns the
-    kernel computes the Grams in panels (``csrc/fused.cu``), with the same
-    summation order."""
+    ``S`` itself, and S is then read once.  Any k: above 64 columns the
+    kernel computes the Grams in panels (``csrc/gram_pair.cu``,
+    :func:`gram_plan`), with the same summation order."""
     if not _gram_on_card(S, AS, BS):
         return gram_pair_reference(S, AS, BS)
     same = int(BS.data_ptr() == S.data_ptr() and BS.stride() == S.stride())
@@ -346,14 +482,17 @@ def gram_pair(S: torch.Tensor, AS: torch.Tensor, BS: torch.Tensor):
     fleet, m, k = S3.shape
     bf16 = int(S.dtype == torch.bfloat16)
     with torch.cuda.device(S.device):
-        lib = _lib()
-        grid = _gram_geometry(S.device.index, bf16, fleet, m, k, same)
+        lib = _gram_lib()
+        aligned = int((S3.data_ptr() | AS3.data_ptr() | BS3.data_ptr()) % 16
+                      == 0)
+        grid = _gram_geometry(S.device.index, bf16, fleet, m, k, same,
+                              aligned)
         part = torch.empty(fleet * grid * 2 * k * k, dtype=torch.float32,
                            device=S.device)
         out = torch.empty((fleet, 2, k, k), dtype=torch.float32,
                           device=S.device)
         stream = torch.cuda.current_stream(S.device).cuda_stream
-        _raise_on(lib, lib.fused_gram_pair(
+        _raise_on(lib, lib.gram_pair_run(
             bf16, S3.data_ptr(), AS3.data_ptr(), BS3.data_ptr(), fleet, m, k,
             same, grid, part.data_ptr(), out.data_ptr(), stream),
             "gram_pair launch")

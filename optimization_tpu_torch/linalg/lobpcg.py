@@ -15,7 +15,7 @@ What differs from the JAX module, and why:
   bf16) storage ``X0'AX0, X0'BX0`` at the init and ``S'AS, S'BS`` in every
   iteration come from :func:`optimization_tpu_torch.kernels.gram_pair`:
   f32 products and f32 accumulation, the JAX ``_mm`` HIGHEST-precision
-  contract.  On a CUDA tensor that launches ``csrc/fused.cu``'s kernel; on
+  contract.  On a CUDA tensor that launches ``csrc/gram_pair.cu``'s kernel; on
   a CPU tensor it runs its plain version.  float64 keeps ``torch.matmul``:
   the kernel takes f32 or bf16 storage only, and JAX's ``gram_pair`` would
   cut f64 to f32.

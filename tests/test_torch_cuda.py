@@ -634,7 +634,7 @@ def test_fused_stpcg_on_card_matches_generic(dev):
     torch.testing.assert_close(fused.s, ref.s, rtol=2e-4, atol=2e-5)
 
 
-# ---- stream3_probe and gram_pair (csrc/fused.cu) ----
+# ---- stream3_probe (csrc/fused.cu) and gram_pair (csrc/gram_pair.cu) ----
 
 
 @pytest.mark.parametrize("dtype", FUSED_DTYPES, ids=["f32", "bf16"])
@@ -659,18 +659,21 @@ def _gram_inputs(shape, dtype, dev, seed=3):
             for _ in range(3)]
 
 
-# k across the kernel's tile boundaries (16-column output tiles, 16-byte
-# rows at k % 4 == 0 in f32 and k % 8 == 0 in bf16), ragged m, and fleets of
-# sizes that do not divide the card's 132 SMs; above 96 columns the panel
-# route (2 x 2 panels of 64 at k = 97 and 120, of 96 at 192; 3 x 3 of 80 at
-# k = 200), aligned and not
+# k across the kernel's plan (kernels/fused.py:gram_plan): 16-column
+# chunk widths, rows 16-byte aligned at k % 4 == 0 in f32 and k % 8 == 0 in
+# bf16 (else the span route), ragged m, fleets of sizes that do not divide
+# the card's 132 SMs and instances that start off 16-byte boundaries
+# (3 x 777 x 17); above 64 columns the panels (2 at k = 97, 120, 128; 6 at
+# 129 and 192; 8 at 200 and 256; rows copied one by one at 263 in f32),
+# aligned and not; odd k in bf16 (33)
 GRAM_CASES = [(1000, 48), (999, 30), (3, 777, 17), (200, 96),
               (5, 1), (1, 1), (7, 8), (999, 16), (100_001, 17), (7, 48),
               (100_001, 48), (999, 64), (1, 95), (7, 2000, 48),
               (5, 999, 95), (13, 1000, 96), (1000, 97), (100_001, 120),
-              (5, 999, 192), (7, 2000, 120), (999, 200), (3, 70, 97)]
-# k <= 96 with row streams long enough that a warp's chain of k-steps
-# passes fused.cu's kSplitSteps (chip_smoke.GRAM_LONG)
+              (5, 999, 192), (7, 2000, 120), (999, 200), (3, 70, 97),
+              (999, 128), (999, 129), (400, 256), (2000, 33), (1000, 263)]
+# long row streams a block: the kernel folds its wgmma chains every row
+# tile (chip_smoke.GRAM_LONG)
 GRAM_LONG = [(400_000, 48), (2, 100_000, 48), (100_000, 96)]
 
 
@@ -725,6 +728,33 @@ def test_gram_pair_long_chains_match_f64(dev, dtype, shape, bs):
                        1e-5 * (Sd.abs().mT @ X.double().abs()))
     ga2, gb2 = F.gram_pair(S, AS, BS)
     assert torch.equal(ga, ga2) and torch.equal(gb, gb2)
+
+
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "offset"])
+@pytest.mark.parametrize("dtype", FUSED_DTYPES, ids=["f32", "bf16"])
+def test_gram_plan_is_the_c_sides(dev, dtype, aligned):
+    """kernels/fused.py:gram_plan equals csrc/gram_pair.cu's plan on this
+    card (its SM count; one block an SM) at every card shape, and a call
+    at an unaligned base runs the route that plan names."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    shapes = sorted(set(GRAM_CASES + GRAM_LONG))
+    for shape in shapes:
+        m, k = shape[-2], shape[-1]
+        fleet = shape[0] if len(shape) == 3 else 1
+        for same in (False, True):
+            want = F.gram_plan(m, k, dtype, same, fleet, aligned=aligned,
+                               sms=sms)
+            got = F.card_gram_plan(m, k, dtype, same, fleet,
+                                   aligned=aligned, device=dev)
+            assert got == want, (shape, same)
+    # a base 4 bytes off a 16-byte boundary: the span route, same results
+    S, AS, BS = _gram_inputs((2001, 48), dtype, dev)
+    off = [t.flatten()[2:2 + 2000 * 48].view(2000, 48) for t in (S, AS, BS)]
+    ga, gb = F.gram_pair(*off)
+    Sd = off[0].double()
+    for got, X in ((ga, off[1]), (gb, off[2])):
+        _assert_within(got, Sd.mT @ X.double(),
+                       1e-5 * (Sd.abs().mT @ X.double().abs()))
 
 
 def test_gram_pair_takes_S_twice_and_rejects(dev):

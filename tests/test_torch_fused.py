@@ -27,6 +27,9 @@ one numpy seed.  Tolerances, each with its reason:
   bf16 and f64 inputs become the same f32 values in both.
 """
 
+import itertools
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -177,10 +180,12 @@ def test_stream3_probe_matches_jax(n, dt):
     np.testing.assert_array_equal(t.numpy(), j)
 
 
-# k > 96: LOBPCG's basis at nx = 33, 40 and 64, the card kernel's panel
-# route (the plain version on the CPU has no panels; the contract is JAX's)
+# k > 64: LOBPCG's basis at nx = 33, 40 and 64, the card kernel's panel
+# route, and the edges of its plan: k = 128 (two full slabs, one chunk),
+# 129 (three slabs, two chunks, rows not 16-byte aligned), 256 (two full
+# chunks); the plain version on the CPU has no panels, the contract is JAX's
 GRAM_SHAPES = [(256, 8), (1000, 24), (513, 30), (300, 97), (600, 120),
-               (451, 192)]
+               (451, 192), (700, 128), (700, 129), (400, 256)]
 GRAM_INPUTS = {"f32": np.float32, "bf16": "bfloat16", "f64": np.float64}
 
 
@@ -270,3 +275,86 @@ def test_wrappers_reject_bad_inputs():
         T.gram_pair(torch.ones(16, 4), torch.ones(16, 4), torch.ones(16, 5))
     with pytest.raises(ValueError, match="one shape"):
         T.gram_pair(torch.ones(16), torch.ones(16), torch.ones(16))
+
+
+# ---- gram_pair's launch plan (the host side of csrc/gram_pair.cu) ----
+
+
+def _module(path, name):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _plan_shapes():
+    """Every gram_pair shape held on the card: chip_smoke.py's phase 7 and
+    test_torch_cuda.py's cases."""
+    here = Path(__file__).resolve().parent
+    cs = _module(here.parent / "chip_smoke.py", "_chip_smoke_shapes")
+    cuda = _module(here / "test_torch_cuda.py", "_cuda_test_shapes")
+    return sorted(set(cs.GRAM_SHAPES + cs.GRAM_WIDE + cs.GRAM_LONG)
+                  | set(cuda.GRAM_CASES + cuda.GRAM_LONG))
+
+
+PLAN_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+
+@pytest.mark.parametrize("shape", _plan_shapes(),
+                         ids=["x".join(map(str, s)) for s in _plan_shapes()])
+def test_gram_plan_fits_the_card(shape):
+    """The plan of every card shape, f32 and bf16, BS distinct and BS = S,
+    bases aligned or not: shared memory within the H100's 232,448 bytes a
+    block, the cluster within the portable 8, the route by the rows'
+    alignment, panels covering the output once, a ring of at least two
+    stages, one wave of row streams."""
+    m, k = shape[-2], shape[-1]
+    fleet = shape[0] if len(shape) == 3 else 1
+    for (dt, dtype), same, aligned in itertools.product(
+            PLAN_DTYPES.items(), (False, True), (True, False)):
+        p = T.gram_plan(m, k, dtype, same, fleet, aligned=aligned)
+        size = 2 if dt == "bf16" else 4
+        assert p.smem <= T.SMEM_CAP == 232_448
+        assert 1 <= p.cluster <= 8
+        row_aligned = aligned and (k * size) % 16 == 0
+        assert (p.route == "tma2d") == row_aligned
+        assert p.route in ("tma2d", "span", "rows")
+        assert p.box_cols * size == 128
+        # 64-column slabs of AS and BS by chunks of at most 128 S columns
+        assert p.slabs * 64 >= k > (p.slabs - 1) * 64
+        assert p.np % 16 == 0 and p.np <= 128 and p.chunks * p.np >= k
+        assert (p.chunks - 1) * p.np < k
+        assert p.panels == p.slabs * p.chunks
+        assert p.reuse == (same and p.panels == 1)
+        assert p.boxes == 2 * (64 // p.box_cols) + (
+            0 if p.reuse else -(-p.np // p.box_cols))
+        assert p.rows in (32, 64, 128) and 2 <= p.stages <= 8
+        tiles = -(-m // p.rows)
+        assert 1 <= p.grid <= tiles
+        assert p.grid * p.panels * fleet <= 132 or p.grid == 1
+
+
+def test_gram_plan_routes_and_edges():
+    """The rows' alignment picks the route; spans that leave fewer than two
+    stages go row by row; k = 64 is one panel, 65 two, 128 one chunk, 129
+    two; BS = S shares S's slab only in one panel."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    assert T.gram_plan(100_000, 48, f32, True).route == "tma2d"
+    assert T.gram_plan(100_000, 48, f32, True, aligned=False).route == "span"
+    assert T.gram_plan(100_000, 97, f32, False).route == "span"
+    assert T.gram_plan(100_000, 4, bf16, False).route == "span"   # 8 bytes
+    assert T.gram_plan(100_000, 8, bf16, False).route == "tma2d"
+    assert T.gram_plan(1000, 263, f32, False).route == "rows"
+    assert T.gram_plan(1000, 263, bf16, False).route == "span"
+    assert T.gram_plan(1000, 64, f32, True).panels == 1
+    assert T.gram_plan(1000, 65, f32, True).panels == 2
+    assert T.gram_plan(1000, 128, f32, True).chunks == 1
+    assert T.gram_plan(1000, 129, f32, True).chunks == 2
+    assert T.gram_plan(1000, 64, f32, True).reuse
+    assert not T.gram_plan(1000, 65, f32, True).reuse
+    # a fleet shares one wave: fewer row streams an instance
+    assert T.gram_plan(10_000, 48, f32, False, 16).grid == 132 // 16
+    with pytest.raises(ValueError, match=">= 1"):
+        T.gram_plan(0, 48, f32, False)

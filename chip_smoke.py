@@ -25,7 +25,11 @@ non-zero exit and no result line:
    16 with ``gen_weights``' distinct weights of every form) over n x
    storage dtype x body x init x Delta, and every ``prec_chunk`` form (the
    JacobiPower on A0, a stored P, a wrapped callable's P) at each K, each
-   case launched twice and the two bit for bit equal;
+   case launched twice and the two bit for bit equal; then ``GEN_MIXES``
+   (a generated weight crossing zero at K = 8, all weights generated at
+   K = 64, all stored at K = 32) over n (the pair body at 2^20, the single
+   at the ragged n) x storage dtype x Delta and the JacobiPower, each with
+   its bitwise repeat;
 4. main path: the headline TNT solve (``optimization_tpu_torch/headline.py``)
    at n = 2^24 in both tiers, the f32 tier through the kernel (its launch
    count checked against the subproblems solved), then the f32 tier again
@@ -192,7 +196,8 @@ non-zero exit and no result line:
    plain version on its own inputs;
 24. the kernel at rank K = 1, 3, 4 and (``csrc/streamed_cg_any.cu``)
    K = 5, 8, 16, 32 f32 with ``gen_weights``' mix of generated and stored
-   terms, K = 8 bf16 and K = 8 with a generated P: one 50-CG subproblem
+   terms, K = 8 bf16 and K = 8 with a generated P, and ``GEN_MIXES``' three
+   operators (``MIX_TIMED``): one 50-CG subproblem
    each at n = 2^24 (on a kappa ~ 1000 operator; K = 3 and 8 also the
    rank-3 and rank-8 TNT's own subproblems at their 11th outer
    iteration), held against the plain version and timed beside its bound
@@ -501,9 +506,10 @@ def parity_phase(torch, dev):
         raise AssertionError("two runs of one preconditioned subproblem "
                              "differ")
     gcases = general_parity(torch, dev)
+    mcases = mix_parity(torch, dev)
     print(f"phase 3: {cases} sphere cases + 2 bitwise repeats, {gcases} "
-          f"general cases (K = 1, 3, 4, 5, 8, 16) each with a bitwise repeat "
-          f"passed", flush=True)
+          f"general cases (K = 1, 3, 4, 5, 8, 16) and {mcases} of GEN_MIXES "
+          f"(K = 8, 64, 32) each with a bitwise repeat passed", flush=True)
 
 
 
@@ -692,6 +698,77 @@ def general_parity(torch, dev):
                 raise AssertionError(f"two launches differ: {label}")
             cases += 1
     return cases
+
+# phase 3's and phase 24's weight mixes beyond gen_weights (K, mix): a
+# generated weight crossing zero in [0, n), every weight generated (all
+# folded: no stored weight), every weight stored (two stages of them)
+GEN_MIXES = ((8, "crossing"), (64, "generated"), (32, "stored"))
+
+
+def mix_weights(torch, mix, k, n, dev):
+    """The weights of a GEN_MIXES mix: ``crossing`` gen_weights with its
+    affine weight (j = 4) replaced by -0.5 + i / (n - 1); ``generated`` k
+    distinct generated weights (affine and ScaledDiagonal in turn);
+    ``stored`` k distinct stored weights (tensors and wrapped callables in
+    turn, each its own period)."""
+    from optimization_tpu_torch.kernels.streamed_cg import (
+        AffineDiagonal, ElementwiseFn, ScaledDiagonal)
+
+    if mix == "crossing":
+        ws = list(gen_weights(torch, k, n, dev))
+        ws[4] = AffineDiagonal(-0.5, 1.0 / (n - 1))
+        return tuple(ws)
+    if mix == "generated":
+        return tuple(
+            AffineDiagonal(0.5 + 0.003 * j, 1.0 / (n - 1)) if j % 2 else
+            ScaledDiagonal(AffineDiagonal(0.25 + 0.002 * j, 0.5 / (n - 1)))
+            for j in range(k))
+    i = torch.arange(n, device=dev)
+    return tuple(
+        0.5 + ((i + 3 * j) % (11 + j)).float() / (11 + j) if j % 2 else
+        ElementwiseFn(lambda i, aux, m=11 + j: 0.5 + aux[1] * (
+            (i % m).float() / m))
+        for j in range(k))
+
+
+def mix_parity(torch, dev):
+    """Phase 3's GEN_MIXES cases: each mix against the plain version over
+    n x storage x Delta (and once with the JacobiPower), the pair body at
+    n = 2^20 and the single at the ragged n, each launched twice and the
+    two bit for bit equal.  Returns the number of cases."""
+    from optimization_tpu_torch.kernels.streamed_cg import (
+        JacobiPower, prec_map, stpcg_flat_streamed,
+        stpcg_flat_streamed_reference)
+
+    cases = 0
+    kw = dict(max_iterations=300, kappa_fgr=1e-3, theta=0.9)
+    for (k, mix), n, dtype in itertools.product(
+            GEN_MIXES, N_PARITY, (torch.float32, torch.bfloat16)):
+        body = "pair" if n == N_PARITY[0] else "single"
+        g, x, B, aux = gen_args(torch, k, n, dtype, dev)
+        a0c = gen_term(torch, "shifted", n, dev)
+        weights = mix_weights(torch, mix, k, n, dev)
+        deltas = (1e6, 0.15) if dtype == torch.float32 else (1.0, 0.15)
+        for Delta, jacobi in [(d, False) for d in deltas] + [(deltas[0],
+                                                              True)]:
+            kwargs = dict(kw, a0_chunk=a0c, weights=weights, body_kind=body)
+            if jacobi:
+                pc = JacobiPower(1.0, 0.5)
+                kwargs.update(prec_chunk=pc,
+                              prec=prec_map(pc, a0c, aux, n, dev))
+            args = (g, x, B, Delta, aux)
+            res = stpcg_flat_streamed(*args, **kwargs)
+            again = stpcg_flat_streamed(*args, **kwargs)
+            ref = stpcg_flat_streamed_reference(*args, **kwargs)
+            torch.cuda.synchronize()
+            label = (f"K={k} {mix} n={n} {str(dtype)[6:]} {body} "
+                     f"Delta={Delta:g}{' P=jacobi' if jacobi else ''}")
+            check_parity(torch, res, ref, dtype, label, prec=jacobi)
+            if not bitwise_same(torch, res, again):
+                raise AssertionError(f"two launches differ: {label}")
+            cases += 1
+    return cases
+
 
 def time_ms(torch, fn, reps):
     """Mean milliseconds per call by CUDA events (after one warm call).
@@ -3855,14 +3932,22 @@ def Rank8(torch, n, dev, seed=13):
     return Quartic(torch, n, dev, seed, stored=3, affine=R8_AFFINE)
 
 
-def term_cost(t, a0=False):
+# f32 operations an element a pass of all the folded weights together in
+# csrc/streamed_cg_any.cu: (C + D f32(i)) p x into q2 (3) and the two sums
+# y and f32(i) y (3)
+FOLD_OPS = 6
+
+
+def term_cost(t, a0=False, folded=False):
     """(bytes an iteration, bytes once, f32 operations an iteration) an
     element of one term of the kernel's operator (a weight, or ``a0``):
     a stored or wrapped term is read once a pass (4 B) and a wrapped one
     written once when evaluated; a generated term costs c + b i (2 ops,
     and 1 more for 2t, 2 for 2t - aux0); a weight adds u = w x (1, none
     for the weight 1) and its two multiply-adds (into q = Hp and into
-    U'(A0 r), 4)."""
+    U'(A0 r), 4).  ``folded`` (csrc/streamed_cg_any.cu, k >= 5): the
+    weight 1 and a generated weight cost nothing of their own (their fold,
+    FOLD_OPS, is counted once by ``subproblem_bound``)."""
     from optimization_tpu_torch.kernels.streamed_cg import (
         ElementwiseFn, ScaledDiagonal, ShiftedDiagonal)
 
@@ -3870,7 +3955,10 @@ def term_cost(t, a0=False):
     inner = t.a if isinstance(t, wrap) else t
     extra = (2 if a0 else 1) if isinstance(t, wrap) else 0
     if t is None:
-        return 0, 0, 4
+        return 0, 0, 0 if folded else 4
+    if folded and not a0 and not isinstance(inner, ElementwiseFn) and \
+            not hasattr(inner, "shape"):
+        return 0, 0, 0
     own = 0 if a0 else 5
     if isinstance(inner, ElementwiseFn):
         return 4, 4, own + extra
@@ -3890,12 +3978,17 @@ def subproblem_bound(n, its, a0c, weights, prec_chunk=None, word=4,
     an element) unless ``init``, each wrapped term's evaluation and, with
     P, the tail's read and write of s.  A generated P adds its |a0| + c and
     rsqrt (3 operations, 4 for the quarter power) and p w per weight; a
-    stored or wrapped one n words a pass."""
+    stored or wrapped one n words a pass.  At k >= 5
+    (``csrc/streamed_cg_any.cu``) the weight 1 and the generated weights
+    are folded (``term_cost(folded=True)``, FOLD_OPS once) and the init's
+    Gram is of 4 + (stored weights) rows."""
     k = len(weights)
-    costs = [term_cost(a0c, a0=True)] + [term_cost(w) for w in weights]
+    folded = k > 4
+    costs = [term_cost(a0c, a0=True)] + [term_cost(w, folded=folded)
+                                         for w in weights]
     b_it = 6 * word + sum(c[0] for c in costs)
     b_once = sum(c[1] for c in costs)
-    ops_it = 20 + sum(c[2] for c in costs)
+    ops_it = 20 + sum(c[2] for c in costs) + (FOLD_OPS if folded else 0)
     if prec_chunk is not None:
         if hasattr(prec_chunk, "e"):
             ops_it += (3 if prec_chunk.e == 0.5 else 4) + k + 2
@@ -3906,7 +3999,8 @@ def subproblem_bound(n, its, a0c, weights, prec_chunk=None, word=4,
     ops_once = 0
     if not init:
         b_once += 2 * word + sum(c[0] for c in costs)
-        ops_once = (k + 2) * (k + 3) + ops_it
+        rows = 4 + sum(1 for c in costs[1:] if c[0]) if folded else k + 2
+        ops_once = rows * (rows + 1) + ops_it
     return bound((b_it * its + b_once) * n, (ops_it * its + ops_once) * n)
 
 
@@ -3939,6 +4033,8 @@ def timed_subproblem(torch, label, tag, args, kw, plain_reps=3):
 # the K >= 5 subproblems of phase 24: (K, storage, P), 50 CG at n = 2^24
 GEN_TIMED = ((5, "f32", None), (8, "f32", None), (16, "f32", None),
              (32, "f32", None), (8, "bf16", None), (8, "f32", "jacobi"))
+# and GEN_MIXES' (K, mix), 50 CG at n = 2^24 in f32
+MIX_TIMED = GEN_MIXES
 
 
 def quartic_tnt(torch, dev, label, prob, tag, x0, params):
@@ -4033,6 +4129,13 @@ def general_phase(torch, dev, label):
             torch, label, f"K={k} {storage}{' P=' + pform if pform else ''}"
             f" subproblem", (g, x, B, 1e6, aux), kw,
             plain_reps=1 if k >= 16 else 3)
+    # GEN_MIXES' operators at full size (the plain version timed once)
+    for k, mix in MIX_TIMED:
+        g, x, B, aux = gen_args(torch, k, n, torch.float32, dev, seed=7)
+        kw = dict(fixed, a0_chunk=wide,
+                  weights=mix_weights(torch, mix, k, n, dev))
+        timed_subproblem(torch, label, f"K={k} {mix} subproblem",
+                         (g, x, B, 1e6, aux), kw, plain_reps=1)
     # the fixed cost of a CG iteration (K-sized algebra, the two-barrier
     # reduction, the pass over 2^16 elements): the slope from 10 to 50 CG
     for k in (8, 16, 64):

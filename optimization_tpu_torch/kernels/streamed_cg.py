@@ -11,8 +11,11 @@ target |r_k| <= |r_0| min(kappa, |r_0|^theta)).
   kernel (one persistent cooperative launch per subproblem; the scalars it
   returns stay on the card): ``csrc/streamed_cg.cu`` at k = 1-4 (the
   K-sized state in registers) and ``csrc/streamed_cg_any.cu`` at k >= 5
-  (the K-sized state in shared memory, or device memory past its lines).
-  It raises if the kernel does not build or launch; it never falls back.
+  (the streams staged by TMA in a ring of shared-memory stages, the
+  weight 1 and the generated weights folded into one affine form a pass,
+  the K-sized state in shared memory or device memory past its lines:
+  :func:`any_k_plan`).  It raises if the kernel does not build or launch;
+  it never falls back.
 - On a CPU tensor it runs :func:`stpcg_flat_streamed_reference`, the plain
   PyTorch transcription of the Pallas kernel's recurrences over whole
   vectors: same init group, same ``half()``, same pair and single bodies.
@@ -67,6 +70,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import struct
 from typing import Callable, Optional, Sequence, Union
 
 import torch
@@ -76,7 +80,8 @@ from ..linalg.flat_cg import FlatCGInit, FlatCGResult
 __all__ = ["stpcg_flat_streamed", "stpcg_flat_streamed_reference",
            "sphere_rayleigh_streamed", "AffineDiagonal", "ShiftedDiagonal",
            "ScaledDiagonal", "ElementwiseFn", "JacobiPower", "PrecMap",
-           "prec_map", "stored_prec_map", "any_k_layout"]
+           "prec_map", "stored_prec_map", "AnyKPlan", "any_k_plan",
+           "any_k_layout"]
 
 _STORAGE = (torch.float32, torch.bfloat16)
 _ALIGN = 16                     # bytes per vector load in the kernel
@@ -687,13 +692,13 @@ def _lib(name: str = "streamed_cg") -> ctypes.CDLL:
                 vp]
         else:
             lib.streamed_cg_any_grid.argtypes = [
-                i32, i32, i32, i32, i64, ctypes.POINTER(i32),
+                i32, i32, i32, i32, i32, i32, i64, ctypes.POINTER(i32),
                 ctypes.POINTER(i64)]
-            lib.streamed_cg_any_layout.argtypes = [
-                i32, i32, i32, i32, ctypes.POINTER(i64)]
+            lib.streamed_cg_any_plan.argtypes = [
+                i32, i32, i32, i32, i32, i32, ctypes.POINTER(i64)]
             lib.streamed_cg_any_launch.argtypes = [
-                i32, i32, i32, vp, vp, vp, vp, vp, vp, vp, i32, vp, vp, vp,
-                i32, i64, i32, f, f, f, i32, i32, vp, f, i32, vp]
+                i32, i32, i32, i32, vp, vp, vp, vp, vp, vp, vp, vp, i32, vp,
+                vp, vp, i32, i64, i32, f, f, f, i32, i32, vp, f, i32, vp]
         lib._argtypes_set = True
     return lib
 
@@ -705,23 +710,179 @@ def _raise_on(lib, code: int, what: str) -> None:
                            f"({msg})")
 
 
-_PLACES = ("terms", "vectors", "dot_partials", "B_and_UU", "init_tile")
+# csrc/streamed_cg_any.cu's plan constants
+SMEM_BLOCK = 232_448           # an H100 block's opt-in shared memory
+_TILE = 1024                   # elements a staged tile: a quad a consumer
+_RING_STAGES = 4               # the ring's deepest
+_VECS = 13                     # the block's K-vectors
+_MATS_CAP = 65_536             # B' and U'U in shared memory up to
+_FIXED = 1024                  # barriers and block reductions
+_LAYOUT = ("group", "chunks", "stages", "stage_bytes", "tables",
+           "vectors", "slots", "B_and_UU", "init_rows", "smem_bytes")
+_PLACED = ("tables", "vectors", "slots", "B_and_UU", "init_rows")
 
 
-def any_k_layout(k: int, *, bf16: bool = False, prec_kind: int = 0,
+def _as_f32(v: float) -> float:
+    """v rounded to f32, as a Python float."""
+    return struct.unpack("f", struct.pack("f", v))[0]
+
+
+def _round16(b: int) -> int:
+    return -(-b // 16) * 16
+
+
+@dataclasses.dataclass(frozen=True)
+class AnyKPlan:
+    """The launch plan of ``csrc/streamed_cg_any.cu`` (its ``make_plan``):
+    the weights in three classes and where the kernel keeps each array.
+
+    - ``one``: the j of each weight 1 (u = x);
+    - ``generated``: (j, c, b) with w_j(i) = c + b f32(i), the form's factor
+      (2 for a :class:`ScaledDiagonal`) taken into c and b (f32 values);
+    - ``stored``: (j, scale), w_j = scale t_j with t_j read from device
+      memory (a stored tensor, or a wrapped callable once evaluated).
+
+    The weight 1 and the generated weights are folded: a pass adds
+    (C + D f32(i)) p x into q = Hp (:meth:`fold`), and their dots
+    U'(A0 r) come from two sums, sum p x a0r and sum f32(i) p x a0r.  A
+    stage of the ring holds a tile of ``_TILE`` elements of r (g on the
+    first iteration), p, x, s, a stored a0, a stored P and ``group`` stored
+    weights: all of them (``chunks`` = 1) while two such stages fit, else
+    ``chunks`` stages a tile (the dots then read the stored weights a
+    second time, through L2).  The
+    init pass (without ``init=``) rides the same ring and keeps a tile's
+    four basis rows (ghat, a0 ghat, p x, (f32(i) - n/2) p x) in
+    ``init_rows``.  The placements are True in shared memory, False in
+    device memory."""
+
+    k: int
+    one: tuple
+    generated: tuple
+    stored: tuple
+    group: int
+    chunks: int
+    stages: int
+    stage_bytes: int
+    tables: bool
+    vectors: bool
+    slots: bool
+    B_and_UU: bool
+    init_rows: bool
+    smem_bytes: int
+
+    def folded(self) -> tuple:
+        """The folded weights as the kernel's table has them, in j order:
+        (j, c, b); the weight 1 is (j, 1, 0)."""
+        return tuple(sorted([(j, 1.0, 0.0) for j in self.one]
+                            + list(self.generated)))
+
+    def fold(self, beta) -> tuple:
+        """(C, D) with sum_j beta_j w_j(i) = C + D f32(i) over the folded
+        weights, summed in double and rounded to f32 as the kernel does."""
+        c = d = 0.0
+        for j, cj, bj in self.folded():
+            c += float(beta[j]) * cj
+            d += float(beta[j]) * bj
+        return _as_f32(c), _as_f32(d)
+
+    def layout(self) -> dict:
+        """The fields the C side computes itself (:func:`any_k_layout`)."""
+        return {name: getattr(self, name) for name in _LAYOUT}
+
+
+def _weight_class(w):
+    """("one", ...), ("generated", c, b) or ("stored", scale) of a
+    resolved or unresolved weight."""
+    scale = 1.0
+    if isinstance(w, ScaledDiagonal):
+        w, scale = w.a, 2.0
+    if w is None:
+        return ("one",)
+    if isinstance(w, AffineDiagonal):
+        return ("generated", scale * _as_f32(w.c), scale * _as_f32(w.b))
+    return ("stored", scale)
+
+
+def any_k_plan(weights: Sequence, *, a0_stored: bool = False,
+               storage=torch.float32, prec_kind: int = 0,
+               with_init: bool = False, smem: int = SMEM_BLOCK) -> AnyKPlan:
+    """The plan of ``csrc/streamed_cg_any.cu`` for these weights (the
+    descriptors of :func:`stpcg_flat_streamed`), ``a0_stored`` when A0's
+    descriptor is read from device memory (a stored or wrapped a0),
+    ``storage`` the vectors' dtype, ``prec_kind`` 0 none, 1 a JacobiPower,
+    2 a stored or wrapped P, ``with_init`` when the init group is threaded,
+    and ``smem`` bytes of shared memory a block.  The same arithmetic as the
+    C side's ``make_plan``: the fixed area, the tables (16 bytes a weight),
+    the K-vectors, the dot slots, B' and U'U each placed in shared memory
+    while the ring's least (two stages of one stored weight) still fits
+    beside them (B' and U'U up to ``_MATS_CAP``); the init pass's four
+    basis rows of a tile (16 KiB, unless ``with_init``) over the slots and
+    B', U'U; the ring takes the rest."""
+    k = len(weights)
+    if k < 1:
+        raise ValueError("any_k_plan: at least one weight")
+    classes = [_weight_class(w) for w in weights]
+    one = tuple(j for j, c in enumerate(classes) if c[0] == "one")
+    generated = tuple((j, c[1], c[2]) for j, c in enumerate(classes)
+                      if c[0] == "generated")
+    stored = tuple((j, c[1]) for j, c in enumerate(classes)
+                   if c[0] == "stored")
+    ks = len(stored)
+    size = 2 if storage == torch.bfloat16 else 4
+    base = _TILE * (4 * size + 4 * int(a0_stored) + 4 * int(prec_kind == 2))
+    term = 4 * _TILE
+    reserve = 2 * (base + term)
+    used = _FIXED
+    placed = {}
+    for name, nbytes in (("tables", 16 * k), ("vectors", 4 * _VECS * k)):
+        nbytes = _round16(nbytes)
+        placed[name] = used + nbytes + reserve <= smem
+        used += nbytes if placed[name] else 0
+    region = used
+    slots = _round16(64 * max(1, ks))
+    placed["slots"] = used + slots + reserve <= smem
+    used += slots if placed["slots"] else 0
+    mats = _round16(8 * k * k)
+    placed["B_and_UU"] = mats <= _MATS_CAP and used + mats + reserve <= smem
+    used += mats if placed["B_and_UU"] else 0
+    rows = 0 if with_init else 16 * _TILE
+    placed["init_rows"] = region + rows + reserve <= smem
+    if placed["init_rows"]:
+        used = max(used, region + rows)
+    avail = smem - used
+    every = base + term * ks
+    if 2 * every <= avail:
+        group, chunks, stages = ks, 1, min(_RING_STAGES, avail // every)
+    else:
+        stages = 3
+        group = (avail // 3 - base) // term
+        if group < 1:
+            stages = 2
+            group = (avail // 2 - base) // term
+        chunks = -(-ks // group)
+    stage_bytes = base + term * group
+    used += stages * stage_bytes
+    return AnyKPlan(k, one, generated, stored, group, chunks, stages,
+                    stage_bytes, placed["tables"],
+                    placed["vectors"], placed["slots"], placed["B_and_UU"],
+                    placed["init_rows"], used)
+
+
+def any_k_layout(k: int, n_stored: int = 0, *, a0_stored: bool = False,
+                 bf16: bool = False, prec_kind: int = 0,
                  with_init: bool = False, device=None) -> dict:
-    """Where ``csrc/streamed_cg_any.cu`` keeps each array at rank ``k`` on
-    the current card: ``{"terms": True, ..., "smem_bytes": b}`` (True:
-    shared memory; False: device memory).  ``prec_kind``: 0 none, 1 a
-    JacobiPower, 2 a stored or wrapped P.  Needs the card."""
+    """The C side's plan (``csrc/streamed_cg_any.cu``, on the current
+    card's shared memory) for rank ``k`` with ``n_stored`` stored weights:
+    the fields of :meth:`AnyKPlan.layout` (the placements True in shared
+    memory).  Needs the card."""
     lib = _lib("streamed_cg_any")
-    out = (ctypes.c_longlong * 6)()
+    out = (ctypes.c_longlong * len(_LAYOUT))()
     with torch.cuda.device(device):
-        _raise_on(lib, lib.streamed_cg_any_layout(int(bf16), prec_kind, k,
-                                                  int(with_init), out),
-                  "layout query")
-    return {**{name: bool(out[q]) for q, name in enumerate(_PLACES)},
-            "smem_bytes": int(out[5])}
+        _raise_on(lib, lib.streamed_cg_any_plan(
+            int(bf16), prec_kind, k, n_stored, int(a0_stored),
+            int(with_init), out), "plan query")
+    return {name: (bool(out[q]) if name in _PLACED else int(out[q]))
+            for q, name in enumerate(_LAYOUT)}
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -838,9 +999,13 @@ def stpcg_flat_streamed(
     scal = torch.cat(parts)
     Bd = _f32(B, dev).reshape(k_lr, k_lr)
     if k_lr > _UNROLLED_K:
-        res = _launch_any(bf16, prec_kind, k_lr, g, x, terms, Bd, scal,
-                          len(aux), n, stored_p, prec_chunk, max_iterations,
-                          kappa_fgr, theta, epsilon, body_kind, init)
+        plan = any_k_plan(ws, a0_stored=terms[0].mode == _STORED,
+                          storage=g.dtype, prec_kind=prec_kind,
+                          with_init=init is not None)
+        res = _launch_any(plan, bf16, prec_kind, g, x, terms[0], ws, Bd,
+                          scal, len(aux), n, stored_p, prec_chunk,
+                          max_iterations, kappa_fgr, theta, epsilon,
+                          body_kind, init, keep)
         return _result(*res, scal)
     Bd = Bd.reshape(k_lr * k_lr).contiguous()
 
@@ -873,37 +1038,56 @@ def stpcg_flat_streamed(
     return _result(s, res, scal)
 
 
-def _launch_any(bf16, prec_kind, k, g, x, terms, B, scal, n_aux, n, stored_p,
-                prec_chunk, max_iterations, kappa_fgr, theta, epsilon,
-                body_kind, init):
-    """One launch of ``csrc/streamed_cg_any.cu`` (k >= 5): the term
-    descriptors go to the card as a device array (through pinned memory,
-    without a host wait), B as B' (its threads read B's columns), and the
-    global scratch is sized by the library for the grid it picks.
-    Returns (s, res)."""
+def _any_tables(plan: AnyKPlan, ws, keep: list) -> bytes:
+    """The kernel's table: a StoredTerm (pointer, j, scale) for each stored
+    weight, then a FoldedTerm (j, c, b) for each folded one, 16 bytes
+    each; the stored tensors are aligned and kept alive in ``keep``."""
+    out = bytearray()
+    for j, scale in plan.stored:
+        w = ws[j].a if isinstance(ws[j], ScaledDiagonal) else ws[j]
+        t = _aligned(w)
+        keep.append(t)
+        out += struct.pack("=Qif", t.data_ptr(), j, scale)
+    for j, c, b in plan.folded():
+        out += struct.pack("=iffi", j, c, b, 0)
+    return bytes(out)
+
+
+def _launch_any(plan, bf16, prec_kind, g, x, a0_term, ws, B, scal, n_aux,
+                n, stored_p, prec_chunk, max_iterations, kappa_fgr, theta,
+                epsilon, body_kind, init, keep):
+    """One launch of ``csrc/streamed_cg_any.cu`` (k >= 5) on ``plan``
+    (:func:`any_k_plan`): the weights' table goes to the card as a device
+    array (through pinned memory, without a host wait), a0's descriptor by
+    value, B as B' (its threads read B's columns), and the global scratch
+    is sized by the library for the grid it picks.  Returns (s, res)."""
     dev = g.device
+    k = plan.k
     lib = _lib("streamed_cg_any")
-    raw = torch.frombuffer(bytearray(bytes(terms)), dtype=torch.uint8)
-    dterms = raw.pin_memory().to(dev, non_blocking=True)
+    raw = torch.frombuffer(bytearray(_any_tables(plan, ws, keep)),
+                           dtype=torch.uint8)
+    tables = raw.pin_memory().to(dev, non_blocking=True)
     Bt = B.T.contiguous()
     generated = prec_kind == 1
+    ks = len(plan.stored)
+    a0_stored = int(a0_term.mode == _STORED)
     with torch.cuda.device(dev):
         grid, nbytes = ctypes.c_int(0), ctypes.c_longlong(0)
         _raise_on(lib, lib.streamed_cg_any_grid(
-            bf16, prec_kind, k, int(init is not None), n, ctypes.byref(grid),
-            ctypes.byref(nbytes)), "occupancy query")
+            bf16, prec_kind, k, ks, a0_stored, int(init is not None), n,
+            ctypes.byref(grid), ctypes.byref(nbytes)), "occupancy query")
         s = torch.empty_like(g)
         r = torch.empty_like(g)
         p = torch.empty_like(g)
         res = torch.empty(4, dtype=torch.float32, device=dev)
         scratch = torch.empty(nbytes.value, dtype=torch.uint8, device=dev)
         code = lib.streamed_cg_any_launch(
-            bf16, prec_kind, k, g.data_ptr(), x.data_ptr(),
-            dterms.data_ptr(), s.data_ptr(), r.data_ptr(), p.data_ptr(),
-            scal.data_ptr(), n_aux, Bt.data_ptr(), res.data_ptr(),
-            scratch.data_ptr(), grid.value, n, int(max_iterations),
-            float(kappa_fgr), float(theta), float(epsilon),
-            int(body_kind == "pair"), int(init is not None),
+            bf16, prec_kind, k, ks, g.data_ptr(), x.data_ptr(),
+            ctypes.addressof(a0_term), tables.data_ptr(), s.data_ptr(),
+            r.data_ptr(), p.data_ptr(), scal.data_ptr(), n_aux,
+            Bt.data_ptr(), res.data_ptr(), scratch.data_ptr(), grid.value, n,
+            int(max_iterations), float(kappa_fgr), float(theta),
+            float(epsilon), int(body_kind == "pair"), int(init is not None),
             stored_p.data_ptr() if stored_p is not None else None,
             float(prec_chunk.c) if generated else 0.0,
             int(generated and prec_chunk.e == 0.25),

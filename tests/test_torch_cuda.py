@@ -396,12 +396,14 @@ def _gen_weights(k, n, dev):
     return (None,) + tuple(weight(j) for j in range(1, k))
 
 
-# (K, n, storage, body, init, P): csrc/streamed_cg_any.cu at K = 5, 6, 8,
-# 16, 33, 64, at 115 and 116 (the last K whose B and U'U fit in shared
-# memory beside the dot partials, and the first that reads them from
-# device memory) and 212 (the dot partials and the init tile in device
-# memory too); every term form (a0 from _gen_term's forms in turn), every
-# P form, f32 and bf16, ragged n
+# (K, n, storage, body, init, P[, weights]): csrc/streamed_cg_any.cu at
+# K = 5, 6, 8, 16, 33, 64, 115, 116 and 212 on _gen_weights' mix (all
+# stored weights in one stage up to K = 33, in several above; B' and U'U
+# in device memory from K = 91); every term form
+# (a0 from _gen_term's forms in turn), every P form, f32 and bf16, ragged
+# n; and on _any_k_mix's weights: a generated weight crossing zero in
+# [0, n), all weights generated (K = 64: folded, no stored weight), all
+# stored (K = 32: two stages of them)
 ANY_K_CASES = [
     (5, 1 << 20, torch.float32, "pair", False, None),
     (6, 100_003, torch.bfloat16, "single", True, None),
@@ -417,25 +419,57 @@ ANY_K_CASES = [
     (116, 1 << 16, torch.float32, "pair", False, None),
     (116, 65_539, torch.float32, "single", True, None),
     (212, 1 << 16, torch.float32, "single", False, None),
+    (8, 1 << 18, torch.bfloat16, "pair", False, None),
+    (8, 1 << 20, torch.float32, "pair", False, None, "crossing"),
+    (8, 100_003, torch.float32, "single", False, "jacobi", "crossing"),
+    (64, 1 << 18, torch.float32, "pair", False, None, "generated"),
+    (64, 100_003, torch.bfloat16, "single", False, None, "generated"),
+    (32, 1 << 18, torch.float32, "pair", True, None, "stored"),
+    (32, 100_003, torch.float32, "single", False, "stored", "stored"),
 ]
 A0_FORMS = ("shifted", "fn", "stored", "affine")
 
 
+def _any_k_mix(mix, k, n, dev):
+    """The weights of a named mix: ``crossing`` _gen_weights with its
+    affine weight (j = 4) replaced by -0.5 + i / (n - 1), which crosses
+    zero in [0, n); ``generated`` k distinct generated weights (affine and
+    ScaledDiagonal in turn); ``stored`` k distinct stored weights (tensors
+    and wrapped callables in turn, each its own period)."""
+    if mix == "crossing":
+        ws = list(_gen_weights(k, n, dev))
+        ws[4] = T.AffineDiagonal(-0.5, 1.0 / (n - 1))
+        return tuple(ws)
+    if mix == "generated":
+        return tuple(
+            T.AffineDiagonal(0.5 + 0.003 * j, 1.0 / (n - 1)) if j % 2 else
+            T.ScaledDiagonal(T.AffineDiagonal(0.25 + 0.002 * j,
+                                              0.5 / (n - 1)))
+            for j in range(k))
+    i = torch.arange(n, device=dev)
+    return tuple(
+        0.5 + ((i + 3 * j) % (11 + j)).float() / (11 + j) if j % 2 else
+        T.ElementwiseFn(lambda i, aux, m=11 + j: 0.5 + aux[1] * (
+            (i % m).float() / m))
+        for j in range(k))
+
+
 @pytest.mark.parametrize(
-    "k,n,storage,body,with_init,pform", ANY_K_CASES,
+    "case", ANY_K_CASES,
     ids=[f"K{c[0]}-{c[1]}-{str(c[2])[6:]}-{c[3]}"
          f"{'-init' if c[4] else ''}{'-' + c[5] if c[5] else ''}"
-         for c in ANY_K_CASES])
-def test_kernel_matches_plain_version_above_four(dev, k, n, storage, body,
-                                                 with_init, pform):
+         f"{'-' + c[6] if len(c) > 6 else ''}" for c in ANY_K_CASES])
+def test_kernel_matches_plain_version_above_four(dev, case):
     """Rank K >= 5 on the card (csrc/streamed_cg_any.cu) against the plain
     version at the K <= 4 cases' tolerances (module docstring; a stored or
     wrapped P unrelated to A0: counts within 3), Delta 1e6 in f32 and 0.4
     in bf16; one launch counted a call, and a second launch bit for bit
     the first."""
+    k, n, storage, body, with_init, pform = case[:6]
     g, x, B, aux = _gen_args(k, n, storage, dev)
     a0c = _gen_term(A0_FORMS[k % 4], n, dev)
-    weights = _gen_weights(k, n, dev)
+    weights = (_any_k_mix(case[6], k, n, dev) if len(case) > 6
+               else _gen_weights(k, n, dev))
     kw = dict(a0_chunk=a0c, weights=weights, max_iterations=300,
               kappa_fgr=1e-3, theta=0.9, body_kind=body)
     if with_init:
@@ -471,21 +505,64 @@ def test_kernel_matches_plain_version_above_four(dev, k, n, storage, body,
     _assert_step_close(res.s, ref.s, tol)
 
 
+def _lines_weights(k, n_stored):
+    return (tuple(torch.zeros(1) for _ in range(n_stored))
+            + tuple(T.AffineDiagonal(0.5, 1e-3) for _ in range(k - n_stored)))
+
+
 def test_any_k_layout_lines(dev):
-    """Where csrc/streamed_cg_any.cu keeps its arrays on this card: B' and
-    U'U in shared memory up to K = 115 and in device memory from 116, the
-    init tile from K = 210 and the dot partials from 212; with init= there
-    is no tile (at K = 5 the tile is the largest array).  (An H100:
-    232,448 bytes of shared memory a block.)"""
+    """Where csrc/streamed_cg_any.cu keeps its arrays on this card (an
+    H100: 232,448 bytes of shared memory a block; the arithmetic in
+    tests/test_torch_streamed_cg.py::test_any_k_plan_lines): at K = 40 in
+    f32 all stored weights ride in one stage, two stages deep, up to 21 of
+    them, and 22 come in two stages of 13, three deep (one stage with
+    init=, which needs no basis rows); B' and U'U in shared memory up to
+    K = 90; four stages at K = 8 with 4 stored weights, f32 and bf16."""
     if torch.cuda.get_device_properties(0).major != 9:
         pytest.skip("the lines are stated for a Hopper card")
     lay = T.any_k_layout
-    assert lay(64)["B_and_UU"] and lay(115)["B_and_UU"]
-    assert not lay(116)["B_and_UU"] and lay(116)["dot_partials"]
-    assert lay(209)["init_tile"] and not lay(210)["init_tile"]
-    assert lay(211)["dot_partials"] and not lay(212)["dot_partials"]
-    assert lay(212)["terms"] and lay(212)["vectors"]
-    assert lay(5, with_init=True)["smem_bytes"] < lay(5)["smem_bytes"]
+    p21, p22 = lay(40, 21), lay(40, 22)
+    assert (p21["group"], p21["chunks"], p21["stages"]) == (21, 1, 2)
+    assert (p22["group"], p22["chunks"], p22["stages"]) == (13, 2, 3)
+    assert lay(40, 22, with_init=True)["chunks"] == 1
+    assert lay(90, 0)["B_and_UU"] and not lay(91, 0)["B_and_UU"]
+    for bf16 in (False, True):
+        p = lay(8, 4, bf16=bf16)
+        assert (p["chunks"], p["stages"]) == (1, 4)
+    assert lay(5, 2, with_init=True)["smem_bytes"] <= lay(5, 2)["smem_bytes"]
+
+
+# (K, stored weights) of the plan comparisons: small mixes, the one-stage
+# line at K = 40, all generated, all stored, past the B' and U'U line
+PLAN_SHAPES = [(5, 2), (8, 4), (16, 8), (32, 16), (40, 21), (40, 22),
+               (64, 0), (32, 32), (116, 46), (212, 84)]
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("prec_kind", [0, 1, 2],
+                         ids=["noP", "jacobi", "storedP"])
+def test_any_k_plan_is_the_c_sides(dev, bf16, prec_kind):
+    """kernels/streamed_cg.py:any_k_plan equals csrc/streamed_cg_any.cu's
+    own plan on this card (its opt-in shared memory a block, which the
+    kernel's zero static shared memory leaves whole) for every shape of
+    PLAN_SHAPES, with a generated and a stored a0, with and without
+    init=."""
+    from optimization_tpu_torch.kernels.probes import card_capacity
+
+    cap = card_capacity(dev)
+    smem = cap["shared_bytes"] // cap["sms"]
+    storage = torch.bfloat16 if bf16 else torch.float32
+    for k, ks in PLAN_SHAPES:
+        for a0_stored in (False, True):
+            for with_init in (False, True):
+                want = T.any_k_plan(
+                    _lines_weights(k, ks), a0_stored=a0_stored,
+                    storage=storage, prec_kind=prec_kind,
+                    with_init=with_init, smem=smem).layout()
+                got = T.any_k_layout(k, ks, a0_stored=a0_stored, bf16=bf16,
+                                     prec_kind=prec_kind,
+                                     with_init=with_init, device=dev)
+                assert got == want, (k, ks, a0_stored, with_init)
 
 
 @pytest.mark.parametrize("k", [1, 2, 3, 4])

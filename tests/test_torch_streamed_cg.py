@@ -1239,3 +1239,146 @@ def test_rank8_tnt_through_flat_solve_matches_jax():
     assert int(qr.status) == int(tr.status)
     assert int(qr.num_iterations) == k
     np.testing.assert_allclose(float(qr.f), float(tr.f), rtol=1e-5)
+
+
+# ---- the any-rank kernel's host plan (csrc/streamed_cg_any.cu) ----
+
+def _plan_weights(k, n_stored, n=N):
+    """k weights, ``n_stored`` of them stored (tensors and wrapped
+    callables, every third a ScaledDiagonal of one), the others the
+    weight 1 (j = 0 when it is not stored), generated weights and
+    ScaledDiagonals of generated ones, one of them crossing zero in
+    [0, n)."""
+    ws = []
+    for j in range(k):
+        if j >= k - n_stored:
+            t = (torch.full((n,), 0.5 + j / k) if j % 2 else
+                 T.ElementwiseFn(lambda i, aux, j=j: 0.5 + (i % (7 + j))
+                                 .float() / (7 + j)))
+            ws.append(T.ScaledDiagonal(t) if j % 3 == 0 else t)
+        elif j == 0:
+            ws.append(None)
+        elif j == 1:
+            ws.append(T.AffineDiagonal(-0.5, 1.0 / (n - 1)))
+        elif j % 2:
+            ws.append(T.AffineDiagonal(0.5 + 0.003 * j, 1.0 / (n - 1)))
+        else:
+            ws.append(T.ScaledDiagonal(T.AffineDiagonal(0.25 + 0.002 * j,
+                                                        0.5 / (n - 1))))
+    return tuple(ws)
+
+
+PLAN_MIXES = [(5, 2), (8, 4), (16, 8), (32, 16), (32, 32), (64, 0),
+              (212, 84)]
+
+
+@pytest.mark.parametrize("k,n_stored", PLAN_MIXES,
+                         ids=[f"K{k}-stored{s}" for k, s in PLAN_MIXES])
+def test_any_k_plan_classes_partition_the_weights(k, n_stored):
+    """any_k_plan sorts the K weights into the weight 1, generated (c and b
+    as f32, times 2 for a ScaledDiagonal) and stored (scale 1 or 2), each
+    j in exactly one class; the folded table is the weight 1 and the
+    generated weights in j order."""
+    ws = _plan_weights(k, n_stored)
+    plan = T.any_k_plan(ws)
+    one = list(plan.one)
+    gen = [j for j, _, _ in plan.generated]
+    st = [j for j, _ in plan.stored]
+    assert sorted(one + gen + st) == list(range(k))
+    assert len(st) == n_stored and len(set(one + gen + st)) == k
+    for j, c, b in plan.generated:
+        w, scale = ws[j], 1.0
+        if isinstance(w, T.ScaledDiagonal):
+            w, scale = w.a, 2.0
+        assert isinstance(w, T.AffineDiagonal)
+        assert c == scale * float(np.float32(w.c))
+        assert b == scale * float(np.float32(w.b))
+    for j, scale in plan.stored:
+        scaled = isinstance(ws[j], T.ScaledDiagonal)
+        assert scale == (2.0 if scaled else 1.0)
+        inner = ws[j].a if scaled else ws[j]
+        assert isinstance(inner, (torch.Tensor, T.ElementwiseFn))
+    assert all(ws[j] is None for j in one)
+    folded = plan.folded()
+    assert [f[0] for f in folded] == sorted(one + gen)
+    assert all(f[1:] == (1.0, 0.0) for f in folded if f[0] in one)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_any_k_plan_fold_reproduces_the_folded_sum(seed):
+    """plan.fold(beta) = (C, D) gives sum_j beta_j w_j(i) over the weight 1
+    and the generated weights as C + D f32(i): at sampled i of n = 2^24
+    (f32(i) exact), against the float64 sum of the plain version's own
+    f32 weight values, within the f32 roundings of C, D and of each w_j(i)
+    (2^-23 of the magnitudes summed), with a weight crossing zero."""
+    n = 1 << 24
+    k = 24
+    ws = _plan_weights(k, 6, n=n)
+    plan = T.any_k_plan(ws)
+    rng = np.random.default_rng(seed)
+    beta = rng.standard_normal(k).astype(np.float32)
+    C, D = plan.fold(beta)
+    assert np.float32(C) == C and np.float32(D) == D
+    i = np.concatenate([[0, 1, n // 2, n - 1],
+                        rng.integers(0, n, 60)]).astype(np.int64)
+    fi = torch.from_numpy(i.astype(np.float32))
+    want = np.zeros(i.shape)
+    mag = np.zeros(i.shape)
+    for j, c, b in plan.folded():
+        w = ws[j]
+        if w is None:
+            wv = np.ones(i.shape)
+        else:
+            scale = 2.0 if isinstance(w, T.ScaledDiagonal) else 1.0
+            a = w.a if scale == 2.0 else w
+            # AffineDiagonal.values' f32 arithmetic at the sampled i
+            wv = scale * (torch.tensor(a.b, dtype=torch.float32) * fi
+                          + torch.tensor(a.c, dtype=torch.float32)
+                          ).double().numpy()
+        want += float(beta[j]) * wv
+        mag += abs(float(beta[j])) * (abs(c) + abs(b) * i + np.abs(wv))
+    got = C + D * i.astype(np.float64)
+    assert np.all(np.abs(got - want) <= 2.0 ** -23 * mag)
+    # the crossing weight's value does change sign over [0, n)
+    c1, b1 = [(c, b) for j, c, b in plan.generated if j == 1][0]
+    assert c1 < 0 < c1 + b1 * (n - 1)
+
+
+def _lines_weights(k, n_stored):
+    return (tuple(torch.zeros(1) for _ in range(n_stored))
+            + tuple(T.AffineDiagonal(0.5, 1e-3) for _ in range(k - n_stored)))
+
+
+def test_any_k_plan_lines():
+    """The layout lines at 232,448 bytes of shared memory a block (an H100)
+    follow from the plan's arithmetic: a stage is 1,024 elements of r, p,
+    x, s (16 B f32, 8 B bf16) and 4 B a stored weight; at K = 40 in f32
+    the fixed area (1,024), the table (640) and the K-vectors (2,080) come
+    first, then the init's basis rows (16,384) over the slots (1,344 at 21
+    stored weights) and B', U'U (12,800), which leaves 212,320 bytes: two
+    stages hold all stored weights up to 21 (2 (16,384 + 4,096 x 21) =
+    204,800) and 22 come in two stages of 13 weights, three stages deep
+    (without init= rows, 22 still fit one stage); B' and U'U (8 K^2) stay
+    in shared memory up to K = 90 (64,800 <= 65,536); the basis rows leave
+    shared memory only at K = 2,561 (with half the weights stored); a few
+    stored weights leave the ring four stages deep."""
+    plan = T.any_k_plan
+    p21 = plan(_lines_weights(40, 21))
+    p22 = plan(_lines_weights(40, 22))
+    assert (p21.group, p21.chunks, p21.stages) == (21, 1, 2)
+    assert (p22.group, p22.chunks, p22.stages) == (13, 2, 3)
+    assert p21.smem_bytes == 1024 + 640 + 2080 + 16384 + 2 * (
+        16384 + 4096 * 21)
+    assert plan(_lines_weights(40, 22), with_init=True).chunks == 1
+    assert plan(_lines_weights(90, 0)).B_and_UU
+    assert not plan(_lines_weights(91, 0)).B_and_UU
+    assert plan(_lines_weights(2560, 1280)).init_rows
+    assert not plan(_lines_weights(2561, 1280)).init_rows
+    for storage in (torch.float32, torch.bfloat16):
+        p = plan(_lines_weights(8, 4), storage=storage)
+        assert (p.chunks, p.stages) == (1, 4)
+    # a stored a0 and P widen a stage by 8 KiB; bf16 narrows it by 8 KiB
+    p = plan(_lines_weights(8, 4), a0_stored=True, prec_kind=2)
+    assert p.stage_bytes == plan(_lines_weights(8, 4)).stage_bytes + 8192
+    p = plan(_lines_weights(8, 4), storage=torch.bfloat16)
+    assert p.stage_bytes == plan(_lines_weights(8, 4)).stage_bytes - 8192

@@ -11,8 +11,8 @@ non-zero exit and no result line:
    turns TF32 off;
 2. build: compiles ``optimization_tpu_torch/csrc/streamed_cg.cu`` (ranks
    1-4), ``csrc/streamed_cg_any.cu`` (any rank), ``csrc/fused.cu``,
-   ``csrc/gram_pair.cu`` and ``csrc/probes.cu`` (the two residency probes
-   and the chunk reader) with
+   ``csrc/gram_pair.cu``, ``csrc/probes.cu`` (the two residency probes
+   and the chunk reader) and ``csrc/segment_sum.cu`` with
    nvcc from this checkout, all at once, and prints each build's seconds
    and ``-Xptxas -v`` report;
 3. kernel parity: ``stpcg_flat_streamed`` on the card against its plain
@@ -126,14 +126,23 @@ non-zero exit and no result line:
    plain version and its bound; then
    ``connection_laplacian_op`` at n_rot = 2^21 for each scatter_method,
    ms an apply against the probe's floor, peak memory, gated within 1e-5
-   of an f64 apply and of each other;
+   of an f64 apply and of each other and on a repeat of each apply bit for
+   bit the first; then the segment-sum kernel (``csrc/segment_sum.cu``, the
+   graph models' edge->vertex sums) against its plain version at the
+   models' shapes at config6's size (``SEGMENT_CASES``, f32 and f64) and
+   at that apply: bit for bit the plain version on the CPU, within
+   ``SEGMENT_TOL`` of the card's, a repeat bit for bit; timed at that
+   apply beside its plain version, ``index_add_`` and its bound; its
+   launches are counted over phases 17-21;
 17. rotation sync at config6's rotation graph (n = 10,000, odometry chain
    + 20,000 random closures, noise 0.01), f32, made on the card: spectral
-   init, TNT through ``make_problem()``, ``(preconditioned=True)`` and
-   ``(flat=True)`` from one R0, ``solve_staircase`` with its certificate;
-   gated on GRADIENT, f within 1e-4 across the routes, mean rotation error
-   < 4 noise, certified, R on SO(3)^n, gram_pair launches = 1 +
-   iterations for every LOBPCG solve;
+   init three times, TNT through ``make_problem()``,
+   ``(preconditioned=True)`` (twice) and ``(flat=True)`` from one R0,
+   ``solve_staircase`` with its certificate; gated on the three spectral
+   inits' LOBPCG iterations and R0 digests equal, the two preconditioned
+   solves' statuses, counts and digests equal, GRADIENT, f within 1e-4
+   across the routes, mean rotation error < 4 noise, certified, R on
+   SO(3)^n, gram_pair launches = 1 + iterations for every LOBPCG solve;
 18. a staircase lift on the card: the ring of tests/test_rotation_sync.py
    in f64 from an R0 whose level-d certificate fails; gated on p_final >
    d, certified, rank_gap < 1e-6;
@@ -249,7 +258,7 @@ N_PARITY = (1 << 20, 999_999)       # the second is not a multiple of 1024
 N_MAIN = 1 << 24
 SHORT = 10                          # CG iterations: see check_parity
 SOURCES = ("streamed_cg", "streamed_cg_any", "fused", "gram_pair",
-           "probes")
+           "probes", "segment_sum")
 N_FUSED = (1 << 24, 999_999, 100)   # fused kernel parity sizes
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"f32": 67e12, "tf32": 495e12, "bf16": 989e12}
@@ -2592,18 +2601,25 @@ def random_rotations(torch, gen, E, dtype=None):
 LAPLACIAN_METHODS = ("scatter", "gather", "sort", "adjacency")
 
 
-def laplacian_arms(torch, dev, label, ceiling, n=GRAPH_N_ROT):
-    """The connection-Laplacian apply (``rotation_sync.connection_
-    laplacian_op``) at n rotations, d = 3, f32, with the graph probe's edge
-    set (odometry chain + 2n random closures from a seeded generator,
-    self-loops dropped), one arm a ``scatter_method``: ms an apply against
-    the probe's floor (2 n d^2 + 3 E d^2) 4 bytes, GB/s over the ceiling,
-    peak memory.  Gate: every method within 1e-5 (relative Frobenius) of
-    an f64 apply of the same operator and of the scatter arm.  Returns
-    {method: (ms, GB/s)}."""
+def tensor_digest(*tensors):
+    """The first 16 hex digits of a SHA-256 over the tensors' bytes: equal
+    digests mean bit-for-bit equal tensors."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def laplacian_graph(torch, dev, n=GRAPH_N_ROT, d=3):
+    """The operator arms' instance: n rotations, the graph probe's edge set
+    (odometry chain + 2n random closures from a seeded generator,
+    self-loops dropped), Haar measurement blocks, f32, on ``dev``; returns
+    ``(data, V, loc)``: V an (n d, d) block to apply the operator to, loc
+    the share of edges within a 1 MiB chunk window."""
     from optimization_tpu_torch.models import rotation_sync as rs
 
-    d = 3
     gen = torch.Generator(device=dev).manual_seed(1)
     src = torch.cat([torch.arange(n - 1, device=dev),
                      torch.randint(0, n, (2 * n,), generator=gen, device=dev)])
@@ -2611,14 +2627,30 @@ def laplacian_arms(torch, dev, label, ceiling, n=GRAPH_N_ROT):
                      torch.randint(0, n, (2 * n,), generator=gen, device=dev)])
     keep = src != dst
     src, dst = src[keep], dst[keep]
-    E = int(src.numel())
     # locality: edges within a 1 MiB chunk window (2048 x 128 f32 words /
     # d^2 = 29,127 rotation indices)
     win = (2048 * 128) // (d * d)
     loc = float(((src - dst).abs() <= win).double().mean())
     data = rs.RotationSyncData(src=src, dst=dst,
-                               Rij=random_rotations(torch, gen, E))
+                               Rij=random_rotations(torch, gen,
+                                                    int(src.numel())))
     V = torch.randn((n * d, d), generator=gen, device=dev)
+    return data, V, loc
+
+
+def laplacian_arms(torch, dev, label, ceiling, n=GRAPH_N_ROT):
+    """The connection-Laplacian apply (``rotation_sync.connection_
+    laplacian_op``) at n rotations, d = 3, f32, on :func:`laplacian_graph`,
+    one arm a ``scatter_method``: ms an apply against the probe's floor
+    (2 n d^2 + 3 E d^2) 4 bytes, GB/s over the ceiling, peak memory.
+    Gates: every method within 1e-5 (relative Frobenius) of an f64 apply
+    of the same operator and of the scatter arm, and an apply after the
+    timed ones bit for bit the first.  Returns {method: (ms, GB/s)}."""
+    from optimization_tpu_torch.models import rotation_sync as rs
+
+    d = 3
+    data, V, loc = laplacian_graph(torch, dev, n, d)
+    E = int(data.src.numel())
     ref = rs.connection_laplacian_op(
         data._replace(Rij=data.Rij.double()), n, d)(V.double())
     ref_norm = float(torch.linalg.vector_norm(ref))
@@ -2626,7 +2658,7 @@ def laplacian_arms(torch, dev, label, ceiling, n=GRAPH_N_ROT):
     print(f"  connection Laplacian, n = {n} rotations, E = {E} edges, "
           f"{100 * loc:.1f} % of the edges within a 1 MiB chunk window; floor "
           f"{floor / 1e6:.0f} MB an apply", flush=True)
-    outs, res = {}, {}
+    outs, res, repeats = {}, {}, {}
     for method in LAPLACIAN_METHODS:
         torch.cuda.synchronize(dev)
         base = torch.cuda.memory_allocated(dev)
@@ -2638,13 +2670,15 @@ def laplacian_arms(torch, dev, label, ceiling, n=GRAPH_N_ROT):
         build_s = time.perf_counter() - t0
         ms = time_ms(torch, lambda: L(V), 5)
         peak = (torch.cuda.max_memory_allocated(dev) - base) / 2 ** 30
+        repeats[method] = torch.equal(L(V), outs[method])
         rel = float(torch.linalg.vector_norm(outs[method].double() - ref)
                     ) / ref_norm
         gbs = floor / ms / 1e6
         print(f"  {method}: {ms:.3f} ms an apply = {gbs:.0f} GB/s of the floor "
               f"= {gbs / ceiling:.3f} of the measured ceiling; built and "
               f"applied once in {build_s:.2f} s; peak memory {peak:.2f} GiB "
-              f"above the data; |L V - f64| / |f64| = {rel:.2e} [{label}]",
+              f"above the data; |L V - f64| / |f64| = {rel:.2e}; a repeat "
+              f"bit for bit the first: {repeats[method]} [{label}]",
               flush=True)
         res[method] = (ms, gbs, rel)
         del L
@@ -2654,8 +2688,12 @@ def laplacian_arms(torch, dev, label, ceiling, n=GRAPH_N_ROT):
         raise AssertionError(f"connection Laplacian arms disagree: "
                              f"{ {m: r[2] for m, r in res.items()} }, "
                              f"pairwise {pair:.2e}")
-    print(f"  gate passed: the four methods within 1e-5 of the f64 apply "
-          f"and of each other (max pairwise {pair:.2e})", flush=True)
+    if not all(repeats.values()):
+        raise AssertionError(f"connection Laplacian arms do not repeat bit "
+                             f"for bit: {repeats}")
+    print(f"  gates passed: the four methods within 1e-5 of the f64 apply "
+          f"and of each other (max pairwise {pair:.2e}), each repeating bit "
+          f"for bit", flush=True)
     return {m: r[:2] for m, r in res.items()}
 
 
@@ -2719,7 +2757,95 @@ def graph_probe_phase(torch, dev, label, ceiling):
              arms[(GRAPH_GR[-1], False)][1],
              f"chunk_reader rnd[{ENTRY_GR}]": arms[(ENTRY_GR, True)][1],
              **{f"connection Laplacian {m}": ops[m][1] for m in ops}}
-    return entry, rates
+    return entry, rates, segment_sum_check(torch, dev, label)
+
+
+# the segment sum's shapes on the graph models' paths: (n, E, trailing,
+# parts, hub) at config6's size (the degree, the inner Laplacian's k = 3,
+# the TNT hvp's 3 x 3, LOBPCG's blocks of 8 and 24 columns, Bt's one part)
+# and a hub; the timed shape is phase 16's connection-Laplacian apply
+SEGMENT_CASES = ((10_000, 30_000, (), 2, False),
+                 (10_000, 30_000, (3,), 2, False),
+                 (10_000, 30_000, (3, 3), 2, False),
+                 (10_000, 30_000, (3, 8), 2, False),
+                 (10_000, 30_000, (3, 24), 2, False),
+                 (10_000, 30_000, (3, 3), 1, False),
+                 (2_000, 20_000, (3, 3), 2, True))
+SEGMENT_TOL = {"f32": 1e-5, "f64": 1e-12}
+
+
+def segment_sum_check(torch, dev, label):
+    """The segment-sum kernel (``csrc/segment_sum.cu``) against its plain
+    version on the same inputs: at every ``SEGMENT_CASES`` shape in f32 and
+    f64 and at phase 16's apply (2^21 rotations, 3 x 3 words a row), bit
+    for bit the plain version on the CPU (both add each vertex's run in the
+    plan's order from zero) and within ``SEGMENT_TOL`` (relative to the
+    largest |word|) of the card's plain version (``index_add``: another
+    order), a repeat bit for bit the first; then the timed shape beside the
+    plain version, one ``index_add_`` of both parts concatenated (the
+    library call) and the bound (bytes: the rows once, the plan's order and
+    run bounds, the output once).  Returns the kernels line's numbers but
+    the launches."""
+    import importlib
+
+    SS = importlib.import_module("optimization_tpu_torch.kernels.segment_sum")
+    err = 0.0
+
+    def hold(tag, index, parts, n):
+        nonlocal err
+        plan = SS.segment_plan(index, n)
+        got = SS.segment_sum(plan, parts)
+        ref = SS.segment_sum_reference(plan, parts)
+        cpu = SS.segment_sum(SS.segment_plan([i.cpu() for i in index], n),
+                             [p.cpu() for p in parts])
+        scale = max(float(ref.abs().max()), 1e-30)
+        e = float((got - ref).abs().max())
+        tol = SEGMENT_TOL["f32" if ref.dtype == torch.float32 else "f64"]
+        if not (torch.equal(got, SS.segment_sum(plan, parts))
+                and torch.equal(got.cpu(), cpu) and e <= tol * scale):
+            raise AssertionError(f"segment_sum {tag}: |kernel - plain| {e:.3e}"
+                                 f" (scale {scale:.3e}), CPU bit for bit "
+                                 f"{torch.equal(got.cpu(), cpu)}")
+        err = max(err, e)
+        return plan
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    for dtype in (torch.float32, torch.float64):
+        for n, E, trailing, n_parts, hub in SEGMENT_CASES:
+            index = [torch.randint(0, n, (E,), generator=gen, device=dev)
+                     for _ in range(n_parts)]
+            if hub:
+                index[-1][: E // 2] = 0
+            parts = [torch.randn((E,) + trailing, generator=gen, dtype=dtype,
+                                 device=dev) for _ in range(n_parts)]
+            hold(f"n {n} E {E} {trailing} {n_parts} parts {dtype}", index,
+                 parts, n)
+    data, _, _ = laplacian_graph(torch, dev)
+    n, E = GRAPH_N_ROT, int(data.src.numel())
+    parts = [torch.randn((E, 3, 3), generator=gen, device=dev)
+             for _ in range(2)]
+    plan = hold("phase 16's apply", [data.src, data.dst], parts, n)
+    print(f"  ok   segment_sum (csrc/segment_sum.cu) against its plain "
+          f"version at {len(SEGMENT_CASES)} shapes in f32 and f64 and at "
+          f"phase 16's apply: bit for bit the CPU's, max |kernel - card "
+          f"plain| {err!r}, repeats bit for bit", flush=True)
+    ms = time_ms(torch, lambda: SS.segment_sum(plan, parts), 20)
+    plain_ms = time_ms(torch, lambda: SS.segment_sum_reference(plan, parts),
+                       5)
+    idx = torch.cat([data.src, data.dst])
+    flat = torch.cat(parts)
+    library_ms = time_ms(torch, lambda: torch.zeros(
+        (n, 3, 3), device=dev).index_add_(0, idx, flat), 5)
+    S = 2 * E
+    bound_ms, bound_by = bound(S * 9 * 4 + S * 8 + (n + 1) * 8 + n * 9 * 4,
+                               S * 9)
+    print(f"  segment_sum at phase 16's apply ({S} slots of 9 f32 words onto "
+          f"{n} vertices): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"index_add_ {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by}; {bound_ms / ms:.3f} of it) [{label}]", flush=True)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
 
 
 # ---- rotation synchronization and matrix completion on the card ----
@@ -2763,32 +2889,50 @@ def on_so_d(torch, R, atol):
     return dev_, dev_ <= atol and bool((torch.linalg.det(R) > 0).all())
 
 
+def rotation_graph(torch, dev):
+    """Phase 17's instance: config6's rotation graph, f32, made on ``dev``
+    from seed 6, self-loops dropped.  Returns ``(R_true, data)``."""
+    from optimization_tpu_torch.models import rotation_sync as rs
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    R_true, full = rs.random_instance(gen, ROTSYNC["n"], 3,
+                                      extra_edges=ROTSYNC["extra"],
+                                      noise=ROTSYNC["noise"])
+    keep = full.src != full.dst
+    return R_true, rs.RotationSyncData(src=full.src[keep], dst=full.dst[keep],
+                                       Rij=full.Rij[keep])
+
+
+ROTSYNC_PARAMS = dict(max_iterations=100, gradient_tolerance=2e-3,
+                      relative_decrease_tolerance=0.0, stepsize_tolerance=0.0,
+                      preconditioned_gradient_tolerance=0.0)
+
+
+def rotation_routes(rs):
+    """Phase 17's three TNT routes as (name, problem)."""
+    return (("plain", rs.make_problem()),
+            ("preconditioned", rs.make_problem(preconditioned=True)),
+            ("flat", rs.make_problem(flat=True)))
+
+
 def rotation_sync_phase(torch, dev, label):
     """Phase 17: rotation sync at config6's rotation graph, f32, made on
-    the card: spectral init, TNT on three routes from one R0, the
-    staircase with its certificate; gates as printed."""
+    the card: spectral init three times (bit for bit the same each time),
+    TNT on three routes from one R0 (the preconditioned route twice, bit
+    for bit the same), the staircase with its certificate; gates as
+    printed."""
     from optimization_tpu_torch.core.types import TNTStatus
     from optimization_tpu_torch.models import rotation_sync as rs
     from optimization_tpu_torch.solvers import tnt
 
     n, extra, noise = ROTSYNC["n"], ROTSYNC["extra"], ROTSYNC["noise"]
-    gen = torch.Generator(device=dev).manual_seed(6)
-    R_true, full = rs.random_instance(gen, n, 3, extra_edges=extra,
-                                      noise=noise)
-    keep = full.src != full.dst
-    data = rs.RotationSyncData(src=full.src[keep], dst=full.dst[keep],
-                               Rij=full.Rij[keep])
+    R_true, data = rotation_graph(torch, dev)
     print(f"phase 17: rotation sync, config6's rotation graph (n = {n}, "
           f"odometry chain + {extra} random closures, {int(data.src.numel())}"
           f" edges without self-loops, noise {noise}), f32 on the card "
           f"[{label}]", flush=True)
-    params = tnt.TNTParams(max_iterations=100, gradient_tolerance=2e-3,
-                           relative_decrease_tolerance=0.0,
-                           stepsize_tolerance=0.0,
-                           preconditioned_gradient_tolerance=0.0)
-    routes = (("plain", rs.make_problem()),
-              ("preconditioned", rs.make_problem(preconditioned=True)),
-              ("flat", rs.make_problem(flat=True)))
+    params = tnt.TNTParams(**ROTSYNC_PARAMS)
+    routes = rotation_routes(rs)
     init = lambda: rs.spectral_init(  # noqa: E731
         data, n, 3, generator=torch.Generator(device=dev).manual_seed(7))
     rs.spectral_init(data, n, 3, max_iterations=2)                # warm-up
@@ -2796,14 +2940,19 @@ def rotation_sync_phase(torch, dev, label):
         tnt.solve(prob, R_true, dataclasses.replace(params, max_iterations=1),
                   data=data)
     with lobpcg_log() as log:
-        R0, secs = timed_solve(torch, dev, init)
-    (it0, l0), = log
-    print(f"  spectral_init (chol RR): {it0} LOBPCG iterations, gram_pair "
-          f"launches {l0}, mean rotation error "
-          f"{float(rs.mean_rotation_error(R0, R_true)):.4f}, {secs:.3f} s "
-          f"[{label}]", flush=True)
-    fs = {}
-    for name, prob in routes:
+        inits = [timed_solve(torch, dev, init) for _ in range(3)]
+    R0 = inits[0][0]
+    digests = [tensor_digest(R) for R, _ in inits]
+    print(f"  spectral_init (chol RR), three runs: (LOBPCG iterations, "
+          f"gram_pair launches) {log}, R0 digests {digests}, "
+          f"{', '.join(f'{secs:.3f}' for _, secs in inits)} s, mean rotation "
+          f"error {float(rs.mean_rotation_error(R0, R_true)):.4f} [{label}]",
+          flush=True)
+    if len(set(log)) != 1 or len(set(digests)) != 1:
+        raise AssertionError("spectral_init does not repeat bit for bit")
+    init_log = log
+    fs, again = {}, {}
+    for name, prob in routes + (("preconditioned again", routes[1][1]),):
         res, secs, reads = host_reads(
             torch, lambda: tnt.solve(prob, R0, params, data=data))
         outer, cg = counts(res)
@@ -2812,12 +2961,18 @@ def rotation_sync_phase(torch, dev, label):
         print(f"  TNT {name}: {TNTStatus(int(res.status)).name}, {outer} outer"
               f" / {cg} CG iterations in {secs:.3f} s, f = {float(res.f):.6f}"
               f", |grad| = {float(res.gradfx_norm):.3e}, mean rotation error "
-              f"{err:.4f}, max |R'R - I| {orth:.1e}, host reads {reads} "
-              f"[{label}]", flush=True)
+              f"{err:.4f}, max |R'R - I| {orth:.1e}, host reads {reads}, "
+              f"digest {tensor_digest(res.x)} [{label}]", flush=True)
         if not (int(res.status) == TNTStatus.GRADIENT and err < 4 * noise
                 and on and res.x.device.type == dev.type):
             raise AssertionError(f"rotation sync TNT {name}: the gate failed")
-        fs[name] = float(res.f)
+        if name.startswith("preconditioned"):
+            again[name] = (int(res.status), outer, cg, tensor_digest(res.x))
+        else:
+            fs[name] = float(res.f)
+    if len(set(again.values())) != 1:
+        raise AssertionError(f"rotation sync TNT preconditioned does not "
+                             f"repeat bit for bit: {again}")
     spread = (max(fs.values()) - min(fs.values())) / abs(fs["plain"])
     if spread > 1e-4:
         raise AssertionError(f"rotation sync: the routes' f differ by "
@@ -2836,12 +2991,13 @@ def rotation_sync_phase(torch, dev, label):
           f"launches) {log}, mean rotation error {err:.4f}, {secs:.3f} s "
           f"[{label}]", flush=True)
     if not (bool(st.certified) and err < 4 * noise and on
-            and all(k == 1 + it for it, k in [(it0, l0)] + log)):
+            and all(k == 1 + it for it, k in init_log + log)):
         raise AssertionError("rotation sync staircase: the gate failed")
-    print(f"  gates passed: three routes GRADIENT with f within {spread:.1e}"
-          f" (<= 1e-4) relative, mean rotation error < 4 noise, certified, "
-          f"R on SO(3)^n, gram_pair launches = 1 + iterations for every "
-          f"LOBPCG solve", flush=True)
+    print(f"  gates passed: spectral_init three times and the preconditioned"
+          f" route twice bit for bit the same; three routes GRADIENT with f "
+          f"within {spread:.1e} (<= 1e-4) relative, mean rotation error < 4 "
+          f"noise, certified, R on SO(3)^n, gram_pair launches = 1 + "
+          f"iterations for every LOBPCG solve", flush=True)
 
 
 def ring_instance(torch, rs, gen, n=12, d=3, noise=0.3):
@@ -4338,7 +4494,11 @@ def main():
     probe_kernels = probe_timing_phase(torch, dev, label, ceiling)
     convex_phase(torch, dev, label)
     chunk_parity_phase(torch, dev)
-    chunk_kernel, graph_rates = graph_probe_phase(torch, dev, label, ceiling)
+    chunk_kernel, graph_rates, segment_numbers = graph_probe_phase(
+        torch, dev, label, ceiling)
+    from optimization_tpu_torch.kernels import segment_sum
+    # ---- the graph models' path (phases 17-21): the count starts at 0 ----
+    segment_sum.launches = 0
     rotation_sync_phase(torch, dev, label)
     staircase_lift_phase(torch, dev, label)
     completion_phase(torch, dev, label)
@@ -4350,6 +4510,13 @@ def main():
         pose_routes_phase(torch, dev, label, *pose)
     pose_launches = F.gram_pair.launches
     # ---- end of the pose path's gram_pair runs ----
+    segment_launches = segment_sum.launches
+    # ---- end of the graph models' path ----
+    print(f"  segment_sum launches over phases 17-21: {segment_launches}",
+          flush=True)
+    if segment_launches <= 0:
+        raise AssertionError("segment_sum was not launched on the graph "
+                             "models' path")
     check_held(held, pose_launches, "on the pose path (phases 20-21)")
     errs7["gram_pair"] = max(errs7["gram_pair"], held["err"])
     # ---- range sync's and the parallel package's gram_pair runs ----
@@ -4385,9 +4552,14 @@ def main():
         "launches": launches[name], "max_abs_err": errs7[name],
         **times7[name]}
         for name in ("gram_pair", "stream3_probe")]
+    segment_kernel = {
+        "name": "segment_sum", "route": "cuda",
+        "source": "optimization_tpu_torch/csrc/segment_sum.cu",
+        "replaces": "optimization_tpu/models/graph.py:84",
+        "launches": segment_launches, **segment_numbers}
     print(json.dumps({"kernels": [kernel] + fused_kernels + new_kernels
                       + [prec_kernel] + probe_kernels + [chunk_kernel]
-                      + rank_kernels}))
+                      + rank_kernels + [segment_kernel]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

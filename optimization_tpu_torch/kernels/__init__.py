@@ -23,6 +23,11 @@
   measurements behind the streamed CG kernel's residency design) and
   ``benchmarks/probe_graph_stream.py`` (``mk_chunk_reader``: the chunked
   gather behind the graph operators' verdict).
+- :mod:`segment_sum` — ``segment_sum`` over a ``segment_plan``, CUDA C++
+  in ``csrc/segment_sum.cu``: the edge->vertex sums of the graph models
+  (``models/graph.py``) in an order fixed by the indices.  It replaces no
+  Pallas kernel (the JAX package's ``.at[].add`` / ``segment_sum``, which
+  XLA lowers).
 """
 
 from .streamed_cg import (AffineDiagonal, ElementwiseFn,
@@ -39,6 +44,8 @@ from .fused import (affine_stencil_matvec,
 from .probes import (chunk_offsets, chunk_reader, chunk_reader_reference,
                      pinned_stream, pinned_stream_reference, resident_body,
                      resident_body_reference)
+from .segment_sum import (SegmentPlan, segment_plan, segment_sum,
+                          segment_sum_reference)
 
 __all__ = ["AffineDiagonal", "ElementwiseFn", "JacobiPower", "PrecMap",
            "ScaledDiagonal", "ShiftedDiagonal", "prec_map", "stored_prec_map",
@@ -51,4 +58,5 @@ __all__ = ["AffineDiagonal", "ElementwiseFn", "JacobiPower", "PrecMap",
            "stream3_probe_reference", "pinned_stream",
            "pinned_stream_reference", "resident_body",
            "resident_body_reference", "chunk_reader",
-           "chunk_reader_reference", "chunk_offsets"]
+           "chunk_reader_reference", "chunk_offsets", "SegmentPlan",
+           "segment_plan", "segment_sum", "segment_sum_reference"]

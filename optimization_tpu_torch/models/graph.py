@@ -8,7 +8,7 @@ per problem at construction time from concrete indices (the tables are
 built on the host with numpy, as in the JAX package, then moved to the
 device):
 
-- ``"scatter"`` — out-of-place ``index_add`` of both sides.
+- ``"scatter"`` — a scatter-add of both sides.
 - ``"gather"``  — a padded incidence table: each vertex row lists its (up
   to deg_max) incident entry slots; apply = one dense gather + a sum over
   the slot axis.  Falls back to ``"sort"`` when the padding would read more
@@ -16,13 +16,21 @@ device):
 - ``"sort"``    — entries sorted by vertex once at construction; apply =
   the sum of each vertex's run of sorted contributions.
 
-All agree up to summation order.  Gradients and the jvp of a gradient (the
-TNT Hessian-vector product) pass through every method: each is built from
-indexing and ``index_add``, which have forward-mode formulas
-(``torch.segment_reduce`` has none, so ``"sort"`` sums its runs with
-``index_add`` over the sorted vertex ids).  On a CUDA device ``index_add``
-on floats uses atomics, so ``"scatter"`` and ``"sort"`` sum in an order
-that varies from run to run; ``"gather"`` and the adjacency form do not.
+All agree up to summation order, and each sums in an order fixed by the
+indices, so the card repeats its results bit for bit.  ``"scatter"`` and
+``"sort"`` are one computation here, the segment sum of
+``kernels/segment_sum.py``: its plan sorts the slots by vertex once, on the
+indices' device, and every apply adds each vertex's run in that order (on
+the card in the kernel ``csrc/segment_sum.cu``, where ``index_add`` would
+add with atomics in an order that varies from run to run; on the CPU by
+``index_add``, one side after the other, the same order).  The degree of
+every model (:func:`vertex_degree`) is such a sum too.  Gradients and the
+jvp of a gradient (the TNT Hessian-vector product) pass through every
+method, and repeat on the card: the segment sum's pullback is a gather,
+its tangent the segment sum of the tangents, and the pullback of a gather
+``x[idx]`` is ``index_put(accumulate=True)``, which on the card sorts the
+indices and adds each run in a fixed order (``torch.segment_reduce`` has
+no forward-mode formula).
 
 Indices live on the device as int64: on ``src``'s device when it is a
 tensor, else on ``device`` (default: the card).
@@ -33,7 +41,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["adjacency_tables", "edge_accumulator", "laplacian_apply"]
+from ..kernels.segment_sum import segment_plan, segment_sum
+
+__all__ = ["adjacency_tables", "edge_accumulator", "laplacian_apply",
+           "vertex_degree"]
 
 
 def _host(a) -> np.ndarray:
@@ -56,6 +67,13 @@ def _index_device(src, device):
     if isinstance(src, torch.Tensor):
         return src.device
     return torch.device("cuda")
+
+
+def vertex_degree(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor,
+                  n: int) -> torch.Tensor:
+    """(n,) sums of the edge weights ``w`` at both endpoints of each edge
+    (the weighted degree), on ``w``'s device."""
+    return segment_sum(segment_plan((src, dst), n), (w, w))
 
 
 def _padded_table(entries_vert: np.ndarray, n: int, n_slots: int):
@@ -83,79 +101,61 @@ def edge_accumulator(src, dst, n, *, method: str = "scatter",
 
     ``a_src``/``a_dst`` are (E, ...) tensors of contributions accumulated
     at ``src[e]`` resp. ``dst[e]`` (pass ``None`` for a side excluded from
-    ``sides``).  Signs and weights are the caller's job.  ``src``/``dst``
-    are tensors or arrays of concrete indices; the index tables go to
-    ``device`` (default: ``src``'s device, or the card for arrays).
+    ``sides``; ``"scatter"`` takes both sides and adds nothing for a side
+    given ``None``, as JAX's).  Signs and weights are the caller's job.
+    ``src``/``dst`` are tensors or arrays of concrete indices; the index
+    tables go to ``device`` (default: ``src``'s device, or the card for
+    arrays).
 
     ``method="gather"`` falls back to ``"sort"`` when the padded table
     would read more than ``pad_factor`` times the true entry count.
     """
     dev = _index_device(src, device)
+    if method not in ("scatter", "gather", "sort"):
+        raise ValueError(f"edge_accumulator: unknown method {method!r} "
+                         "(expected 'scatter', 'gather', or 'sort')")
     if method == "scatter":
-        src_t, dst_t = _index(src, dev), _index(dst, dev)
+        sides = ("src", "dst")      # as JAX's: a side given None adds nothing
+    index = [i for side, i in (("src", src), ("dst", dst)) if side in sides]
 
-        def acc_scatter(a_src, a_dst):
-            ref = a_src if a_src is not None else a_dst
-            out = ref.new_zeros((n,) + tuple(ref.shape[1:]))
-            if a_src is not None:
-                out = out.index_add(0, src_t, a_src)
-            if a_dst is not None:
-                out = out.index_add(0, dst_t, a_dst)
-            return out
-        return acc_scatter
-
-    src_np, dst_np = _host(src), _host(dst)
-    parts = []
-    if "src" in sides:
-        parts.append(src_np)
-    if "dst" in sides:
-        parts.append(dst_np)
-    entries_vert = (np.concatenate(parts).astype(np.int64) if parts
-                    else np.zeros((0,), np.int64))
-    n_slots = entries_vert.size
-    n_sided = len(parts)
+    def sided(a_src, a_dst):
+        if method == "scatter" and (a_src is None) != (a_dst is None):
+            given = a_src if a_src is not None else a_dst
+            a_src, a_dst = (torch.zeros_like(given) if a is None else a
+                            for a in (a_src, a_dst))
+        chunks = [a for side, a in (("src", a_src), ("dst", a_dst))
+                  if side in sides]
+        if not chunks or any(c is None for c in chunks):
+            raise ValueError(f"edge_accumulator: contributions for sides "
+                             f"{tuple(sides)} are required")
+        return chunks
 
     if method == "gather":
+        entries_vert = (np.concatenate([_host(i) for i in index])
+                        .astype(np.int64) if index
+                        else np.zeros((0,), np.int64))
+        n_slots = entries_vert.size
         counts = np.bincount(entries_vert, minlength=n)
         deg_max = int(counts.max()) if counts.size else 0
         if n * max(deg_max, 1) > pad_factor * max(n_slots, 1):
             method = "sort"
-
-    def _flat(a_src, a_dst):
-        chunks = []
-        if "src" in sides:
-            chunks.append(a_src)
-        if "dst" in sides:
-            chunks.append(a_dst)
-        if len(chunks) != n_sided or any(c is None for c in chunks):
-            raise ValueError(f"edge_accumulator: contributions for sides "
-                             f"{tuple(sides)} are required")
-        return chunks[0] if len(chunks) == 1 else torch.cat(chunks, 0)
 
     if method == "gather":
         table_np, _ = _padded_table(entries_vert, n, n_slots)
         table = torch.as_tensor(table_np, device=dev)
 
         def acc_gather(a_src, a_dst):
-            flat = _flat(a_src, a_dst)
+            flat = torch.cat(sided(a_src, a_dst), 0)
             flat = torch.cat([flat, flat.new_zeros((1,) + flat.shape[1:])],
                              0)
             return torch.sum(flat[table], dim=1)
         return acc_gather
 
-    if method == "sort":
-        order_np = np.argsort(entries_vert, kind="stable")
-        verts_sorted = torch.as_tensor(entries_vert[order_np], device=dev)
-        order = torch.as_tensor(order_np, device=dev)
+    plan = segment_plan([_index(i, dev) for i in index], n)
 
-        def acc_sort(a_src, a_dst):
-            flat = _flat(a_src, a_dst)[order]
-            out = flat.new_zeros((n,) + tuple(flat.shape[1:]))
-            return out.index_add(0, verts_sorted, flat)
-        return acc_sort
-
-    raise ValueError(f"edge_accumulator: unknown method {method!r} "
-                     "(expected 'scatter', 'gather', or 'sort')")
+    def acc_sorted(a_src, a_dst):
+        return segment_sum(plan, sided(a_src, a_dst))
+    return acc_sorted
 
 
 def adjacency_tables(src, dst, n, device=None):
@@ -220,8 +220,7 @@ def laplacian_apply(src, dst, tau, n, *, method: str = "scatter"):
     """
     dev = tau.device
     src_t, dst_t = _index(src, dev), _index(dst, dev)
-    deg = tau.new_zeros((n,)).index_add(0, src_t, tau).index_add(0, dst_t,
-                                                                   tau)
+    deg = vertex_degree(src_t, dst_t, tau, n)
 
     if method == "adjacency":
         nb, eid, _, _ = adjacency_tables(src, dst, n, device=dev)

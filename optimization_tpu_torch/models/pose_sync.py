@@ -52,7 +52,7 @@ from ..core.problem import RiemannianProblem
 from ..linalg.lsqr import lsqr
 from ..solvers import tnt
 from . import rotation_sync as rs
-from .graph import _index, edge_accumulator, laplacian_apply
+from .graph import _index, edge_accumulator, laplacian_apply, vertex_degree
 
 __all__ = ["PoseSyncResult", "solve_pose_graph", "recover_translations",
            "marginalized_problem", "solve_robust_se", "RobustSEResult",
@@ -193,15 +193,14 @@ def _weighted_laplacian_solver(src, dst, tau, n, *, max_iterations=400,
     iteration count (a Python int).
 
     ``scatter_method`` selects the L-apply (``graph.laplacian_apply``:
-    ``"scatter"``, ``"gather"``, ``"sort"`` or ``"adjacency"``).  On the
-    card ``"scatter"`` sums with atomics, in an order that varies from run
-    to run.
+    ``"scatter"``, ``"gather"``, ``"sort"`` or ``"adjacency"``).  Each sums
+    in an order fixed by the indices, so both engines repeat bit for bit on
+    the card.
     """
     L = laplacian_apply(src, dst, tau, n, method=scatter_method)
     dev = tau.device
     src_t, dst_t = _index(src, dev), _index(dst, dev)
-    deg = tau.new_zeros((n,)).index_add(0, src_t, tau).index_add(0, dst_t,
-                                                                   tau)
+    deg = vertex_degree(src_t, dst_t, tau, n)
     tiny = torch.finfo(tau.dtype).tiny
     inv_deg = 1.0 / torch.clamp(deg, min=tiny)
 
@@ -433,9 +432,8 @@ def gnc_identifiability(w, src, dst, n, base=None, threshold=0.5,
     src, dst = _index(src, dev), _index(dst, dev)
     base = torch.ones_like(w) if base is None else base
     retained = (w >= rel_cut * rs._median(w)).to(w.dtype)
-    mass = (w.new_zeros((n,)).index_add(0, src, base * retained)
-            .index_add(0, dst, base * retained))
-    total = w.new_zeros((n,)).index_add(0, src, base).index_add(0, dst, base)
+    mass = vertex_degree(src, dst, base * retained, n)
+    total = vertex_degree(src, dst, base, n)
     frac = mass / torch.clamp(total, min=torch.finfo(w.dtype).tiny)
     return frac >= threshold, frac
 

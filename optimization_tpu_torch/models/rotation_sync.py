@@ -43,7 +43,7 @@ import torch
 
 from ..core.problem import RiemannianProblem
 from ..manifolds.stiefel import ROTATIONS, STIEFEL, _flip_first_column
-from .graph import adjacency_tables, edge_accumulator
+from .graph import adjacency_tables, edge_accumulator, vertex_degree
 
 __all__ = ["RotationSyncData", "CertificateResult", "certify",
            "make_problem", "random_instance", "random_fleet",
@@ -66,8 +66,7 @@ def _weights(data: RotationSyncData, dtype) -> torch.Tensor:
 
 
 def _degree(data: RotationSyncData, n: int, w: torch.Tensor) -> torch.Tensor:
-    return (w.new_zeros((n,)).index_add(0, data.src, w)
-            .index_add(0, data.dst, w))
+    return vertex_degree(data.src, data.dst, w, n)
 
 
 def chordal_cost(R: torch.Tensor, data: RotationSyncData) -> torch.Tensor:

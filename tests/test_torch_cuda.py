@@ -24,10 +24,16 @@ kernels (``csrc/probes.cu``): ``chip_smoke.PROBE_TOLERANCES``, and every arm
 of a kernel bit for bit equal to its other arms.  The chunk reader:
 ``chip_smoke.CHUNK_TOLERANCES``.  Further tests hold the convex solvers, the
 ``prec`` check of the streamed kernel, the matrix manifolds, the connection
-Laplacian (within f32 tolerance of the CPU: ``index_add`` sums with atomics
-in a varying order), the models' card defaults, the pose-graph CLI on the
-card by default and the inner Laplacian engines on the card against the
-CPU.
+Laplacian (within f32 tolerance of the CPU, which adds in another order),
+the models' card defaults, the pose-graph CLI on the card by default and
+the inner Laplacian engines on the card against the CPU.  The graph models
+repeat bit for bit on the card: every path of
+``profile_graph_routes.model_paths`` run twice, and raising no determinism
+warning and dispatching no operation that adds in a varying order
+(``profile_graph_routes.census``); each ``scatter_method`` of the
+connection Laplacian and ``laplacian_apply``, the degree, the lifted
+problem's hvp, both inner Laplacian engines, and, at config6's rotation
+graph, ``spectral_init`` and phase 17's three TNT routes, each run twice.
 """
 
 import pytest
@@ -1305,7 +1311,8 @@ def test_matrix_manifolds_on_card_match_cpu(dev, name, shape):
                                     "adjacency"])
 def test_connection_laplacian_on_card_matches_cpu(dev, method):
     """Each scatter_method on the card within f32 tolerance of the CPU
-    apply (the atomics of scatter/sort sum in a varying order)."""
+    apply (the card adds each vertex's contributions in another order than
+    the CPU, the same order in every run)."""
     from optimization_tpu_torch.models import rotation_sync as rs
 
     gen = torch.Generator().manual_seed(3)
@@ -1384,8 +1391,7 @@ def test_pose_cli_runs_on_the_card_by_default(dev, tmp_path, capsys):
 @pytest.mark.parametrize("engine", ["cg", "flat"])
 def test_laplacian_solver_on_card_matches_cpu(dev, engine):
     """The inner Laplacian solve on the card (f32) within 1e-4 of the CPU
-    one through the edge differences (atomics change the summation
-    order)."""
+    one through the edge differences (the card adds in another order)."""
     from optimization_tpu_torch.models import pose_sync as ps
 
     graph, _, _ = _pose_graph(2000, 4000, 0.01, seed=5)
@@ -1405,6 +1411,242 @@ def test_laplacian_solver_on_card_matches_cpu(dev, engine):
     rel = torch.linalg.vector_norm(zs[1] - zs[0]) / torch.linalg.vector_norm(
         zs[0])
     assert float(rel) < 1e-4
+
+
+def _segment_cases():
+    import chip_smoke
+
+    return chip_smoke.SEGMENT_CASES
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("case", _segment_cases(),
+                         ids=lambda c: f"n{c[0]}-w{c[2]}-p{c[3]}"
+                         + ("-hub" if c[4] else ""))
+def test_segment_sum_matches_plain_version(dev, dtype, case):
+    """The kernel against its plain version on the same inputs, at
+    ``chip_smoke.SEGMENT_CASES`` (the graph models' shapes): bit for
+    bit the plain version on the CPU (both add each vertex's run in the
+    plan's order from zero), within 1e-5 (f32) of the card's plain version
+    (``index_add``, another order); one launch a call, a repeat bit for bit
+    the first."""
+    import importlib
+
+    SS = importlib.import_module("optimization_tpu_torch.kernels.segment_sum")
+    n, E, trailing, n_parts, hub = case
+    gen = torch.Generator(device=dev).manual_seed(11)
+    index = [torch.randint(0, n, (E,), generator=gen, device=dev)
+             for _ in range(n_parts)]
+    if hub:
+        index[-1][: E // 2] = 0
+    parts = [torch.randn((E,) + trailing, generator=gen, dtype=dtype,
+                         device=dev) for _ in range(n_parts)]
+    plan = SS.segment_plan(index, n)
+    before = SS.segment_sum.launches
+    got = SS.segment_sum(plan, parts)
+    again = SS.segment_sum(plan, parts)
+    torch.cuda.synchronize()
+    assert SS.segment_sum.launches == before + 2
+    assert got.shape == (n,) + trailing and got.device.type == "cuda"
+    assert torch.equal(got, again)
+    cpu = SS.segment_sum(SS.segment_plan([i.cpu() for i in index], n),
+                         [p.cpu() for p in parts])
+    assert torch.equal(got.cpu(), cpu)
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    torch.testing.assert_close(got, SS.segment_sum_reference(plan, parts),
+                               rtol=tol, atol=tol)
+
+
+def test_segment_sum_rejects_on_the_card(dev):
+    import importlib
+
+    SS = importlib.import_module("optimization_tpu_torch.kernels.segment_sum")
+    idx = torch.arange(10, device=dev) % 4
+    plan = SS.segment_plan((idx,), 4)
+    before = SS.segment_sum.launches
+    with pytest.raises(ValueError, match="f32 or f64"):
+        SS.segment_sum(plan, (torch.ones(10, dtype=torch.bfloat16,
+                                         device=dev),))
+    with pytest.raises(ValueError, match="one device"):
+        SS.segment_sum(plan, (torch.ones(10),))
+    assert SS.segment_sum.launches == before
+
+
+def _tensors(out):
+    """The tensors of a nested tuple of results, in order."""
+    if isinstance(out, torch.Tensor):
+        return [out]
+    if isinstance(out, (tuple, list)):
+        return [t for o in out for t in _tensors(o)]
+    return []
+
+
+def _same(a, b):
+    ta, tb = _tensors(a), _tensors(b)
+    return len(ta) == len(tb) > 0 and all(torch.equal(x, y)
+                                           for x, y in zip(ta, tb))
+
+
+@pytest.fixture(scope="module")
+def card_paths():
+    import profile_graph_routes
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return profile_graph_routes.model_paths(torch, torch.device("cuda", 0),
+                                            torch.float32)
+
+
+def _path_names():
+    import profile_graph_routes
+
+    return profile_graph_routes.PATH_NAMES
+
+
+@pytest.mark.parametrize("path", _path_names())
+def test_model_path_repeats_bit_for_bit(dev, card_paths, path):
+    """Each path of the graph models (forward, gradient, jvp of the
+    gradient, whole solves) twice in f32 on the card: the same bits."""
+    first = card_paths[path]()
+    assert _same(first, card_paths[path]())
+
+
+@pytest.mark.parametrize("path", _path_names())
+def test_model_path_adds_in_a_fixed_order_on_the_card(dev, card_paths,
+                                                      path):
+    """The finder: each path once under
+    ``torch.use_deterministic_algorithms(True, warn_only=True)`` (turned
+    off after) and ``profile_graph_routes.census``: no warning, no
+    operation that adds in a varying order."""
+    import warnings
+
+    import profile_graph_routes
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            with profile_graph_routes.census(torch) as found:
+                card_paths[path]()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    said = [str(w.message) for w in caught
+            if "determinis" in str(w.message)]
+    assert not said and not found, (said, found)
+
+
+@pytest.mark.parametrize("method", ["scatter", "gather", "sort",
+                                    "adjacency"])
+@pytest.mark.parametrize("op", ["connection_laplacian_op",
+                                "laplacian_apply"])
+def test_graph_operators_repeat_bit_for_bit(dev, op, method):
+    """Each scatter_method twice on a graph of 2,000 vertices whose vertex
+    0 takes a quarter of the 6,000 edges (``"gather"`` falls back to
+    ``"sort"``), with its degree."""
+    from optimization_tpu_torch.models import graph as G
+    from optimization_tpu_torch.models import rotation_sync as rs
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    _, data = rs.random_instance(gen, 2000, 3, extra_edges=4000, noise=0.05)
+    dst = data.dst.clone()
+    dst[::4] = 0
+    data = data._replace(dst=dst)
+    w = 0.5 + torch.rand(dst.shape, generator=gen, device=dev)
+    if op == "connection_laplacian_op":
+        data = data._replace(kappa=w)
+        X = torch.randn((6000, 5), generator=gen, device=dev)
+        run = lambda: rs.connection_laplacian_op(  # noqa: E731
+            data, 2000, 3, scatter_method=method)(X)
+    else:
+        z = torch.randn((2000, 4), generator=gen, device=dev)
+        run = lambda: G.laplacian_apply(  # noqa: E731
+            data.src, data.dst, w, 2000, method=method)(z)
+    first = run()
+    assert first.device.type == "cuda"
+    assert all(torch.equal(first, run()) for _ in range(3))
+    deg = rs._degree(data, 2000, w)
+    assert torch.equal(deg, rs._degree(data, 2000, w))
+    assert torch.equal(deg, G.vertex_degree(data.src, data.dst, w, 2000))
+
+
+def test_lifted_problem_hvp_repeats_bit_for_bit(dev):
+    """The staircase's rank-(d + 1) gradient and hvp at config6's rotation
+    graph, twice."""
+    import chip_smoke
+
+    from optimization_tpu_torch.models import rotation_sync as rs
+
+    _, data = chip_smoke.rotation_graph(torch, dev)
+    n = chip_smoke.ROTSYNC["n"]
+    gen = torch.Generator(device=dev).manual_seed(4)
+    Y = rs.STIEFEL.rand(gen, n, 4, 3)
+    W = rs.STIEFEL.proj(Y, torch.randn(Y.shape, generator=gen, device=dev))
+    prob = rs._lifted_problem(n, 3)
+
+    def run():
+        g, hvp = prob.qm(Y, data)
+        return g, hvp(W)
+
+    assert _same(run(), run())
+
+
+def test_spectral_init_at_config6_repeats_bit_for_bit(dev):
+    """Phase 17's spectral_init, twice: the same LOBPCG iteration count
+    and the same R0, bit for bit."""
+    import chip_smoke
+
+    from optimization_tpu_torch.models import rotation_sync as rs
+
+    _, data = chip_smoke.rotation_graph(torch, dev)
+    runs = []
+    with chip_smoke.lobpcg_log() as log:
+        for _ in range(2):
+            runs.append(rs.spectral_init(
+                data, chip_smoke.ROTSYNC["n"], 3,
+                generator=torch.Generator(device=dev).manual_seed(7)))
+    assert log[0] == log[1] and log[0][0] > 1
+    assert torch.equal(runs[0], runs[1])
+
+
+@pytest.mark.parametrize("route", ["plain", "preconditioned", "flat"])
+def test_phase17_routes_repeat_bit_for_bit(dev, route):
+    """Each of phase 17's TNT routes from its R0, twice: the same status,
+    outer and CG counts and x, bit for bit."""
+    import chip_smoke
+
+    from optimization_tpu_torch.models import rotation_sync as rs
+    from optimization_tpu_torch.solvers import tnt
+
+    _, data = chip_smoke.rotation_graph(torch, dev)
+    n = chip_smoke.ROTSYNC["n"]
+    R0 = rs.spectral_init(data, n, 3,
+                          generator=torch.Generator(device=dev).manual_seed(7))
+    prob = dict(chip_smoke.rotation_routes(rs))[route]
+    params = tnt.TNTParams(**chip_smoke.ROTSYNC_PARAMS)
+    a, b = (tnt.solve(prob, R0, params, data=data) for _ in range(2))
+    assert int(a.status) == int(b.status)
+    assert chip_smoke.counts(a) == chip_smoke.counts(b)
+    assert torch.equal(a.x, b.x)
+
+
+@pytest.mark.parametrize("engine", ["cg", "flat"])
+def test_laplacian_solver_repeats_bit_for_bit(dev, engine):
+    """The inner Laplacian solve on config6's pose graph (f32), twice: the
+    same iteration count and the same z."""
+    from optimization_tpu_torch.models import pose_sync as ps
+
+    graph, _, _ = _pose_graph(10_000, 20_000, 0.01, seed=0)
+    src = torch.as_tensor(graph.src, device=dev).long()
+    dst = torch.as_tensor(graph.dst, device=dev).long()
+    gen = torch.Generator(device=dev).manual_seed(1)
+    tau = 0.5 + torch.rand(src.numel(), generator=gen, device=dev)
+    r = torch.randn((10_000, 3), generator=gen, device=dev)
+    r = r - r.mean(dim=0, keepdim=True)
+    solve = ps._weighted_laplacian_solver(src, dst, tau, 10_000,
+                                          engine=engine, with_iters=True)
+    (z1, k1), (z2, k2) = solve(r), solve(r)
+    assert k1 == k2 > 1 and torch.equal(z1, z2)
 
 
 @pytest.mark.parametrize("k", [24, 120])

@@ -5,18 +5,32 @@ hub that sends ``"gather"`` to its ``"sort"`` fallback, one-sided ``sides``)
 and contributions go through both; every method agrees with JAX's same
 method within 1e-12 in float64 (sums in another order), and the gradient
 and the jvp of the gradient (TNT's Hessian-vector product) pass through
-every method.
+every method.  The hub tests run each route twice: through the segment
+sum's plain version (``index_add`` of one side after the other) and
+through :func:`kernel_order`, the card kernel's traversal of the plan (each
+vertex's run of sorted slots added in order from zero), at the same
+tolerances.  Every path of the graph models, its derivatives included,
+adds only through the segment sum (``profile_graph_routes.census``, the
+segment sum hidden as its kernel launch is on the card): no other
+operation that adds in a varying order on the card.
 """
+
+import importlib
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import _disable_current_modes
 
+import profile_graph_routes
 from optimization_tpu.models import graph as jgraph
 from optimization_tpu_torch.models import graph as tgraph
+from test_torch_segment_sum import kernel_order
 
+# the module (the package's ``kernels.segment_sum`` is the function)
+SS = importlib.import_module("optimization_tpu_torch.kernels.segment_sum")
 torch.set_num_threads(1)
 
 METHODS = ["scatter", "gather", "sort"]
@@ -32,6 +46,15 @@ def _random_graph(seed, n, E, hub=False):
     if hub:
         dst[: E // 2] = 0            # hub vertex
     return src, dst
+
+
+@pytest.fixture(params=["plain", "kernel_order"])
+def branch(request, monkeypatch):
+    """Each route through the segment sum's plain version, or through the
+    kernel's traversal of its plan."""
+    if request.param == "kernel_order":
+        monkeypatch.setattr(SS, "segment_sum_reference", kernel_order)
+    return request.param
 
 
 def _contrib(E, trailing, seed):
@@ -148,3 +171,106 @@ def test_tensor_indices_stay_on_their_device():
     out = acc(torch.ones(3), torch.ones(3))
     assert out.device == CPU
     np.testing.assert_array_equal(out.numpy(), [2.0, 2.0, 2.0])
+
+
+@pytest.mark.parametrize("method", METHODS)
+@pytest.mark.parametrize("trailing", [(), (3, 2)])
+def test_methods_match_jax_on_a_hub_graph(branch, method, trailing):
+    """A hub takes half the edges (``"gather"`` falls back to ``"sort"``)."""
+    n, E = 400, 500
+    src, dst = _random_graph(12, n, E, hub=True)
+    a, b = _contrib(E, trailing, 13)
+    out = tgraph.edge_accumulator(src, dst, n, method=method, device=CPU)(
+        torch.from_numpy(a), torch.from_numpy(b))
+    ref = jgraph.edge_accumulator(src, dst, n, method=method)(
+        jnp.asarray(a), jnp.asarray(b))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-12,
+                               atol=1e-12)
+
+
+@pytest.mark.parametrize("method", METHODS)
+def test_grad_and_jvp_of_grad_match_jax_on_a_hub_graph(branch, method):
+    """test_grad_and_jvp_of_grad_match_jax's loss on a hub graph."""
+    n, E = 60, 150
+    src, dst = _random_graph(14, n, E, hub=True)
+    a, u = _contrib(E, (3,), 15)
+    tacc = tgraph.edge_accumulator(src, dst, n, method=method, device=CPU)
+    jacc = jgraph.edge_accumulator(src, dst, n, method=method)
+    tloss = lambda x: torch.sum(tacc(x, 2.0 * x) ** 3)  # noqa: E731
+    jloss = lambda x: jnp.sum(jacc(x, 2.0 * x) ** 3)  # noqa: E731
+    g, hv = torch.func.jvp(torch.func.grad(tloss), (torch.from_numpy(a),),
+                           (torch.from_numpy(u),))
+    jg, jhv = jax.jvp(jax.grad(jloss), (jnp.asarray(a),), (jnp.asarray(u),))
+    np.testing.assert_allclose(g.numpy(), np.asarray(jg), rtol=1e-10,
+                               atol=1e-12)
+    np.testing.assert_allclose(hv.numpy(), np.asarray(jhv), rtol=1e-10,
+                               atol=1e-12)
+
+
+@pytest.mark.parametrize("method", METHODS + ["adjacency"])
+def test_laplacian_apply_matches_jax_on_a_hub_graph(branch, method):
+    n, E = 60, 150
+    src, dst = _random_graph(16, n, E, hub=True)
+    rng = np.random.default_rng(17)
+    tau = rng.uniform(0.5, 2.0, E)
+    z = rng.standard_normal((n, 4))
+    out = tgraph.laplacian_apply(src, dst, torch.from_numpy(tau), n,
+                                 method=method)(torch.from_numpy(z))
+    ref = jgraph.laplacian_apply(src, dst, jnp.asarray(tau), n,
+                                 method=method)(jnp.asarray(z))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-12,
+                               atol=1e-12)
+
+
+@pytest.mark.parametrize("hub", [False, True], ids=["plain", "hub"])
+def test_vertex_degree_matches_jax(branch, hub):
+    """The degree every model takes (JAX's ``.at[src].add(w).at[dst]
+    .add(w)``), self-loops counted twice, isolated vertices 0."""
+    n, E = 50, 120
+    src, dst = _random_graph(18, n, E, hub=hub)
+    w = np.random.default_rng(19).uniform(0.5, 2.0, E)
+    out = tgraph.vertex_degree(torch.from_numpy(src), torch.from_numpy(dst),
+                               torch.from_numpy(w), n)
+    ref = jnp.zeros(n).at[src].add(w).at[dst].add(w)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-12,
+                               atol=1e-12)
+    assert out[n - 1] == 0.0
+
+
+@pytest.fixture(scope="module")
+def model_paths():
+    return profile_graph_routes.model_paths(torch, CPU, torch.float64)
+
+
+@pytest.mark.parametrize("path", profile_graph_routes.PATH_NAMES)
+def test_model_path_adds_in_a_fixed_order(model_paths, monkeypatch, path):
+    """No path of the graph models (forward, gradient, jvp of the gradient)
+    dispatches an operation that adds in a varying order on the card, the
+    segment sum's plain version hidden from the census (on the card it is
+    one launch of its kernel)."""
+    plain = SS.segment_sum_reference
+
+    def launch(plan, parts):
+        with _disable_current_modes():
+            return plain(plan, parts)
+
+    monkeypatch.setattr(SS, "segment_sum_reference", launch)
+    with profile_graph_routes.census(torch) as found:
+        model_paths[path]()
+    assert not found
+
+
+@pytest.mark.parametrize("side", ["src", "dst"])
+def test_scatter_with_one_side_none_matches_jax(side):
+    """``"scatter"`` with the default sides adds nothing for a side given
+    ``None``, as JAX's ``.at[].add`` pair does."""
+    n, E = 13, 40
+    src, dst = _random_graph(20, n, E)
+    a, _ = _contrib(E, (2,), 21)
+    args = (a, None) if side == "src" else (None, a)
+    out = tgraph.edge_accumulator(src, dst, n, device=CPU)(
+        *(None if x is None else torch.from_numpy(x) for x in args))
+    ref = jgraph.edge_accumulator(src, dst, n)(
+        *(None if x is None else jnp.asarray(x) for x in args))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-12,
+                               atol=1e-12)

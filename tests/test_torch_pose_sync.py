@@ -8,11 +8,12 @@ Tolerances:
 
 - ``rotation_sync._median`` equals ``jnp.median`` exactly on odd and even
   lengths; ``gnc_identifiability`` is equal (flags) and within 1e-15
-  (fractions); ``alignment_errors`` within 1e-12;
+  (fractions), on a hub graph too; ``alignment_errors`` within 1e-12;
 - ``recover_translations``: t and the residual within 1e-10;
 - ``_weighted_laplacian_solver``: ``cg`` z within 1e-10 with equal
   ``with_iters`` counts (within one without the Jacobi preconditioner,
-  where the last step is decided at round-off level); ``flat`` at s = 1, 2, 3 the edge differences
+  where the last step is decided at round-off level), on a hub graph too;
+  ``flat`` at s = 1, 2, 3 the edge differences
   within 1e-8 of JAX's flat run and of the port's cg run, counts equal to
   JAX's;
 - ``marginalized_problem``: f, the Riemannian gradient, a Hessian-vector
@@ -29,6 +30,9 @@ Tolerances:
   1e-10 relative of JAX's on the same inputs; in f32 it reproduces the tight one's decision on a certifying and a perturbed
   point, lam_min within 0.5 eta (``tests/test_pose_sync.py::
   TestMarginalized::test_loose_certificate_operator_decision_parity``).
+
+The hub-graph tests run through both branches of ``graph._scatter_add``
+(``test_torch_graph.branch``).
 """
 
 import functools
@@ -46,6 +50,7 @@ from optimization_tpu_torch.models import pose_sync as ps
 from optimization_tpu_torch.models import rotation_sync as rs
 
 import test_pose_sync as jtests
+from test_torch_graph import branch  # noqa: F401  (a fixture)
 
 torch.set_num_threads(1)
 
@@ -103,6 +108,31 @@ def test_gnc_identifiability_matches_jax(noisy):
         np.testing.assert_array_equal(tid.numpy(), np.asarray(jid))
         np.testing.assert_allclose(tfrac.numpy(), np.asarray(jfrac),
                                    rtol=0, atol=1e-15)
+
+
+def _hub_graph(n, E, seed):
+    """Edges of which vertex 0 takes half, self-loops and parallel edges
+    kept, vertex n - 1 isolated."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, n - 1, E)
+    dst = rng.integers(0, n - 1, E)
+    dst[: E // 2] = 0
+    return src, dst
+
+
+def test_gnc_identifiability_matches_jax_on_a_hub_graph(branch):
+    src, dst = _hub_graph(30, 90, 3)
+    rng = np.random.default_rng(4)
+    w = rng.uniform(0.2, 1.0, 90)
+    w[rng.choice(90, 30, replace=False)] = 1e-7
+    base = rng.uniform(0.5, 2.0, 90)
+    jid, jfrac = jps.gnc_identifiability(
+        jnp.asarray(w), jnp.asarray(src), jnp.asarray(dst), 30,
+        jnp.asarray(base))
+    tid, tfrac = ps.gnc_identifiability(_t(w), _t(src), _t(dst), 30, _t(base))
+    np.testing.assert_array_equal(tid.numpy(), np.asarray(jid))
+    np.testing.assert_allclose(tfrac.numpy(), np.asarray(jfrac), rtol=0,
+                               atol=1e-15)
 
 
 def test_alignment_errors_match_jax(noisy):
@@ -168,6 +198,26 @@ def test_laplacian_cg_matches_jax(laplacian, jacobi):
         # residual falls about a decade an iteration at round-off level, and
         # the summation order decides the last step (67 here, 68 in JAX)
         assert abs(tk - int(jk)) <= 1
+    np.testing.assert_allclose(tz.numpy(), np.asarray(jz), rtol=0,
+                               atol=1e-10)
+
+
+@pytest.mark.parametrize("method", ["scatter", "adjacency"])
+def test_laplacian_cg_matches_jax_on_a_hub_graph(branch, method):
+    """The Jacobi-PCG of a connected graph whose vertex 0 takes half the
+    edges (the degree spans two decades)."""
+    src, dst = _hub_graph(51, 200, 5)
+    src, dst = np.append(src, np.arange(50)), np.append(dst, np.arange(1, 51))
+    tau = np.random.default_rng(6).uniform(0.5, 2.0, src.size)
+    r = np.random.default_rng(7).normal(size=(51, 3))
+    r = r - r.mean(axis=0, keepdims=True)
+    kw = dict(max_iterations=5000, with_iters=True, scatter_method=method)
+    jz, jk = jps._weighted_laplacian_solver(
+        jnp.asarray(src), jnp.asarray(dst), jnp.asarray(tau), 51, **kw)(
+        jnp.asarray(r))
+    tz, tk = ps._weighted_laplacian_solver(_t(src), _t(dst), _t(tau), 51,
+                                           **kw)(_t(r))
+    assert tk == int(jk)
     np.testing.assert_allclose(tz.numpy(), np.asarray(jz), rtol=0,
                                atol=1e-10)
 

@@ -14,7 +14,11 @@ staircase agree up to convergence and a global gauge: spectral init and
 the certificate's flag equal, ``lam_min`` within 1e-6 and its stationarity
 (no LOBPCG in it) within 1e-10.  ``solve_robust`` (GNC) from one spectral
 start: R within 1e-6 up to gauge, the weights
-within 1e-6, the same rejected edges.
+within 1e-6, the same rejected edges.  On a graph whose hub takes half
+the edges, the connection Laplacian (every ``scatter_method``), the Jacobi
+preconditioner (the degree) and the lifted problem's gradient and Hessian-
+vector product match JAX within 1e-12 through both branches of
+``graph._scatter_add`` (``test_torch_graph.branch``).
 """
 
 import jax
@@ -28,6 +32,7 @@ from optimization_tpu.solvers import tnt as jtnt
 from optimization_tpu_torch import interop
 from optimization_tpu_torch.models import rotation_sync as rs
 from optimization_tpu_torch.solvers import tnt
+from test_torch_graph import branch  # noqa: F401  (a fixture)
 
 torch.set_num_threads(1)
 
@@ -113,6 +118,67 @@ def test_connection_laplacian_matches(inst, method, weighted):
         jnp.asarray(X))
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-12,
                                atol=1e-12)
+
+
+@pytest.fixture(scope="module")
+def hub():
+    """(JAX data, port data) of a graph whose vertex 0 takes half the edges
+    (self-loops and parallel edges kept), random measurements, weights."""
+    rng = np.random.default_rng(21)
+    E = 4 * N
+    src = rng.integers(0, N, E)
+    dst = rng.integers(0, N, E)
+    dst[: E // 2] = 0
+    data = jrs.RotationSyncData(
+        src=jnp.asarray(src, jnp.int32), dst=jnp.asarray(dst, jnp.int32),
+        Rij=jnp.asarray(_rotations(22, E)),
+        kappa=jnp.asarray(rng.uniform(0.5, 2.0, E)))
+    return data, interop.rotation_sync_data_from_jax(data, device="cpu")
+
+
+@pytest.mark.parametrize("method", METHODS)
+def test_connection_laplacian_matches_on_a_hub_graph(hub, branch, method):
+    data, tdata = hub
+    X = np.random.default_rng(23).normal(size=(N * D, 4))
+    out = rs.connection_laplacian_op(tdata, N, D, scatter_method=method)(
+        torch.from_numpy(X))
+    ref = jrs.connection_laplacian_op(data, N, D, scatter_method=method)(
+        jnp.asarray(X))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-12,
+                               atol=1e-12)
+
+
+def test_jacobi_precon_matches_on_a_hub_graph(hub, branch):
+    data, tdata = hub
+    R = _rotations(24)
+    V = np.random.default_rng(25).normal(size=R.shape)
+    np.testing.assert_allclose(
+        rs.jacobi_precon(torch.from_numpy(R), torch.from_numpy(V),
+                         tdata).numpy(),
+        np.asarray(jrs.jacobi_precon(jnp.asarray(R), jnp.asarray(V), data)),
+        rtol=1e-12, atol=1e-15)
+
+
+@pytest.mark.parametrize("graph", ["instance", "hub"])
+def test_lifted_problem_gradient_and_hvp_match(inst, hub, branch, graph):
+    """The staircase's rank-p problem (p = d + 1): its Riemannian gradient
+    and the jvp of it (the hvp TNT takes) through the connection
+    Laplacian's default scatter."""
+    data, tdata = (inst[1], inst[2]) if graph == "instance" else hub
+    rng = np.random.default_rng(26)
+    Y, _ = np.linalg.qr(rng.normal(size=(N, D + 1, D)))
+    W = rng.normal(size=Y.shape)
+    W = W - Y @ (0.5 * (np.swapaxes(Y, -1, -2) @ W
+                        + np.swapaxes(W, -1, -2) @ Y))
+    tp, jp = rs._lifted_problem(N, D), jrs._lifted_problem(N, D)
+    g = tp.rgrad(torch.from_numpy(Y), tdata)
+    hv = tp.hvp(torch.from_numpy(Y), torch.from_numpy(W), tdata)
+    jg = jp.rgrad(jnp.asarray(Y), data)
+    jhv = jp.hvp(jnp.asarray(Y), jnp.asarray(W), data)
+    np.testing.assert_allclose(g.numpy(), np.asarray(jg), rtol=1e-12,
+                               atol=1e-11)
+    np.testing.assert_allclose(hv.numpy(), np.asarray(jhv), rtol=1e-12,
+                               atol=1e-11)
 
 
 def test_spectral_init_matches_up_to_gauge(inst):

@@ -128,12 +128,14 @@ non-zero exit and no result line:
    ms an apply against the probe's floor, peak memory, gated within 1e-5
    of an f64 apply and of each other and on a repeat of each apply bit for
    bit the first; then the segment-sum kernel (``csrc/segment_sum.cu``, the
-   graph models' edge->vertex sums) against its plain version at the
-   models' shapes at config6's size (``SEGMENT_CASES``, f32 and f64) and
-   at that apply: bit for bit the plain version on the CPU, within
-   ``SEGMENT_TOL`` of the card's, a repeat bit for bit; timed at that
-   apply beside its plain version, ``index_add_`` and its bound; its
-   launches are counted over phases 17-21;
+   graph models' edge->vertex sums and the pullback of every gather by a
+   graph index) against its plain version at the models' shapes at
+   config6's size (``SEGMENT_CASES``, f32 and f64, each width's instance,
+   the generic one and a hub; int32 plans and the same plans widened to
+   int64) and at that apply: bit for bit the plain version on the CPU,
+   within ``SEGMENT_TOL`` of the card's, a repeat bit for bit; timed at
+   that apply beside its plain version, ``index_add_`` and its bound; its
+   launches are counted over phases 17-21 and, apart, phase 22;
 17. rotation sync at config6's rotation graph (n = 10,000, odometry chain
    + 20,000 random closures, noise 0.01), f32, made on the card: spectral
    init three times, TNT through ``make_problem()``,
@@ -186,7 +188,8 @@ non-zero exit and no result line:
    tests' contracts: the ranges tighten the translations by more than
    1.5x, bearings unit within 1e-5, t[0] == 0 exactly, and (b)'s f,
    rotation and translation errors under the f32 floors of
-   ``RANGE_FLOORS``;
+   ``RANGE_FLOORS``, and on ``segment_sum`` launched in the phase (its
+   objective's gradient and hvp pull every gather back through it);
 23. the ``parallel`` package on one card: an NCCL group of one rank
    (``initialize_distributed`` over tcp://127.0.0.1), ``pdot`` / ``pnorm``
    / ``pmean_tree`` at n = 2^24 equal to the local reductions and bitwise
@@ -2762,30 +2765,47 @@ def graph_probe_phase(torch, dev, label, ceiling):
 
 # the segment sum's shapes on the graph models' paths: (n, E, trailing,
 # parts, hub) at config6's size (the degree, the inner Laplacian's k = 3,
-# the TNT hvp's 3 x 3, LOBPCG's blocks of 8 and 24 columns, Bt's one part)
-# and a hub; the timed shape is phase 16's connection-Laplacian apply
+# the TNT hvp's 3 x 3, LOBPCG's blocks of 8 and 24 columns, Bt's and a
+# gather pullback's one part), a width of the kernel's generic instance
+# (10 words) and a hub; the timed shape is phase 16's connection-Laplacian
+# apply
 SEGMENT_CASES = ((10_000, 30_000, (), 2, False),
                  (10_000, 30_000, (3,), 2, False),
                  (10_000, 30_000, (3, 3), 2, False),
                  (10_000, 30_000, (3, 8), 2, False),
                  (10_000, 30_000, (3, 24), 2, False),
                  (10_000, 30_000, (3, 3), 1, False),
+                 (10_000, 30_000, (2, 5), 1, False),
                  (2_000, 20_000, (3, 3), 2, True))
 SEGMENT_TOL = {"f32": 1e-5, "f64": 1e-12}
+
+
+def segment_bytes(plan, width, itemsize, ids=None):
+    """The bytes a segment sum over ``plan`` must move: each slot's row of
+    ``width`` words of ``itemsize`` bytes once, the plan's order and run
+    bounds (at their own width, or ``ids`` bytes an entry), the output
+    once."""
+    S = plan.order.numel()
+    order_b = ids or plan.order.element_size()
+    starts_b = ids or plan.starts.element_size()
+    return (S * width * itemsize + S * order_b + (plan.n + 1) * starts_b
+            + plan.n * width * itemsize)
 
 
 def segment_sum_check(torch, dev, label):
     """The segment-sum kernel (``csrc/segment_sum.cu``) against its plain
     version on the same inputs: at every ``SEGMENT_CASES`` shape in f32 and
-    f64 and at phase 16's apply (2^21 rotations, 3 x 3 words a row), bit
-    for bit the plain version on the CPU (both add each vertex's run in the
-    plan's order from zero) and within ``SEGMENT_TOL`` (relative to the
-    largest |word|) of the card's plain version (``index_add``: another
-    order), a repeat bit for bit the first; then the timed shape beside the
-    plain version, one ``index_add_`` of both parts concatenated (the
-    library call) and the bound (bytes: the rows once, the plan's order and
-    run bounds, the output once).  Returns the kernels line's numbers but
-    the launches."""
+    f64 and at phase 16's apply (2^21 rotations, 3 x 3 words a row), each
+    on its int32 plan and on the same plan widened to int64, bit for bit
+    the plain version on the CPU (both add each vertex's run in the plan's
+    order from zero) and within ``SEGMENT_TOL`` (relative to the largest
+    |word|) of the card's plain version (``index_add``: another order), a
+    repeat bit for bit the first, and two parts' split sum (a pair gather's
+    pullback) bit for bit the CPU's; then the timed shape beside the plain
+    version, one ``index_add_`` of both parts concatenated (the library
+    call) and the bound (:func:`segment_bytes`: the rows once, the plan's
+    4-byte order and run bounds, the output once).  Returns the kernels
+    line's numbers but the launches."""
     import importlib
 
     SS = importlib.import_module("optimization_tpu_torch.kernels.segment_sum")
@@ -2794,19 +2814,36 @@ def segment_sum_check(torch, dev, label):
     def hold(tag, index, parts, n):
         nonlocal err
         plan = SS.segment_plan(index, n)
-        got = SS.segment_sum(plan, parts)
-        ref = SS.segment_sum_reference(plan, parts)
+        if plan.order.dtype != torch.int32:
+            raise AssertionError(f"segment_sum {tag}: a plan of "
+                                 f"{plan.order.dtype} ids below 2^31 slots")
+        wide = plan._replace(order=plan.order.long(),
+                             starts=plan.starts.long())
         cpu = SS.segment_sum(SS.segment_plan([i.cpu() for i in index], n),
                              [p.cpu() for p in parts])
+        ref = SS.segment_sum_reference(plan, parts)
         scale = max(float(ref.abs().max()), 1e-30)
-        e = float((got - ref).abs().max())
         tol = SEGMENT_TOL["f32" if ref.dtype == torch.float32 else "f64"]
-        if not (torch.equal(got, SS.segment_sum(plan, parts))
-                and torch.equal(got.cpu(), cpu) and e <= tol * scale):
-            raise AssertionError(f"segment_sum {tag}: |kernel - plain| {e:.3e}"
-                                 f" (scale {scale:.3e}), CPU bit for bit "
-                                 f"{torch.equal(got.cpu(), cpu)}")
-        err = max(err, e)
+        for ids, p in (("int32", plan), ("int64", wide)):
+            got = SS.segment_sum(p, parts)
+            e = float((got - ref).abs().max())
+            if not (torch.equal(got, SS.segment_sum(p, parts))
+                    and torch.equal(got.cpu(), cpu) and e <= tol * scale):
+                raise AssertionError(
+                    f"segment_sum {tag}, {ids} plan: |kernel - plain| "
+                    f"{e:.3e} (scale {scale:.3e}), CPU bit for bit "
+                    f"{torch.equal(got.cpu(), cpu)}")
+            err = max(err, e)
+        if len(parts) == 2:
+            # the split sum, a pair gather's pullback: bit for bit the CPU's
+            split = SS.segment_sum(plan, parts, split=True)
+            if not (torch.equal(split, SS.segment_sum(plan, parts,
+                                                      split=True))
+                    and torch.equal(split.cpu(), SS.segment_sum_reference(
+                        SS.segment_plan([i.cpu() for i in index], n),
+                        [q.cpu() for q in parts], split=True))):
+                raise AssertionError(f"segment_sum {tag}, split: not the "
+                                     f"CPU's bits, or no repeat")
         return plan
 
     gen = torch.Generator(device=dev).manual_seed(12)
@@ -2827,8 +2864,10 @@ def segment_sum_check(torch, dev, label):
     plan = hold("phase 16's apply", [data.src, data.dst], parts, n)
     print(f"  ok   segment_sum (csrc/segment_sum.cu) against its plain "
           f"version at {len(SEGMENT_CASES)} shapes in f32 and f64 and at "
-          f"phase 16's apply: bit for bit the CPU's, max |kernel - card "
-          f"plain| {err!r}, repeats bit for bit", flush=True)
+          f"phase 16's apply, int32 and int64 plans, split sums: bit for bit "
+          f"the CPU's, "
+          f"max |kernel - card plain| {err!r}, repeats bit for bit",
+          flush=True)
     ms = time_ms(torch, lambda: SS.segment_sum(plan, parts), 20)
     plain_ms = time_ms(torch, lambda: SS.segment_sum_reference(plan, parts),
                        5)
@@ -2837,12 +2876,14 @@ def segment_sum_check(torch, dev, label):
     library_ms = time_ms(torch, lambda: torch.zeros(
         (n, 3, 3), device=dev).index_add_(0, idx, flat), 5)
     S = 2 * E
-    bound_ms, bound_by = bound(S * 9 * 4 + S * 8 + (n + 1) * 8 + n * 9 * 4,
-                               S * 9)
+    bound_ms, bound_by = bound(segment_bytes(plan, 9, 4), S * 9)
+    wide_ms, _ = bound(segment_bytes(plan, 9, 4, ids=8), S * 9)
     print(f"  segment_sum at phase 16's apply ({S} slots of 9 f32 words onto "
           f"{n} vertices): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
           f"index_add_ {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-          f"({bound_by}; {bound_ms / ms:.3f} of it) [{label}]", flush=True)
+          f"({bound_by}, {plan.order.element_size()}-byte ids; "
+          f"{bound_ms / ms:.3f} of it; with 8-byte ids {wide_ms:.4f} ms, "
+          f"{wide_ms / ms:.3f}) [{label}]", flush=True)
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms}
@@ -4522,7 +4563,16 @@ def main():
     # ---- range sync's and the parallel package's gram_pair runs ----
     F.gram_pair.launches = 0
     with held_gram_pair(torch) as held:
+        # ---- range sync's segment sums: the count starts at 0 here ----
+        segment_sum.launches = 0
         range_sync_phase(torch, dev, label)
+        range_launches = segment_sum.launches
+        # ---- end of range sync's segment sums ----
+        print(f"  segment_sum launches in phase 22: {range_launches}",
+              flush=True)
+        if range_launches <= 0:
+            raise AssertionError("segment_sum was not launched on range "
+                                 "sync's path")
         parallel_phase(torch, dev, label)
     last_launches = F.gram_pair.launches
     # ---- end of phases 22-23's gram_pair runs ----
@@ -4556,7 +4606,7 @@ def main():
         "name": "segment_sum", "route": "cuda",
         "source": "optimization_tpu_torch/csrc/segment_sum.cu",
         "replaces": "optimization_tpu/models/graph.py:84",
-        "launches": segment_launches, **segment_numbers}
+        "launches": segment_launches + range_launches, **segment_numbers}
     print(json.dumps({"kernels": [kernel] + fused_kernels + new_kernels
                       + [prec_kernel] + probe_kernels + [chunk_kernel]
                       + rank_kernels + [segment_kernel]}))

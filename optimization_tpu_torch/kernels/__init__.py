@@ -25,7 +25,8 @@
   gather behind the graph operators' verdict).
 - :mod:`segment_sum` — ``segment_sum`` over a ``segment_plan``, CUDA C++
   in ``csrc/segment_sum.cu``: the edge->vertex sums of the graph models
-  (``models/graph.py``) in an order fixed by the indices.  It replaces no
+  (``models/graph.py``) in an order fixed by the indices, and the pullback
+  of ``planned_gather``, the models' gather by a graph index.  It replaces no
   Pallas kernel (the JAX package's ``.at[].add`` / ``segment_sum``, which
   XLA lowers).
 """
@@ -44,8 +45,8 @@ from .fused import (affine_stencil_matvec,
 from .probes import (chunk_offsets, chunk_reader, chunk_reader_reference,
                      pinned_stream, pinned_stream_reference, resident_body,
                      resident_body_reference)
-from .segment_sum import (SegmentPlan, segment_plan, segment_sum,
-                          segment_sum_reference)
+from .segment_sum import (SegmentPlan, planned_gather, segment_plan,
+                          segment_sum, segment_sum_reference)
 
 __all__ = ["AffineDiagonal", "ElementwiseFn", "JacobiPower", "PrecMap",
            "ScaledDiagonal", "ShiftedDiagonal", "prec_map", "stored_prec_map",
@@ -59,4 +60,5 @@ __all__ = ["AffineDiagonal", "ElementwiseFn", "JacobiPower", "PrecMap",
            "pinned_stream_reference", "resident_body",
            "resident_body_reference", "chunk_reader",
            "chunk_reader_reference", "chunk_offsets", "SegmentPlan",
-           "segment_plan", "segment_sum", "segment_sum_reference"]
+           "planned_gather", "segment_plan", "segment_sum",
+           "segment_sum_reference"]

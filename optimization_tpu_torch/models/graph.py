@@ -24,13 +24,16 @@ indices' device, and every apply adds each vertex's run in that order (on
 the card in the kernel ``csrc/segment_sum.cu``, where ``index_add`` would
 add with atomics in an order that varies from run to run; on the CPU by
 ``index_add``, one side after the other, the same order).  The degree of
-every model (:func:`vertex_degree`) is such a sum too.  Gradients and the
-jvp of a gradient (the TNT Hessian-vector product) pass through every
-method, and repeat on the card: the segment sum's pullback is a gather,
-its tangent the segment sum of the tangents, and the pullback of a gather
-``x[idx]`` is ``index_put(accumulate=True)``, which on the card sorts the
-indices and adds each run in a fixed order (``torch.segment_reduce`` has
-no forward-mode formula).
+every model (:func:`vertex_degree`) is such a sum too.  Every gather by a
+graph index (an edge's endpoints, a padded table's slots) is
+``kernels.segment_sum.planned_gather``: ``x[idx]`` whose pullback is the
+segment sum over the cached plan of ``idx``.  So gradients and the jvp of
+a gradient (the TNT Hessian-vector product) pass through every method,
+add in an order fixed by the indices, and repeat on the card and on the
+CPU with any number of threads: the pullback of a plain gather,
+``index_put(accumulate=True)``, sorts the indices again at every call on
+the card and adds with atomics across CPU threads (``torch.segment_reduce``
+has no forward-mode formula).
 
 Indices live on the device as int64: on ``src``'s device when it is a
 tensor, else on ``device`` (default: the card).
@@ -41,7 +44,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..kernels.segment_sum import segment_plan, segment_sum
+from ..kernels.segment_sum import planned_gather, segment_plan, segment_sum
 
 __all__ = ["adjacency_tables", "edge_accumulator", "laplacian_apply",
            "vertex_degree"]
@@ -78,7 +81,8 @@ def vertex_degree(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor,
 
 def _padded_table(entries_vert: np.ndarray, n: int, n_slots: int):
     """(n, deg_max) table of entry-slot ids per vertex, sentinel ``n_slots``
-    for padding (points at an appended zero row)."""
+    for padding (a padded ``planned_gather`` reads it as a row of
+    zeros)."""
     order = np.argsort(entries_vert, kind="stable")
     sorted_vert = entries_vert[order]
     counts = np.bincount(entries_vert, minlength=n)
@@ -146,9 +150,7 @@ def edge_accumulator(src, dst, n, *, method: str = "scatter",
 
         def acc_gather(a_src, a_dst):
             flat = torch.cat(sided(a_src, a_dst), 0)
-            flat = torch.cat([flat, flat.new_zeros((1,) + flat.shape[1:])],
-                             0)
-            return torch.sum(flat[table], dim=1)
+            return torch.sum(planned_gather(flat, table, padded=True), dim=1)
         return acc_gather
 
     plan = segment_plan([_index(i, dev) for i in index], n)
@@ -169,8 +171,8 @@ def adjacency_tables(src, dst, n, device=None):
     ``device`` (default: ``src``'s device, or the card for arrays):
 
     - ``nb``  (n, deg_max) int64 — neighbor vertex id per slot (padding
-      points at vertex ``n``: gather from a tensor extended by one zero
-      row);
+      points at vertex ``n``: ``planned_gather(z, nb, padded=True)`` reads
+      it as a row of zeros);
     - ``eid`` (n, deg_max) int64 — the originating edge id per slot
       (padding = E);
     - ``fwd`` (n, deg_max) bool — True where the slot is the edge's forward
@@ -224,17 +226,18 @@ def laplacian_apply(src, dst, tau, n, *, method: str = "scatter"):
 
     if method == "adjacency":
         nb, eid, _, _ = adjacency_tables(src, dst, n, device=dev)
-        w_slots = torch.cat([tau, tau.new_zeros((1,))])[eid]
+        w_slots = planned_gather(tau, eid, padded=True)
 
         def L_adj(z):
-            z_ext = torch.cat([z, z.new_zeros((1,) + tuple(z.shape[1:]))], 0)
-            return deg[:, None] * z - torch.sum(w_slots[:, :, None] * z_ext[nb],
-                                                dim=1)
+            return deg[:, None] * z - torch.sum(
+                w_slots[:, :, None] * planned_gather(z, nb, padded=True),
+                dim=1)
         return L_adj
 
     acc = edge_accumulator(src, dst, n, method=method, device=dev)
 
     def L(z):
-        dz = tau[:, None] * (z[dst_t] - z[src_t])
+        z_src, z_dst = planned_gather(z, (src_t, dst_t))
+        dz = tau[:, None] * (z_dst - z_src)
         return acc(-dz, dz)
     return L

@@ -49,6 +49,7 @@ import numpy as np
 import torch
 
 from ..core.problem import RiemannianProblem
+from ..kernels.segment_sum import planned_gather
 from ..linalg.lsqr import lsqr
 from ..solvers import tnt
 from . import rotation_sync as rs
@@ -139,10 +140,12 @@ def recover_translations(R, src, dst, tij, weights=None, *, anchor: int = 0,
          else torch.ones((src.shape[0], 1), dtype=dt, device=dev))
 
     # b_e = R_i t_e rotated into the world frame, weighted
-    b = w * torch.matmul(R[src], _tensor(tij, dt, dev)[:, :, None])[..., 0]
+    b = w * torch.matmul(planned_gather(R, src),
+                         _tensor(tij, dt, dev)[:, :, None])[..., 0]
 
     def A(t):
-        return w * (t[dst] - t[src])
+        t_src, t_dst = planned_gather(t, (src, dst))
+        return w * (t_dst - t_src)
 
     def At(r):
         rw = w * r
@@ -349,7 +352,7 @@ def marginalized_problem(src, dst, Mij, tij, kappa=None, tau=None,
         # (E, k): rows t_e' X_{src(e)}
         k = X.shape[-1]
         Xb = X.reshape(n, d, k)
-        return torch.matmul(tijd[:, None, :], Xb[src])[:, 0, :]
+        return torch.matmul(tijd[:, None, :], planned_gather(Xb, src))[:, 0, :]
 
     def Bt(Y):
         # adjoint: block i accumulates sum_{e: src=i} t_e (x) Y_e
@@ -358,7 +361,8 @@ def marginalized_problem(src, dst, Mij, tij, kappa=None, tau=None,
         return acc_src(contrib, None).reshape(n * d, k)
 
     def A_inc(z):
-        return z[dst] - z[src]
+        z_src, z_dst = planned_gather(z, (src, dst))
+        return z_dst - z_src
 
     def At_inc(y):
         return acc_inc(-y, y)
@@ -492,12 +496,14 @@ def solve_robust_se(src, dst, Mij, tij, n, *, kappa=None, tau=None,
     base_tau = ones if tau is None else _tensor(tau, dtype, dev)
 
     def rot_residuals(R):
-        diff = R[dst] - torch.matmul(R[src], Mij)
+        R_src, R_dst = planned_gather(R, (src, dst))
+        diff = R_dst - torch.matmul(R_src, Mij)
         return base_kappa * torch.sum(diff * diff, dim=(-1, -2))
 
     def tr_residuals(R, t):
-        pred = torch.matmul(R[src], tij[:, :, None])[..., 0]
-        diff = t[dst] - t[src] - pred
+        pred = torch.matmul(planned_gather(R, src), tij[:, :, None])[..., 0]
+        t_src, t_dst = planned_gather(t, (src, dst))
+        diff = t_dst - t_src - pred
         return base_tau * torch.sum(diff * diff, dim=-1)
 
     if params is None:

@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from ..core.problem import RiemannianProblem
+from ..kernels.segment_sum import planned_gather
 from ..manifolds import euclidean, product, rotations, sphere
 from ..solvers import tnt
 from . import pose_sync as ps
@@ -101,14 +102,17 @@ def make_problem(data: RangeSyncData) -> RiemannianProblem:
         kap, tau, rho = _weights(data, dt)
         Rij, tij, dists = data.Rij.to(dt), data.tij.to(dt), data.dists.to(dt)
 
-        Rs = R[src]
+        Rs, Rd = planned_gather(R, (src, dst))
         # R_i Rtilde_e and R_i ttilde_e, summed elementwise (no TF32)
         pred = torch.sum(Rs[:, :, :, None] * Rij[:, None, :, :], dim=2)
-        fr = torch.sum(kap * torch.sum((R[dst] - pred) ** 2, dim=(1, 2)))
+        fr = torch.sum(kap * torch.sum((Rd - pred) ** 2, dim=(1, 2)))
         tpred = torch.sum(Rs * tij[:, None, :], dim=2)
-        ft = torch.sum(tau * torch.sum((t[dst] - t[src] - tpred) ** 2,
+        # t in four single gathers: its gradient's four terms then add in
+        # the order of plain indexing's pullbacks
+        ft = torch.sum(tau * torch.sum((planned_gather(t, dst)
+                                        - planned_gather(t, src) - tpred) ** 2,
                                        dim=1))
-        dr_k = t[rdst] - t[rsrc]
+        dr_k = planned_gather(t, rdst) - planned_gather(t, rsrc)
         fu = torch.sum(rho * torch.sum((dr_k - dists[:, None] * u) ** 2,
                                        dim=1))
         return fr + ft + fu
@@ -135,7 +139,8 @@ def initial_guess(data: RangeSyncData, n: int, *,
     t0, _ = ps.recover_translations(R0, data.src, data.dst,
                                     data.tij.to(dtype), weights=data.tau)
     rsrc, rdst = _index(data.rsrc, dev), _index(data.rdst, dev)
-    diff = t0[rdst] - t0[rsrc]
+    t0_src, t0_dst = planned_gather(t0, (rsrc, rdst))
+    diff = t0_dst - t0_src
     nrm = torch.linalg.vector_norm(diff, dim=-1, keepdim=True)
     rnd = sphere().rand(gen, diff.shape[0], d, dtype=dtype, device=dev)
     u0 = torch.where(nrm > 1e-6, diff / torch.clamp(nrm, min=1e-30), rnd)

@@ -42,6 +42,7 @@ from typing import Any, NamedTuple, Optional
 import torch
 
 from ..core.problem import RiemannianProblem
+from ..kernels.segment_sum import planned_gather
 from ..manifolds.stiefel import ROTATIONS, STIEFEL, _flip_first_column
 from .graph import adjacency_tables, edge_accumulator, vertex_degree
 
@@ -71,7 +72,8 @@ def _degree(data: RotationSyncData, n: int, w: torch.Tensor) -> torch.Tensor:
 
 def chordal_cost(R: torch.Tensor, data: RotationSyncData) -> torch.Tensor:
     """f(R) = sum_e kappa_e |R_i - R~_e R_j|_F^2 (kappa = 1 when absent)."""
-    diff = R[data.src] - torch.matmul(data.Rij, R[data.dst])
+    R_src, R_dst = planned_gather(R, (data.src, data.dst))
+    diff = R_src - torch.matmul(data.Rij, R_dst)
     sq = torch.sum(diff * diff, dim=(-1, -2))
     if data.kappa is not None:
         sq = data.kappa * sq
@@ -214,17 +216,17 @@ def connection_laplacian_op(data: RotationSyncData, n: int, d: int,
 
     if scatter_method == "adjacency":
         nb, eid, fwd, slots = adjacency_tables(data.src, data.dst, n)
-        R_slots = torch.cat([data.Rij, data.Rij.new_zeros((1, d, d))])[eid]
+        R_slots = planned_gather(data.Rij, eid, padded=True)
         R_slots = torch.where(fwd[:, :, None, None], R_slots, R_slots.mT)
-        w_slots = torch.cat([w, w.new_zeros((1,))])[eid]
+        w_slots = planned_gather(w, eid, padded=True)
         blocks = (w_slots[:, :, None, None] * R_slots)      # (n, s, d, d)
         blocks = blocks.permute(0, 2, 1, 3).reshape(n, d, slots * d)
 
         def L_adj(S):
             k = S.shape[-1]
             X = S.reshape(n, d, k)
-            X_ext = torch.cat([X, X.new_zeros((1, d, k))], 0)
-            nbr = torch.bmm(blocks, X_ext[nb].reshape(n, slots * d, k))
+            nbr = torch.bmm(blocks, planned_gather(X, nb, padded=True)
+                            .reshape(n, slots * d, k))
             return (deg[:, None, None] * X - nbr).reshape(n * d, k)
 
         return L_adj
@@ -234,8 +236,11 @@ def connection_laplacian_op(data: RotationSyncData, n: int, d: int,
     def L(S):
         k = S.shape[-1]
         X = S.reshape(n, d, k)
-        RX_j = w[:, None, None] * (data.Rij @ X[data.dst])
-        RtX_i = w[:, None, None] * (data.Rij.mT @ X[data.src])
+        # two gathers (X's gradient also takes deg * X, and its terms add
+        # in the order of the JAX-matching single gathers)
+        RX_j = w[:, None, None] * (data.Rij @ planned_gather(X, data.dst))
+        RtX_i = w[:, None, None] * (data.Rij.mT
+                                    @ planned_gather(X, data.src))
         out = deg[:, None, None] * X + acc(-RX_j, -RtX_i)
         return out.reshape(n * d, k)
 
@@ -347,7 +352,8 @@ def solve_robust(data: RotationSyncData, n: int, d: int = 3, *,
             preconditioned_gradient_tolerance=0.0)
 
     def residuals(R):
-        diff = R[data.src] - torch.matmul(data.Rij, R[data.dst])
+        R_src, R_dst = planned_gather(R, (data.src, data.dst))
+        diff = R_src - torch.matmul(data.Rij, R_dst)
         return torch.sum(diff * diff, dim=(-1, -2))
 
     base_kappa = _weights(data, dtype)

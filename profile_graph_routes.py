@@ -1,37 +1,49 @@
 #!/usr/bin/env python3
 """The port's graph models on one NVIDIA GPU: does each path repeat bit for
 bit, what adds in a varying order, and what each edge->vertex route costs;
-this checkout alone or against another one in turns.
+this checkout alone or against other trees in turns.
 
 Run from the repository root:
 
     python3 profile_graph_routes.py                    # this checkout
-    python3 profile_graph_routes.py PARENT [--json FILE]   # in turns
+    python3 profile_graph_routes.py PARENT [OTHER ...] [--json FILE]
 
 Each turn is a child process that imports ``optimization_tpu_torch`` from
-its tree (PARENT, or this checkout); the measuring code is this
+its tree (a tree given, or this checkout); the measuring code is this
 checkout's (``chip_smoke.py``'s phase-16, 17 and 20 instances).  A turn
 prints:
 
 1. the connection Laplacian (``rotation_sync.connection_laplacian_op``) on
    phase 16's graph (``chip_smoke.laplacian_graph``: 2^21 rotations, f32)
    for each ``scatter_method``: ms an apply (``chip_smoke.time_ms``) and
-   whether two more applies equal the first bit for bit;
+   whether two more applies equal the first bit for bit; then the
+   segment-sum kernel alone (``kernels.segment_sum``, each tree's own
+   plan) at that apply's sum (2 x E slots of 3 x 3 f32 words) beside
+   ``chip_smoke.segment_sum_check``'s bound, and at every
+   ``chip_smoke.SEGMENT_CASES`` shape in f32 and f64: ms a call and a
+   digest of the result (both trees add each run in the plan's order, so
+   the digests must agree);
 2. phase 17's rotation sync (``chip_smoke.rotation_graph``: config6's
    rotations): ``spectral_init`` three times (LOBPCG iterations, wall, a
    digest of R0), then each TNT route twice from the first R0 (status,
    outer / CG, wall, a digest of the solution);
 3. phase 20's solve (config6's 10^4 poses written by ``save_g2o``) through
    ``cli.main([... "--marginalized", "--certify", "--json", "--out",
-   npz])`` three times: the wall, the summary's ``solve_s``, a digest of
+   npz])`` three times: the wall, the summary's ``solve_s``, the TNT
+   stage's wall and outer / CG (``chip_smoke.pose_stages``), a digest of
    the solution file's R and t;
-4. the finder: every path of :func:`model_paths` once under
+4. phase 22's range sync (``chip_smoke.RANGE_A``, with ranges) once: the
+   wall, the TNT stage's wall, outer / CG and ms a CG iteration, a digest
+   of R, t and u;
+5. the finder: every path of :func:`model_paths` once under
    ``torch.use_deterministic_algorithms(True, warn_only=True)`` (the mode
    is global to the process, so this is the turn's last step), with each
    warning it raises, and under :func:`census`, the operations it
    dispatched that add on the card in a varying order.
 
-With PARENT the turns are PARENT, this, this, PARENT.  With ``--json
+With PARENT the turns are PARENT, this, this, PARENT; with more trees,
+each in turn before this checkout's two and again after, in reverse
+(PARENT, OTHER, this, this, OTHER, PARENT).  With ``--json
 FILE`` every number goes to FILE.  Every line is labelled with the card's
 name and power limit.  Exits non-zero without a CUDA device.
 """
@@ -79,9 +91,11 @@ PATH_NAMES = (
 def census(torch):
     """Record, in the returned set, each dispatched operation of
     :data:`VARYING` (cumsum in floating point only) and each
-    ``index_put`` without ``accumulate`` whose integer indices repeat, as
-    ``"op dtype"``.  Sees what ``torch.func``'s gradients and jvps run
-    too."""
+    ``index_put`` whose integer indices repeat, as ``"op dtype"``: without
+    ``accumulate`` it writes in a varying order on the card, and with it
+    (the pullback of a gather ``x[idx]``) it adds with atomics on the CPU
+    in f32 across threads and sorts the indices again at every call on the
+    card.  Sees what ``torch.func``'s gradients and jvps run too."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
     found = set()
@@ -107,9 +121,9 @@ def census(torch):
                     and i.dtype != torch.bool
                     and torch.unique(i).numel() < i.numel()
                     for i in args[1])
-                if not acc and repeats:
-                    found.add(f"{name} without accumulate, repeated "
-                              f"indices {dtype}")
+                if repeats:
+                    found.add(f"{name} {'with' if acc else 'without'} "
+                              f"accumulate, repeated indices {dtype}")
             return func(*args, **kwargs)
 
     with Census():
@@ -300,8 +314,88 @@ def chip_smoke_module():
     return module
 
 
+def segment_times(torch, dev, cs, data, label):
+    """Step 1's segment-sum times: {shape: {"ms", "digest"}} at phase 16's
+    apply (with "bound_ms", ``chip_smoke.segment_bytes`` of the tree's own
+    plan, and "bound_wide_ms", of 8-byte ids) and at every
+    ``SEGMENT_CASES`` shape in f32 and f64, each on the tree's own plan."""
+    import importlib
+
+    SS = importlib.import_module("optimization_tpu_torch.kernels.segment_sum")
+    gen = torch.Generator(device=dev).manual_seed(12)
+    times = {}
+
+    def timed(tag, index, parts, n):
+        plan = SS.segment_plan(index, n)
+        ms = cs.time_ms(torch, lambda: SS.segment_sum(plan, parts), 20)
+        times[tag] = {"ms": ms, "digest": cs.tensor_digest(
+            SS.segment_sum(plan, parts))}
+        return times[tag]
+
+    n, E = cs.GRAPH_N_ROT, int(data.src.numel())
+    parts = [torch.randn((E, 3, 3), generator=gen, device=dev)
+             for _ in range(2)]
+    entry = timed("phase 16's apply", [data.src, data.dst], parts, n)
+    S, plan = 2 * E, SS.segment_plan([data.src, data.dst], n)
+    entry["bound_ms"], _ = cs.bound(cs.segment_bytes(plan, 9, 4), S * 9)
+    entry["bound_wide_ms"], _ = cs.bound(cs.segment_bytes(plan, 9, 4, ids=8),
+                                         S * 9)
+    print(f"  segment_sum at phase 16's apply: {entry['ms']:.4f} ms, "
+          f"{entry['bound_ms'] / entry['ms']:.3f} of its bound "
+          f"{entry['bound_ms']:.4f} ms ({plan.order.element_size()}-byte "
+          f"ids; {entry['bound_wide_ms'] / entry['ms']:.3f} of the 8-byte "
+          f"ids' {entry['bound_wide_ms']:.4f}) [{label}]", flush=True)
+    del parts
+    for dtype in (torch.float32, torch.float64):
+        for n, E, trailing, n_parts, hub in cs.SEGMENT_CASES:
+            index = [torch.randint(0, n, (E,), generator=gen, device=dev)
+                     for _ in range(n_parts)]
+            if hub:
+                index[-1][: E // 2] = 0
+            parts = [torch.randn((E,) + trailing, generator=gen,
+                                 dtype=dtype, device=dev)
+                     for _ in range(n_parts)]
+            tag = (f"n {n} E {E} {trailing} {n_parts} parts"
+                   f"{' hub' if hub else ''} {str(dtype)[6:]}")
+            ms = timed(tag, index, parts, n)["ms"]
+            print(f"  segment_sum {tag}: {ms:.4f} ms [{label}]", flush=True)
+    return times
+
+
+def tnt_stage(cs, log):
+    """The TNT stages of a ``chip_smoke.pose_stages`` log: their wall and
+    their outer / CG counts."""
+    runs = [(secs, cs.counts(res)) for stage, secs, res in log["stages"]
+            if stage == "TNT"]
+    return {"tnt_s": sum(s for s, _ in runs),
+            "outer": sum(o for _, (o, _) in runs),
+            "cg": sum(c for _, (_, c) in runs)}
+
+
+def range_turn(torch, dev, cs):
+    """Step 4: one ``solve_range_aided`` of phase 22's instance (a), after
+    a one-iteration warm-up."""
+    import dataclasses
+
+    from optimization_tpu_torch.models import range_sync as rg
+
+    gen = torch.Generator(device=dev).manual_seed(22)
+    _, _, data = rg.random_instance(gen, cs.RANGE_N, 3, **cs.RANGE_A)
+    rg.solve_range_aided(data, cs.RANGE_N, params=dataclasses.replace(
+        rg.tnt.TNTParams(), max_iterations=1),
+        generator=torch.Generator(device=dev))
+    with cs.pose_stages(torch) as log:
+        res, secs = cs.timed_solve(torch, dev, lambda: rg.solve_range_aided(
+            data, cs.RANGE_N,
+            generator=torch.Generator(device=dev).manual_seed(1)))
+    stage = tnt_stage(cs, log)
+    return {"s": secs, **stage,
+            "ms_per_cg": 1e3 * stage["tnt_s"] / max(stage["cg"], 1),
+            "digest": cs.tensor_digest(res.R, res.t, res.u)}
+
+
 def turn(tree):
-    """One turn on ``tree``'s package: steps 1-4 of the module docstring;
+    """One turn on ``tree``'s package: steps 1-5 of the module docstring;
     returns every number."""
     sys.path.insert(0, tree)
     cs = chip_smoke_module()
@@ -335,6 +429,7 @@ def turn(tree):
               f"apply; two more applies bit for bit the first: {same} "
               f"[{label}]", flush=True)
         del L, first
+    out["segment_sum"] = segment_times(torch, dev, cs, data, label)
     del data, V
 
     R_true, data = cs.rotation_graph(torch, dev)
@@ -379,7 +474,8 @@ def turn(tree):
         for _ in range(3):
             buf = io.StringIO()
             t0 = time.perf_counter()
-            with contextlib.redirect_stdout(buf):
+            with contextlib.redirect_stdout(buf), \
+                    cs.pose_stages(torch) as log:
                 rc = cli.main(["solve", path, "--marginalized", "--certify",
                                "--json", "--out", npz])
             secs = time.perf_counter() - t0
@@ -390,9 +486,13 @@ def turn(tree):
             out["cli"].append({"rc": rc, "s": secs,
                                "solve_s": summary["solve_s"],
                                "certified": summary["certified"],
-                               "digest": dig})
+                               **tnt_stage(cs, log), "digest": dig})
     print(f"  CLI solve --marginalized --certify, three runs: {out['cli']} "
           f"[{label}]", flush=True)
+
+    out["range_sync"] = range_turn(torch, dev, cs)
+    print(f"  range sync {cs.RANGE_A}, n = {cs.RANGE_N}: "
+          f"{out['range_sync']} [{label}]", flush=True)
 
     out["finder"] = finder(torch, dev, torch.float32)
     for name, said in out["finder"].items():
@@ -412,8 +512,8 @@ def main():
         i = args.index("--json")
         json_path = args[i + 1]
         del args[i:i + 2]
-    trees = ([os.path.abspath(args[0]), ROOT, ROOT, os.path.abspath(args[0])]
-             if args else [ROOT])
+    others = [os.path.abspath(a) for a in args]
+    trees = others + [ROOT, ROOT] + others[::-1] if others else [ROOT]
     turns = []
     with tempfile.TemporaryDirectory(prefix="graph_routes_") as tmp:
         for k, tree in enumerate(trees):
@@ -429,10 +529,28 @@ def main():
             for m, v in t["arms"].items())
         inits = sorted({(i["iterations"], i["digest"])
                         for i in t["spectral_init"]})
-        print(f"{t['tree']}: {arms}; spectral_init (iterations, digest) "
-              f"{inits}; CLI walls "
-              f"{[round(c['s'], 3) for c in t['cli']]} s [{t['label']}]",
-              flush=True)
+        apply = t["segment_sum"]["phase 16's apply"]
+        tnt = ", ".join(
+            f"{name} {[(r['outer'], r['cg'], round(r['s'], 3)) for r in rs]}"
+            for name, rs in t["tnt"].items())
+        rng = t["range_sync"]
+        print(f"{t['tree']}: {arms}; segment_sum at the apply "
+              f"{apply['ms']:.4f} ms ({apply['bound_ms'] / apply['ms']:.3f} "
+              f"of its bound, {apply['bound_wide_ms'] / apply['ms']:.3f} of "
+              f"8-byte ids'); spectral_init (iterations, digest) {inits}; "
+              f"TNT (outer, CG, s) {tnt}; CLI walls "
+              f"{[round(c['s'], 3) for c in t['cli']]} s, TNT "
+              f"{[round(c['tnt_s'], 3) for c in t['cli']]} s; range sync "
+              f"{rng['s']:.3f} s, TNT {rng['tnt_s']:.3f} s, {rng['outer']} "
+              f"outer / {rng['cg']} CG, {rng['ms_per_cg']:.2f} ms a CG "
+              f"[{t['label']}]", flush=True)
+    if len(turns) > 1:
+        for tag in turns[0]["segment_sum"]:
+            ms = [t["segment_sum"][tag]["ms"] for t in turns]
+            same = len({t["segment_sum"][tag]["digest"] for t in turns}) == 1
+            print(f"segment_sum {tag}: ms by turn "
+                  f"{[round(m, 4) for m in ms]}; digests "
+                  f"{'agree' if same else 'DIFFER'}", flush=True)
     if json_path:
         with open(json_path, "w") as f:
             json.dump(turns, f, indent=1)

@@ -1419,14 +1419,17 @@ def _segment_cases():
     return chip_smoke.SEGMENT_CASES
 
 
+@pytest.mark.parametrize("ids", ["int32", "int64"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
                          ids=["f32", "f64"])
 @pytest.mark.parametrize("case", _segment_cases(),
                          ids=lambda c: f"n{c[0]}-w{c[2]}-p{c[3]}"
                          + ("-hub" if c[4] else ""))
-def test_segment_sum_matches_plain_version(dev, dtype, case):
+def test_segment_sum_matches_plain_version(dev, dtype, case, ids):
     """The kernel against its plain version on the same inputs, at
-    ``chip_smoke.SEGMENT_CASES`` (the graph models' shapes): bit for
+    ``chip_smoke.SEGMENT_CASES`` (the graph models' shapes: each width's
+    instance, the generic one, a hub), on the int32 plan that
+    ``segment_plan`` builds and on the same plan widened to int64: bit for
     bit the plain version on the CPU (both add each vertex's run in the
     plan's order from zero), within 1e-5 (f32) of the card's plain version
     (``index_add``, another order); one launch a call, a repeat bit for bit
@@ -1443,6 +1446,10 @@ def test_segment_sum_matches_plain_version(dev, dtype, case):
     parts = [torch.randn((E,) + trailing, generator=gen, dtype=dtype,
                          device=dev) for _ in range(n_parts)]
     plan = SS.segment_plan(index, n)
+    assert plan.order.dtype == plan.starts.dtype == torch.int32
+    if ids == "int64":
+        plan = plan._replace(order=plan.order.long(),
+                             starts=plan.starts.long())
     before = SS.segment_sum.launches
     got = SS.segment_sum(plan, parts)
     again = SS.segment_sum(plan, parts)
@@ -1458,6 +1465,39 @@ def test_segment_sum_matches_plain_version(dev, dtype, case):
                                rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("case", [c for c in _segment_cases() if c[3] == 2],
+                         ids=lambda c: f"n{c[0]}-w{c[2]}"
+                         + ("-hub" if c[4] else ""))
+def test_split_segment_sum_matches_plain_version(dev, dtype, case):
+    """``segment_sum(split=True)`` (the pullback of a gather by an edge's
+    two endpoints) on the card at the two-part ``SEGMENT_CASES``: bit for
+    bit its plain version on the CPU (two ``index_add``s added), a repeat
+    bit for bit, one launch a call."""
+    import importlib
+
+    SS = importlib.import_module("optimization_tpu_torch.kernels.segment_sum")
+    n, E, trailing, _, hub = case
+    gen = torch.Generator(device=dev).manual_seed(13)
+    index = [torch.randint(0, n, (E,), generator=gen, device=dev)
+             for _ in range(2)]
+    if hub:
+        index[-1][: E // 2] = 0
+    parts = [torch.randn((E,) + trailing, generator=gen, dtype=dtype,
+                         device=dev) for _ in range(2)]
+    plan = SS.segment_plan(index, n)
+    before = SS.segment_sum.launches
+    got = SS.segment_sum(plan, parts, split=True)
+    again = SS.segment_sum(plan, parts, split=True)
+    torch.cuda.synchronize()
+    assert SS.segment_sum.launches == before + 2 and torch.equal(got, again)
+    cpu = SS.segment_sum_reference(
+        SS.segment_plan([i.cpu() for i in index], n),
+        [p.cpu() for p in parts], split=True)
+    assert torch.equal(got.cpu(), cpu)
+
+
 def test_segment_sum_rejects_on_the_card(dev):
     import importlib
 
@@ -1471,6 +1511,114 @@ def test_segment_sum_rejects_on_the_card(dev):
     with pytest.raises(ValueError, match="one device"):
         SS.segment_sum(plan, (torch.ones(10),))
     assert SS.segment_sum.launches == before
+
+
+@pytest.mark.parametrize("trailing", [(), (3, 3), (3, 8), (2, 5)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_planned_gather_pullback_is_the_cpu_routes(dev, dtype, trailing):
+    """Gathers by graph indices (1-D, a pair of them, and a padded table,
+    whose padding lies past the plan's runs) and elementwise products on the
+    card: the forward equals the CPU route's bit for bit, and so does the
+    pullback (one ``segment_sum`` launch a gather, the pair's split; each
+    vertex's run added in the plan's order on both routes); two pullbacks
+    repeat bit for bit."""
+    import importlib
+
+    SS = importlib.import_module("optimization_tpu_torch.kernels.segment_sum")
+    n = 5000
+    gen = torch.Generator().manual_seed(17)
+    idx = torch.randint(0, n, (15_000,), generator=gen)
+    other = torch.randint(0, n, (15_000,), generator=gen)
+    table = torch.randint(0, n + 1, (n, 7), generator=gen)
+    table[:, 4:] = n
+    x = torch.randn((n + 1,) + trailing, generator=gen, dtype=dtype)
+    w = [torch.randn(i.shape + trailing, generator=gen, dtype=dtype)
+         for i in (idx, table, idx, other)]
+    cot = [torch.randn(i.shape + trailing, generator=gen, dtype=dtype)
+           for i in (idx, table, idx, other)]
+    outs = []
+    for device in ("cpu", dev):
+        xd, idd, od, tbd = (t.to(device) for t in (x, idx, other, table))
+        wd = [t.to(device) for t in w]
+        cd = tuple(t.to(device) for t in cot)
+
+        def f(y):
+            p, q = SS.planned_gather(y, (idd, od))
+            return (SS.planned_gather(y, idd) * wd[0],
+                    SS.planned_gather(y[:n], tbd, padded=True) * wd[1],
+                    p * wd[2], q * wd[3])
+
+        before = SS.segment_sum.launches
+        fwd, pull = torch.func.vjp(f, xd)
+        grads = [pull(cd)[0] for _ in range(2)]
+        launched = SS.segment_sum.launches - before
+        outs.append((fwd, grads, launched))
+    (fc, gc, lc), (fd, gd, ld) = outs
+    assert lc == 0 and ld == 6
+    assert all(torch.equal(a, b.cpu()) for a, b in zip(fc, fd))
+    assert torch.equal(gd[0], gd[1])
+    assert torch.equal(gc[0], gd[0].cpu())
+
+
+@pytest.mark.parametrize("kind", ["grad", "jvp of grad", "vmap of jvp",
+                                  "jacfwd"])
+def test_calls_that_skip_the_functions_equal_the_function_path_on_the_card(
+        dev, kind, monkeypatch):
+    """On the card's torch: the host fast path of ``kernels.segment_sum``
+    (``_plainly``, which reads private transform state) against the
+    Function path alone, bit for bit, on gathers (plain, padded) and a
+    segment sum in f32 under ``grad``, the jvp of a gradient, ``vmap`` of
+    a jvp and ``jacfwd``; the kernel launched on both paths."""
+    import importlib
+
+    from test_torch_segment_sum import _graph, _transformed
+
+    SS = importlib.import_module("optimization_tpu_torch.kernels.segment_sum")
+    n = 40
+    gen = torch.Generator().manual_seed(22)
+    src, dst = (i.to(dev) for i in _graph(23, n, 150, True))
+    table = torch.randint(0, n + 1, (n, 6), generator=gen).to(dev)
+    plan = SS.segment_plan((src, dst), n)
+    x, u = (torch.randn((n, 3), generator=gen).to(dev) for _ in range(2))
+    xs = torch.randn((3, n, 3), generator=gen).to(dev)
+
+    def f(y):
+        a = SS.planned_gather(y, src) * SS.planned_gather(y, dst)
+        b = SS.planned_gather(y, table, padded=True)
+        s = SS.segment_sum(plan, (a, torch.sin(a)))
+        return torch.sum(s ** 2 * y) + torch.sum(b ** 3)
+
+    outs = []
+    for skip in (True, False):
+        monkeypatch.setattr(SS, "_SKIP_FUNCTIONS", skip)
+        before = SS.segment_sum.launches
+        outs.append(_tensors(_transformed(kind, f, x, u, xs)))
+        torch.cuda.synchronize()
+        assert SS.segment_sum.launches > before
+    assert len(outs[0]) == len(outs[1]) > 0
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+
+
+@pytest.mark.parametrize("path", ["chordal gradient, hvp, precon",
+                                  "TNT plain",
+                                  "marginalized gradient, hvp cg",
+                                  "range sync gradient, hvp"])
+def test_model_gradients_launch_segment_sum(dev, card_paths, path):
+    """A gradient of each graph model on the card pulls its gathers back
+    through ``segment_sum`` (its launches counted) and dispatches no
+    ``index_put`` with repeated indices (``profile_graph_routes.census``)."""
+    import importlib
+
+    import profile_graph_routes
+
+    SS = importlib.import_module("optimization_tpu_torch.kernels.segment_sum")
+    before = SS.segment_sum.launches
+    with profile_graph_routes.census(torch) as found:
+        card_paths[path]()
+    torch.cuda.synchronize()
+    assert SS.segment_sum.launches > before
+    assert not any("index_put" in f for f in found), found
 
 
 def _tensors(out):

@@ -12,7 +12,10 @@ vertex's run of sorted slots added in order from zero), at the same
 tolerances.  Every path of the graph models, its derivatives included,
 adds only through the segment sum (``profile_graph_routes.census``, the
 segment sum hidden as its kernel launch is on the card): no other
-operation that adds in a varying order on the card.
+operation that adds in a varying order on the card, and no ``index_put``
+with repeated indices.  In f32 with four threads the models' gradients
+and hvps repeat bit for bit (a plain gather's pullback added with
+atomics across threads), and a TNT solve builds each plan once.
 """
 
 import importlib
@@ -250,9 +253,9 @@ def test_model_path_adds_in_a_fixed_order(model_paths, monkeypatch, path):
     one launch of its kernel)."""
     plain = SS.segment_sum_reference
 
-    def launch(plan, parts):
+    def launch(plan, parts, **split):
         with _disable_current_modes():
-            return plain(plan, parts)
+            return plain(plan, parts, **split)
 
     monkeypatch.setattr(SS, "segment_sum_reference", launch)
     with profile_graph_routes.census(torch) as found:
@@ -274,3 +277,108 @@ def test_scatter_with_one_side_none_matches_jax(side):
         *(None if x is None else jnp.asarray(x) for x in args))
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-12,
                                atol=1e-12)
+
+
+def _twice_on_four_threads(fn):
+    """fn() twice with four CPU threads (the thread count restored after)."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(4)
+    try:
+        return fn(), fn()
+    finally:
+        torch.set_num_threads(saved)
+
+
+def _fault_chordal():
+    from optimization_tpu_torch.models import rotation_sync as rs
+
+    gen = torch.Generator().manual_seed(31)
+    _, data = rs.random_instance(gen, 2000, 3, extra_edges=4000, noise=0.1,
+                                 dtype=torch.float32, device=CPU)
+    R = rs.ROTATIONS.rand(gen, 2000, 3, 3, dtype=torch.float32)
+    V = torch.randn(R.shape, generator=gen, dtype=torch.float32)
+    grad = torch.func.grad(lambda x: rs.chordal_cost(x, data))
+    return lambda: torch.func.jvp(grad, (R,), (V,))
+
+
+def _fault_marginalized():
+    import chip_smoke
+    from optimization_tpu_torch.models import pose_sync as ps
+    from optimization_tpu_torch.models import rotation_sync as rs
+
+    graph, _, _ = chip_smoke.pose_graph(torch, 2000, 4000, 0.01, 5.0, seed=32)
+    f32 = torch.float32
+    prob, _, _ = ps.marginalized_problem(
+        torch.as_tensor(graph.src), torch.as_tensor(graph.dst),
+        torch.as_tensor(graph.Rij, dtype=f32),
+        torch.as_tensor(graph.tij, dtype=f32), n=2000, cg_iterations=50)
+    gen = torch.Generator().manual_seed(33)
+    Q = rs.ROTATIONS.rand(gen, 2000, 3, 3, dtype=f32)
+    V = rs.ROTATIONS.proj(Q, torch.randn(Q.shape, generator=gen, dtype=f32))
+
+    def run():
+        g, hvp = prob.qm(Q, None)
+        return g, hvp(V)
+    return run
+
+
+def _fault_range():
+    from optimization_tpu_torch.manifolds import sphere
+    from optimization_tpu_torch.models import range_sync as rg
+    from optimization_tpu_torch.models import rotation_sync as rs
+
+    gen = torch.Generator().manual_seed(34)
+    _, _, data = rg.random_instance(gen, 2000, extra_edges=4000,
+                                    n_ranges=2000, noise=0.01,
+                                    dtype=torch.float32, device=CPU)
+    x = (rs.ROTATIONS.rand(gen, 2000, 3, 3, dtype=torch.float32),
+         torch.randn((2000, 3), generator=gen),
+         sphere().rand(gen, data.rsrc.shape[0], 3, dtype=torch.float32,
+                       device=CPU))
+    problem = rg.make_problem(data)
+
+    def run():
+        g, hvp = problem.qm(x)
+        return g, hvp(g)
+    return run
+
+
+@pytest.mark.parametrize("model", ["chordal", "marginalized", "range"])
+def test_f32_derivatives_repeat_on_four_threads(model):
+    """ROADMAP Queue 3's CPU fault: in f32 with several threads the pullback
+    of a plain gather (``index_put(accumulate=True)``) adds with atomics,
+    so gradients differed from run to run.  Through the planned gather
+    (``kernels.segment_sum.planned_gather``: the segment sum of a plan
+    built once) the gradient and the hvp of rotation sync's chordal cost,
+    the marginalized pose problem and range sync's objective, at n = 2,000,
+    repeat bit for bit."""
+    run = {"chordal": _fault_chordal, "marginalized": _fault_marginalized,
+           "range": _fault_range}[model]()
+    first, second = _twice_on_four_threads(run)
+    flat = lambda o: [o] if isinstance(o, torch.Tensor) else [  # noqa: E731
+        t for x in o for t in flat(x)]
+    a, b = flat(first), flat(second)
+    assert len(a) == len(b) > 0
+    assert all(x.dtype == torch.float32 and torch.equal(x, y)
+               for x, y in zip(a, b))
+
+
+def test_tnt_solve_builds_each_plan_once():
+    """A preconditioned rotation-sync TNT builds its plans (the gathers by
+    src and dst, the degree's) at its first gradient, and a second solve on
+    the same data builds none."""
+    from optimization_tpu_torch.models import rotation_sync as rs
+    from optimization_tpu_torch.solvers import tnt
+
+    gen = torch.Generator().manual_seed(35)
+    _, data = rs.random_instance(gen, 30, 3, extra_edges=60, noise=0.05,
+                                 dtype=torch.float64, device=CPU)
+    R0 = rs.ROTATIONS.rand(gen, 30, 3, 3, dtype=torch.float64)
+    problem = rs.make_problem(preconditioned=True)
+    params = tnt.TNTParams(max_iterations=5)
+    before = SS.segment_plan.builds
+    res = tnt.solve(problem, R0, params, data=data)
+    first = SS.segment_plan.builds - before
+    assert int(res.num_iterations) > 1 and 1 <= first <= 3
+    tnt.solve(problem, R0, params, data=data)
+    assert SS.segment_plan.builds - before == first

@@ -1,0 +1,76 @@
+"""The readings that the limits of ``correct`` are set from.
+
+    python3 portbench/control.py --workload <cell> --seeds 11 12 13 ...
+
+For each seed, the start point of the window's first solve goes through the
+program (as the window drives it) and through the control (the reference
+in bfloat16 storage, put in the program's place), and both answers are held
+against the float64 reference by the cell's own numbers.  Prints one JSON
+line a seed, then the largest program reading and the smallest control
+reading of each number.  Not part of a benchmark run.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+def readings(cell_name: str, seeds, device, engine=None, root=None):
+    """[(seed, program readings, control readings)]."""
+    import torch
+
+    from portbench import bench, traffic
+
+    root = root or bench.ROOT
+    spec = bench.load_spec(root)
+    cell, entry = bench.find_cell(spec, cell_name)
+    config = bench.load_config(entry, root)
+    mix = traffic.load(cell["traffic"], root)
+    sysmod = bench.system_module(config)
+    device = torch.device(device)
+    system = sysmod.System(config, mix, device, engine=engine)
+    system.solve(traffic.start_point(mix, 0, traffic.WARMUP, 0, device))
+    out = []
+    prm = sysmod.reference_params(config)
+    p64 = sysmod.reference_problem(config, mix["n"], device)
+    for seed in seeds:
+        x0 = traffic.start_point(mix, seed, traffic.WINDOW, 0, device)
+        trail = system.trail(system.solve_recorded(x0))
+        prog = sysmod.readings(trail, x0, p64, prm)
+        del trail
+        ctl = sysmod.readings(sysmod.control_solve(config, mix["n"], x0),
+                              x0, p64, prm)
+        out.append((seed, prog, ctl))
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--workload", required=True)
+    ap.add_argument("--seeds", type=int, nargs="+", required=True)
+    args = ap.parse_args(argv)
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("control: no CUDA device", file=sys.stderr)
+        return 2
+    rows = readings(args.workload, args.seeds, "cuda")
+    for seed, prog, ctl in rows:
+        print(json.dumps({"seed": seed, "program": prog, "control": ctl}),
+              flush=True)
+    names = rows[0][1].keys()
+    print(json.dumps({
+        "workload": args.workload,
+        "program_max": {k: max(r[1][k] for r in rows) for k in names},
+        "control_min": {k: min(r[2][k] for r in rows) for k in names}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

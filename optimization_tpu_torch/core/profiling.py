@@ -3,7 +3,8 @@
 Counterpart of ``optimization_tpu/core/profiling.py`` on ``torch.profiler``:
 ``trace`` records the enclosed block (host ops and, where a card is
 present, its kernels) and writes a Chrome trace into a directory;
-``annotate`` names a region on that timeline; ``time_fn`` times calls.
+``annotate`` names a region on that timeline (the port's span); ``time_fn``
+times calls.
 """
 
 from __future__ import annotations
@@ -14,6 +15,8 @@ import time
 from typing import Any, Callable, Iterator
 
 import torch
+from torch._C._autograd import _profiler_enabled
+from torch._C._profiler import _RecordFunctionFast
 
 from .tree import tree_leaves
 
@@ -35,9 +38,20 @@ def trace(log_dir: str) -> Iterator[torch.profiler.profile]:
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
+_OFF = contextlib.nullcontext()
+
+
 def annotate(name: str):
-    """Named region on the profiler timeline."""
-    return torch.profiler.record_function(name)
+    """The port's span: a named region of the calling thread, recorded while
+    a ``torch.profiler`` runs as one CPU operation on the profiler's clock,
+    nested in the spans open around it.  It is not a user annotation, so
+    the profiler mirrors nothing onto the device's timeline (a
+    ``record_function`` range would land there as a ``gpu_user_annotation``
+    and fill the device's idle gaps).  With no profiler recording it costs
+    one check in C and returns a shared no-op."""
+    if not _profiler_enabled():
+        return _OFF
+    return _RecordFunctionFast(name)
 
 
 def time_fn(fn: Callable[..., Any], *args, iters: int = 10,

@@ -38,6 +38,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from .core.problem import RiemannianProblem
+from .core.profiling import annotate
 from .kernels.streamed_cg import (AffineDiagonal, JacobiPower,
                                   sphere_rayleigh_streamed,
                                   stpcg_flat_streamed,
@@ -97,9 +98,12 @@ def make_problem(n: int, device, engine: str = "flat", *,
 
         def flat_solve(g, x, dd, aux, Delta, params):
             rq = aux.rq
-            kw = (dict(init=aux.init) if desc is None
-                  else dict(prec_chunk=desc,
-                            prec=desc.map(diag, rq, n, x.device)))
+            if desc is None:
+                kw = dict(init=aux.init)
+            else:
+                with annotate("headline.prec_map"):
+                    kw = dict(prec_chunk=desc,
+                              prec=desc.map(diag, rq, n, x.device))
             return solver(
                 g, x, B_fn(rq), Delta, aux_scalars=(rq,), a0_chunk=a0c,
                 weights=weights, max_iterations=params.max_TPCG_iterations,

@@ -75,6 +75,7 @@ from typing import Callable, Optional, Sequence, Union
 
 import torch
 
+from ..core.profiling import annotate
 from ..linalg.flat_cg import FlatCGInit, FlatCGResult
 
 __all__ = ["stpcg_flat_streamed", "stpcg_flat_streamed_reference",
@@ -947,70 +948,79 @@ def stpcg_flat_streamed(
     On a CPU tensor this runs :func:`stpcg_flat_streamed_reference`; on a
     CUDA tensor it launches the kernel (counted in
     ``stpcg_flat_streamed.launches``): ``csrc/streamed_cg.cu`` for
-    k <= 4, ``csrc/streamed_cg_any.cu`` above.
+    k <= 4, ``csrc/streamed_cg_any.cu`` above.  A launch is two spans
+    (``core.profiling.annotate``): ``streamed_cg.prepare`` (the checks, the
+    descriptors, the scalar vector) and ``streamed_cg.launch``.
     """
-    _check(g, x, B, aux_scalars, a0_chunk, weights, body_kind, init,
-           prec_chunk, prec)
     if g.device.type == "cpu":
+        # the plain version checks the call itself
         return stpcg_flat_streamed_reference(
             g, x, B, Delta, aux_scalars, a0_chunk=a0_chunk, weights=weights,
             max_iterations=max_iterations, kappa_fgr=kappa_fgr, theta=theta,
             epsilon=epsilon, body_kind=body_kind, init=init,
             prec_chunk=prec_chunk, prec=prec)
-    if g.device.type != "cuda":
-        raise ValueError(f"stpcg_flat_streamed runs on CUDA tensors (the "
-                         f"kernel) or CPU tensors (the plain version), not "
-                         f"{g.device.type}")
-    k_lr = len(weights)
-    dev = g.device
-    n = g.shape[0]
-    bf16 = int(g.dtype == torch.bfloat16)
-    g, x = _aligned(g), _aligned(x)
-    aux = tuple(_f32(a, dev).reshape(()) for a in aux_scalars)
-    ev = _Evaluated(n, aux, dev)
-    keep: list = []
-    terms = (_Term * (1 + k_lr))()
-    a0r = _resolve(ev, a0_chunk)
-    terms[0] = (_term_struct(a0r.a, _SHIFT, keep)
-                if isinstance(a0r, ShiftedDiagonal)
-                else _term_struct(a0r, _SELF, keep))
-    ws = [_resolve(ev, w) for w in weights]
-    for j, w in enumerate(ws):
-        terms[1 + j] = (_term_struct(w.a, _TWICE, keep)
-                        if isinstance(w, ScaledDiagonal)
-                        else _term_struct(w, _SELF, keep))
-    # the sphere family (2a - aux[0]; 1, 2a on one a) has its own
-    # instantiation, which evaluates a once
-    sphere = int(k_lr == 2 and isinstance(a0r, ShiftedDiagonal)
-                 and ws[0] is None and isinstance(ws[1], ScaledDiagonal)
-                 and _same_term(ws[1].a, a0r.a))
-    # 0: none, 1: the generated JacobiPower, 2: a stored (or wrapped) p
-    generated = isinstance(prec_chunk, JacobiPower)
-    prec_kind = 0 if prec_chunk is None else 1 if generated else 2
-    stored_p = _aligned(ev(prec_chunk)) if prec_kind == 2 else None
+    with annotate("streamed_cg.prepare"):
+        _check(g, x, B, aux_scalars, a0_chunk, weights, body_kind, init,
+               prec_chunk, prec)
+        if g.device.type != "cuda":
+            raise ValueError(f"stpcg_flat_streamed runs on CUDA tensors "
+                             f"(the kernel) or CPU tensors (the plain "
+                             f"version), not {g.device.type}")
+        k_lr = len(weights)
+        dev = g.device
+        n = g.shape[0]
+        bf16 = int(g.dtype == torch.bfloat16)
+        g, x = _aligned(g), _aligned(x)
+        aux = tuple(_f32(a, dev).reshape(()) for a in aux_scalars)
+        ev = _Evaluated(n, aux, dev)
+        keep: list = []
+        terms = (_Term * (1 + k_lr))()
+        a0r = _resolve(ev, a0_chunk)
+        terms[0] = (_term_struct(a0r.a, _SHIFT, keep)
+                    if isinstance(a0r, ShiftedDiagonal)
+                    else _term_struct(a0r, _SELF, keep))
+        ws = [_resolve(ev, w) for w in weights]
+        for j, w in enumerate(ws):
+            terms[1 + j] = (_term_struct(w.a, _TWICE, keep)
+                            if isinstance(w, ScaledDiagonal)
+                            else _term_struct(w, _SELF, keep))
+        # the sphere family (2a - aux[0]; 1, 2a on one a) has its own
+        # instantiation, which evaluates a once
+        sphere = int(k_lr == 2 and isinstance(a0r, ShiftedDiagonal)
+                     and ws[0] is None and isinstance(ws[1], ScaledDiagonal)
+                     and _same_term(ws[1].a, a0r.a))
+        # 0: none, 1: the generated JacobiPower, 2: a stored (or wrapped) p
+        generated = isinstance(prec_chunk, JacobiPower)
+        prec_kind = 0 if prec_chunk is None else 1 if generated else 2
+        stored_p = _aligned(ev(prec_chunk)) if prec_kind == 2 else None
 
-    parts = [_f32(Delta, dev).reshape(1)] + [a.reshape(1) for a in aux]
-    if init is not None:
-        parts += [_f32(init.rv, dev).reshape(1), _f32(init.ar, dev).reshape(1),
-                  _f32(init.nr, dev).reshape(1),
-                  _f32(init.m, dev).reshape(k_lr),
-                  _f32(init.mA, dev).reshape(k_lr),
-                  _f32(init.UU, dev).reshape(k_lr * k_lr)]
-    scal = torch.cat(parts)
-    Bd = _f32(B, dev).reshape(k_lr, k_lr)
+        parts = [_f32(Delta, dev).reshape(1)] + [a.reshape(1) for a in aux]
+        if init is not None:
+            parts += [_f32(init.rv, dev).reshape(1),
+                      _f32(init.ar, dev).reshape(1),
+                      _f32(init.nr, dev).reshape(1),
+                      _f32(init.m, dev).reshape(k_lr),
+                      _f32(init.mA, dev).reshape(k_lr),
+                      _f32(init.UU, dev).reshape(k_lr * k_lr)]
+        scal = torch.cat(parts)
+        Bd = _f32(B, dev).reshape(k_lr, k_lr)
+        if k_lr > _UNROLLED_K:
+            plan = any_k_plan(ws, a0_stored=terms[0].mode == _STORED,
+                              storage=g.dtype, prec_kind=prec_kind,
+                              with_init=init is not None)
+            tables = _any_tables(plan, ws, keep, dev)
+            Bd = Bd.T.contiguous()
+        else:
+            Bd = Bd.reshape(k_lr * k_lr).contiguous()
     if k_lr > _UNROLLED_K:
-        plan = any_k_plan(ws, a0_stored=terms[0].mode == _STORED,
-                          storage=g.dtype, prec_kind=prec_kind,
-                          with_init=init is not None)
-        res = _launch_any(plan, bf16, prec_kind, g, x, terms[0], ws, Bd,
+        res = _launch_any(plan, bf16, prec_kind, g, x, terms[0], tables, Bd,
                           scal, len(aux), n, stored_p, prec_chunk,
                           max_iterations, kappa_fgr, theta, epsilon,
-                          body_kind, init, keep)
+                          body_kind, init)
         return _result(*res, scal)
-    Bd = Bd.reshape(k_lr * k_lr).contiguous()
 
-    lib = _lib()
-    with torch.cuda.device(dev):
+    with annotate("streamed_cg.launch"), torch.cuda.device(dev):
+        lib = _lib()
         grid = ctypes.c_int(0)
         _raise_on(lib, lib.streamed_cg_grid(bf16, prec_kind, k_lr, sphere,
                                             n, ctypes.byref(grid)),
@@ -1038,10 +1048,11 @@ def stpcg_flat_streamed(
     return _result(s, res, scal)
 
 
-def _any_tables(plan: AnyKPlan, ws, keep: list) -> bytes:
-    """The kernel's table: a StoredTerm (pointer, j, scale) for each stored
-    weight, then a FoldedTerm (j, c, b) for each folded one, 16 bytes
-    each; the stored tensors are aligned and kept alive in ``keep``."""
+def _any_tables(plan: AnyKPlan, ws, keep: list, dev) -> torch.Tensor:
+    """The kernel's table on the card: a StoredTerm (pointer, j, scale) for
+    each stored weight, then a FoldedTerm (j, c, b) for each folded one,
+    16 bytes each, sent through pinned memory without a host wait; the
+    stored tensors are aligned and kept alive in ``keep``."""
     out = bytearray()
     for j, scale in plan.stored:
         w = ws[j].a if isinstance(ws[j], ScaledDiagonal) else ws[j]
@@ -1050,28 +1061,25 @@ def _any_tables(plan: AnyKPlan, ws, keep: list) -> bytes:
         out += struct.pack("=Qif", t.data_ptr(), j, scale)
     for j, c, b in plan.folded():
         out += struct.pack("=iffi", j, c, b, 0)
-    return bytes(out)
+    raw = torch.frombuffer(out, dtype=torch.uint8)
+    return raw.pin_memory().to(dev, non_blocking=True)
 
 
-def _launch_any(plan, bf16, prec_kind, g, x, a0_term, ws, B, scal, n_aux,
-                n, stored_p, prec_chunk, max_iterations, kappa_fgr, theta,
-                epsilon, body_kind, init, keep):
+def _launch_any(plan, bf16, prec_kind, g, x, a0_term, tables, Bt, scal,
+                n_aux, n, stored_p, prec_chunk, max_iterations, kappa_fgr,
+                theta, epsilon, body_kind, init):
     """One launch of ``csrc/streamed_cg_any.cu`` (k >= 5) on ``plan``
-    (:func:`any_k_plan`): the weights' table goes to the card as a device
-    array (through pinned memory, without a host wait), a0's descriptor by
-    value, B as B' (its threads read B's columns), and the global scratch
-    is sized by the library for the grid it picks.  Returns (s, res)."""
+    (:func:`any_k_plan`): the weights' table ``tables`` a device array
+    (:func:`_any_tables`), a0's descriptor by value, B as ``Bt`` = B' (its
+    threads read B's columns), and the global scratch sized by the library
+    for the grid it picks.  Returns (s, res)."""
     dev = g.device
     k = plan.k
-    lib = _lib("streamed_cg_any")
-    raw = torch.frombuffer(bytearray(_any_tables(plan, ws, keep)),
-                           dtype=torch.uint8)
-    tables = raw.pin_memory().to(dev, non_blocking=True)
-    Bt = B.T.contiguous()
     generated = prec_kind == 1
     ks = len(plan.stored)
     a0_stored = int(a0_term.mode == _STORED)
-    with torch.cuda.device(dev):
+    with annotate("streamed_cg.launch"), torch.cuda.device(dev):
+        lib = _lib("streamed_cg_any")
         grid, nbytes = ctypes.c_int(0), ctypes.c_longlong(0)
         _raise_on(lib, lib.streamed_cg_any_grid(
             bf16, prec_kind, k, ks, a0_stored, int(init is not None), n,

@@ -272,3 +272,31 @@ def test_stopwatch_and_profiling_helpers(tmp_path):
             (x * 3.0).sum()
     assert (tmp_path / "trace.json").exists()
     assert any(e.key == "port_region" for e in prof.key_averages())
+
+
+def test_annotate_is_free_when_off_and_a_plain_cpu_op_when_on():
+    """The port's span: with no profiler recording, ``annotate`` builds
+    nothing (one shared no-op for every name) and the profiler started
+    afterwards has no event of it; under a CPU ``torch.profiler`` each span
+    is one CPU operation, not a user annotation (which the profiler would
+    mirror onto the device's timeline), nested in the span around it."""
+    off = profiling.annotate("port_off")
+    assert off is profiling.annotate("port_other")
+    with off:
+        torch.ones(3).sum()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with profiling.annotate("port_outer"):
+            with profiling.annotate("port_inner"):
+                torch.ones(3).sum()
+    events = {e.name: e for e in prof.events()}
+    assert "port_off" not in events
+    for name in ("port_outer", "port_inner"):
+        assert [e.name for e in prof.events()].count(name) == 1
+        assert events[name].device_type == torch.autograd.DeviceType.CPU
+        assert not events[name].is_user_annotation
+    assert events["port_inner"].cpu_parent.name == "port_outer"
+    assert events["port_outer"].cpu_parent is None
+    kin = [e for e in prof.profiler.kineto_results.events()
+           if e.name().startswith("port_")]
+    assert len(kin) == 2 and not any(e.is_user_annotation() for e in kin)

@@ -511,6 +511,70 @@ def test_kernel_matches_plain_version_above_four(dev, case):
     _assert_step_close(res.s, ref.s, tol)
 
 
+@pytest.mark.parametrize("jacobi_power", [None, 0.25],
+                         ids=["plain", "jacobi"])
+def test_spans_once_a_launch_and_none_on_the_device(dev, jacobi_power):
+    """The port's spans (``core.profiling.annotate``) on the card: a
+    headline TNT solve through the kernel (k = 2) and a rank-8 launch
+    (csrc/streamed_cg_any.cu) record one ``streamed_cg.prepare`` and one
+    ``streamed_cg.launch`` span a launch; no span's name and no user
+    annotation reaches the device's events; and every blocking host
+    synchronization of the solve (the sync debug mode's warnings) is a
+    ``host_sync/*`` span."""
+    import warnings
+
+    from optimization_tpu_torch import headline
+    from optimization_tpu_torch.solvers import tnt
+
+    n, outer = 1 << 18, 4
+    problem = headline.make_problem(n, dev, "streamed",
+                                    jacobi_power=jacobi_power)
+    params = headline.tier_params(0.0, max_tpcg=20, max_iterations=outer)
+    x0 = headline.initial_point(n, torch.float32, dev, seed=3)
+    g, x, B, aux = _gen_args(8, n, torch.float32, dev)
+    kw = dict(a0_chunk=_gen_term("shifted", n, dev),
+              weights=_gen_weights(8, n, dev))
+    tnt.solve(problem, x0, params)          # builds, outside the trace
+    T.stpcg_flat_streamed(g, x, B, 1e6, aux, **kw)
+    torch.cuda.synchronize()
+    before = T.stpcg_flat_streamed.launches
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        tnt.solve(problem, x0, params)
+        T.stpcg_flat_streamed(g, x, B, 1e6, aux, **kw)
+        torch.cuda.synchronize()
+    launches = T.stpcg_flat_streamed.launches - before
+    assert launches == outer + 1
+    events = list(prof.profiler.kineto_results.events())
+    on_card = [e for e in events if str(e.device_type()).endswith("CUDA")]
+    host = [e.name() for e in events
+            if str(e.device_type()).endswith("CPU")]
+    assert host.count("streamed_cg.prepare") == launches
+    assert host.count("streamed_cg.launch") == launches
+    ours = {m for m in host if m.startswith(
+        ("tnt.", "host_sync/", "streamed_cg.", "headline."))}
+    assert {"tnt.solve", "host_sync/tnt.status"} <= ours
+    assert not ours & {e.name() for e in on_card}
+    assert not any(e.is_user_annotation() for e in on_card)
+
+    # the first switch to the debug mode in a process warns once that the
+    # mode is a prototype (a message that names synchronizing operations)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        torch.cuda.set_sync_debug_mode("warn")
+        torch.cuda.set_sync_debug_mode("default")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            tnt.solve(problem, x0, params)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    assert syncs == sum(m.startswith("host_sync/") for m in host)
+
+
 def _lines_weights(k, n_stored):
     return (tuple(torch.zeros(1) for _ in range(n_stored))
             + tuple(T.AffineDiagonal(0.5, 1e-3) for _ in range(k - n_stored)))

@@ -12,9 +12,9 @@ non-zero exit and no result line:
 2. build: compiles ``optimization_tpu_torch/csrc/streamed_cg.cu`` (ranks
    1-4), ``csrc/streamed_cg_any.cu`` (any rank), ``csrc/fused.cu``,
    ``csrc/gram_pair.cu``, ``csrc/probes.cu`` (the two residency probes
-   and the chunk reader) and ``csrc/segment_sum.cu`` with
-   nvcc from this checkout, all at once, and prints each build's seconds
-   and ``-Xptxas -v`` report;
+   and the chunk reader), ``csrc/segment_sum.cu`` and
+   ``csrc/sphere_step.cu`` with nvcc from this checkout, all at once, and
+   prints each build's seconds and ``-Xptxas -v`` report;
 3. kernel parity: ``stpcg_flat_streamed`` on the card against its plain
    PyTorch version on the same inputs, at n = 2^20 and a ragged n, over
    storage dtype x body x init x Delta x fixture, then its preconditioned
@@ -33,9 +33,13 @@ non-zero exit and no result line:
 4. main path: the headline TNT solve (``optimization_tpu_torch/headline.py``)
    at n = 2^24 in both tiers, the f32 tier through the kernel (its launch
    count checked against the subproblems solved), then the f32 tier again
-   with the plain version in the kernel's place; the 50-CG subproblem's
-   time is printed beside the 7.36-7.46 ms the kernel took before it took
-   any rank k;
+   with the plain versions of the subproblem kernel and of the trial step;
+   the 50-CG subproblem's time is printed beside the 7.36-7.46 ms the
+   kernel took before it took any rank k; the trial-step kernel
+   (``csrc/sphere_step.cu``) is held against its plain version on the
+   path's own x and subproblem step in f32 and bf16, timed beside its
+   plain version and its bound, and its launches checked against outer + 1
+   (each trial step and the seed) in every solve of both tiers;
 5. fused kernel parity: ``cg_dots``, ``axpy_selfdot``,
    ``diag_stencil_matvec`` and ``affine_stencil_matvec`` against their
    plain versions (and the reductions against a float64 sum) at
@@ -225,8 +229,10 @@ non-zero exit and no result line:
    ``main()`` in process on the card at the JAX example's sizes, each
    applying the JAX example's acceptance check; its wall time, statuses
    and counts and its ``gram_pair`` launches (> 0 exactly for the examples
-   whose path runs LOBPCG), every launch held against the plain version on
-   its own S, AS, BS (phase 7's tolerance) and counted on the kernels line;
+   whose path runs LOBPCG) and ``sphere_step`` launches (> 0 exactly for
+   ``dtype_escalation``), every gram_pair launch held against the plain
+   version on its own S, AS, BS (phase 7's tolerance) and counted on the
+   kernels line;
 26. ``python -m optimization_tpu_torch.examples.lobpcg_example`` in a
    subprocess, as a user runs it: exit 0, the same iteration and converged
    counts as phase 25's run;
@@ -261,7 +267,7 @@ N_PARITY = (1 << 20, 999_999)       # the second is not a multiple of 1024
 N_MAIN = 1 << 24
 SHORT = 10                          # CG iterations: see check_parity
 SOURCES = ("streamed_cg", "streamed_cg_any", "fused", "gram_pair",
-           "probes", "segment_sum")
+           "probes", "segment_sum", "sphere_step")
 N_FUSED = (1 << 24, 999_999, 100)   # fused kernel parity sizes
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"f32": 67e12, "tf32": 495e12, "bf16": 989e12}
@@ -812,12 +818,111 @@ def time_ms(torch, fn, reps):
     return start.elapsed_time(stop) / reps
 
 
+def step_launches(t):
+    """The trial-step kernel launches a headline TNT solve makes: one each
+    trial step (outer iterations less the one that met the tolerance) and
+    one for the seed."""
+    from optimization_tpu_torch.core.types import TNTStatus
+
+    conv = int(t.result.status) in (TNTStatus.GRADIENT,
+                                    TNTStatus.PRECONDITIONED_GRADIENT)
+    return t.outer - int(conv) + 1
+
+
+def init_dots(init):
+    """The ten dots of a ``FlatCGInit`` by name."""
+    return {"rv": init.rv, "ar": init.ar, "nr": init.nr, "m0": init.m[0],
+            "m1": init.m[1], "mA0": init.mA[0], "mA1": init.mA[1],
+            "UU00": init.UU[0, 0], "UU01": init.UU[0, 1],
+            "UU11": init.UU[1, 1]}
+
+
+def trial_step_phase(torch, x, h, label):
+    """The trial-step kernel (``kernels.sphere_step``) against its plain
+    version on the main path's own x and subproblem step h, in f32 and
+    bf16: x_prop and g within norm-relative 1e-6 (bf16: 4e-3, one storage
+    rounding), f_prop and rq within 1e-6 relative, |g| within 1e-5, each
+    init dot within 2e-5 of the sum of its terms' magnitudes (f32 sums in
+    other orders, as ``tests/test_torch_cuda.py`` holds them); two
+    launches bit for bit equal.  Then the f32 call timed beside the plain
+    version and its bound (x and h read once, x_prop and g written once;
+    ~40 f32 operations an element).  Returns its kernels-line entry
+    without ``launches``."""
+    from optimization_tpu_torch.kernels import sphere_step as step
+    from optimization_tpu_torch.kernels.sphere_step import (
+        DiagonalElem, sphere_step_reference)
+    from optimization_tpu_torch.kernels.streamed_cg import AffineDiagonal
+
+    n = x.shape[0]
+    elem = DiagonalElem(AffineDiagonal(1.0, 999.0 / (n - 1)), n, x.device)
+    norm = torch.linalg.vector_norm
+    err = 0.0
+    for dtype, vtol in ((torch.float32, 1e-6), (torch.bfloat16, 4e-3)):
+        xs, hs = x.to(dtype), h.to(dtype)
+        got = step(xs, hs, elem)
+        again = step(xs, hs, elem)
+        ref = sphere_step_reference(xs, hs, elem)
+        flat = [got[0], got[1], got[2], got[3], got[4].rq, *got[4].init]
+        flat2 = [again[0], again[1], again[2], again[3], again[4].rq,
+                 *again[4].init]
+        if not all(torch.equal(p, q) for p, q in zip(flat, flat2)):
+            raise AssertionError(f"trial step {dtype}: two launches differ")
+        worst = []
+        for name, k in (("x_prop", 0), ("g", 2)):
+            d = got[k].float() - ref[k].float()
+            worst.append((name, float(norm(d) / norm(ref[k].float())), vtol))
+            err = max(err, float(d.abs().max()))
+        for name, a, b, tol in (("f_prop", got[1], ref[1], 1e-6),
+                                ("rq", got[4].rq, ref[4].rq, 1e-6),
+                                ("|g|", got[3], ref[3], 1e-5)):
+            worst.append((name, abs(float(a) - float(b)) / abs(float(b)),
+                          tol))
+        # each dot's terms, float64 of the stored x_prop and g, for its scale
+        xp, g = got[0].double(), got[2].double()
+        a2 = 2.0 * elem.a.double()
+        a0g = a2 * g - float(got[4].rq) * g
+        terms = {"rv": (g, g), "ar": (a0g, g), "nr": (a0g, a0g),
+                 "m0": (xp, g), "m1": (xp, a2 * g), "mA0": (xp, a0g),
+                 "mA1": (xp, a2 * a0g), "UU00": (xp, xp),
+                 "UU01": (xp, a2 * xp), "UU11": (xp, a2 * a2 * xp)}
+        dots = [init_dots(got[4].init), init_dots(ref[4].init)]
+        for name, (u, v) in terms.items():
+            scale = float(torch.dot(u.abs(), v.abs()))
+            worst.append((f"init.{name}", abs(float(dots[0][name])
+                                              - float(dots[1][name])) / scale,
+                          2e-5))
+        del xp, g, a2, a0g, terms
+        bad = [w for w in worst if not w[1] <= w[2]]
+        print(f"  trial step n=2^{n.bit_length() - 1} {str(dtype)[6:]}: "
+              + ", ".join(f"{w[0]} {w[1]:.2e}" for w in worst)
+              + (" ok" if not bad else f" FAIL {bad}"), flush=True)
+        if bad:
+            raise AssertionError(f"trial step kernel disagrees: {bad}")
+    ms = time_ms(torch, lambda: step(x, h, elem), 20)
+    plain_ms = time_ms(torch, lambda: sphere_step_reference(x, h, elem), 5)
+    bound_ms, bound_by = bound(4 * n * 4, 40.0 * n)
+    two_pass_ms = (6 * n * 4 - min(2 * n * 4, torch.cuda.get_device_properties(
+        x.device).L2_cache_size)) / HBM_BYTES_PER_S * 1e3
+    print(f"  trial step kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}; {bound_ms / ms:.3f} of it), two "
+          f"passes' bound {two_pass_ms:.4f} ms ({two_pass_ms / ms:.3f} of "
+          f"it) [{label}]", flush=True)
+    return {"name": "sphere_step", "route": "cuda",
+            "source": "optimization_tpu_torch/csrc/sphere_step.cu",
+            "replaces": None, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+
+
 def main_path_phase(torch, dev, label):
     from optimization_tpu_torch import headline as H
     from optimization_tpu_torch.core.types import TNTStatus
+    from optimization_tpu_torch.kernels import sphere_step
+    from optimization_tpu_torch.kernels.sphere_step import DiagonalElem
     from optimization_tpu_torch.kernels.streamed_cg import (
         AffineDiagonal, sphere_rayleigh_streamed, stpcg_flat_streamed,
         stpcg_flat_streamed_reference)
+    from optimization_tpu_torch.linalg.flat_cg import sphere_rayleigh_step
 
     print(f"phase 4: headline TNT at n = 2^24 [{label}]", flush=True)
     n = N_MAIN
@@ -853,6 +958,7 @@ def main_path_phase(torch, dev, label):
           f"at 6n words an iteration; 7.36-7.46 ms on the same card model "
           f"before the kernel took any rank k), plain {plain_ms:.3f} ms "
           f"[{label}]", flush=True)
+    step_kernel = trial_step_phase(torch, mid.result.x, res.s, label)
 
     # warm-up of the bf16 tier (the f32 tier's ran above)
     H.run_tier(H.make_problem(n, dev, "flat"),
@@ -861,12 +967,15 @@ def main_path_phase(torch, dev, label):
 
     # ---- the main path's run: counts start at 0 here ----
     stpcg_flat_streamed.launches = 0
+    sphere_step.launches = 0
     f32 = H.run_tier(prob, x0, f32_params)
     launches = stpcg_flat_streamed.launches
+    step_f32 = sphere_step.launches
     bf16 = H.run_tier(H.make_problem(n, dev, "flat"),
                       H.initial_point(n, torch.bfloat16, dev, 3),
                       H.tier_params(0.0))
     launches_total = stpcg_flat_streamed.launches
+    step_total = sphere_step.launches
     # ---- end of the main path's run ----
 
     conv = int(f32.result.status) in (TNTStatus.GRADIENT,
@@ -883,6 +992,15 @@ def main_path_phase(torch, dev, label):
                              f"{subproblems} of the f32 tier")
     print(f"  kernel launches in the f32 solve: {launches} = subproblems",
           flush=True)
+    for name, got, t in (("f32", step_f32, f32),
+                         ("bf16", step_total - step_f32, bf16)):
+        if got != step_launches(t):
+            raise AssertionError(f"trial-step kernel launches {got} in the "
+                                 f"{name} tier != outer + 1 = "
+                                 f"{step_launches(t)}")
+    print(f"  trial-step kernel launches: {step_f32} in the f32 solve, "
+          f"{step_total - step_f32} in the bf16 = outer + 1 each",
+          flush=True)
     for name, t in (("f32", f32), ("bf16", bf16)):
         xs = t.result.x.float()
         nx = float(torch.linalg.vector_norm(xs))
@@ -891,8 +1009,15 @@ def main_path_phase(torch, dev, label):
                 and abs(nx - 1.0) < 1e-2):
             raise AssertionError(f"{name} tier: f* = {t.fstar}, |x| = {nx}")
 
-    ref_run = H.run_tier(H.make_problem(n, dev, "streamed_reference"),
-                         x0, f32_params)
+    # the plain versions of both kernels: the subproblem's, and the trial
+    # step's (the plain evaluator, which takes no kernel)
+    plain_step = sphere_rayleigh_step(
+        DiagonalElem(AffineDiagonal(1.0, 999.0 / (n - 1)), n, dev))
+    ref_run = H.run_tier(
+        dataclasses.replace(H.make_problem(n, dev, "streamed_reference"),
+                            step_eval=plain_step), x0, f32_params)
+    if sphere_step.launches != step_total:
+        raise AssertionError("the plain run launched the trial-step kernel")
     print(f"  tier f32 (plain version): {ref_run.outer} outer / "
           f"{ref_run.inner} CG in {ref_run.seconds:.3f} s = "
           f"{ref_run.cg_per_s:.0f} CG it/s, f* = {ref_run.fstar:.6f} "
@@ -911,7 +1036,8 @@ def main_path_phase(torch, dev, label):
             "replaces": "optimization_tpu/kernels/streamed_cg.py:95",
             "launches": launches, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None}, gbytes / ms * 1e3
+            "bound_by": bound_by, "library_ms": None}, \
+        {**step_kernel, "launches": step_total}, gbytes / ms * 1e3
 
 
 FUSED_TOLERANCES = """\
@@ -4412,6 +4538,7 @@ def examples_phase(torch, dev, label):
 
     from optimization_tpu_torch.examples import EXAMPLES, LOBPCG_EXAMPLES
     from optimization_tpu_torch.kernels import fused as F
+    from optimization_tpu_torch.kernels import sphere_step
 
     print(f"phase 25: the {len(EXAMPLES)} examples, each main() in process "
           f"on the card at the JAX example's sizes [{label}]", flush=True)
@@ -4421,13 +4548,18 @@ def examples_phase(torch, dev, label):
         module = importlib.import_module(
             f"optimization_tpu_torch.examples.{name}")
         before = F.gram_pair.launches
+        step_before = sphere_step.launches
         results[name], secs = timed_solve(torch, dev,
                                           lambda: module.main([]))
         launches = F.gram_pair.launches - before
-        print(f"  [{name}] {secs:.2f} s, gram_pair launches {launches}: "
+        steps = sphere_step.launches - step_before
+        print(f"  [{name}] {secs:.2f} s, gram_pair launches {launches}, "
+              f"sphere_step launches {steps}: "
               f"{' '.join(digest(results[name]))} [{label}]", flush=True)
         if (launches > 0) != (name in LOBPCG_EXAMPLES):
             raise AssertionError(f"{name}: {launches} gram_pair launches")
+        if (steps > 0) != (name == "dtype_escalation"):
+            raise AssertionError(f"{name}: {steps} sphere_step launches")
     print(f"phase 25: {time.perf_counter() - t_phase:.1f} s [{label}]",
           flush=True)
     return results["lobpcg_example"]
@@ -4522,7 +4654,7 @@ def main():
               flush=True)
 
     parity_phase(torch, dev)
-    kernel, streamed_gbs = main_path_phase(torch, dev, label)
+    kernel, step_kernel, streamed_gbs = main_path_phase(torch, dev, label)
     errs = fused_parity_phase(torch, dev)
     fused_kernels, rates = stencil_path_phase(torch, dev, label, errs)
     errs7, times7, ceiling, stream3_launches = gram_stream3_phase(
@@ -4609,7 +4741,7 @@ def main():
         "launches": segment_launches + range_launches, **segment_numbers}
     print(json.dumps({"kernels": [kernel] + fused_kernels + new_kernels
                       + [prec_kernel] + probe_kernels + [chunk_kernel]
-                      + rank_kernels + [segment_kernel]}))
+                      + rank_kernels + [segment_kernel, step_kernel]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -6,8 +6,10 @@ fires (or it meets the tolerance), promotes the carry to f32 with the
 zero-tangent re-retraction back onto the sphere, and finishes to the
 |grad| tolerance: the Rayleigh quotient of diag(1 + b i) on S^(n-1),
 n = 2^16.  The subproblems run in the flat pair engine (``flat_qm`` =
-``sphere_rayleigh_flat``, ``step_eval`` = ``sphere_rayleigh_step``), eager
-torch: no kernel is launched.  Both stages store bf16 / f32 on any device.
+``sphere_rayleigh_flat``), eager torch; the trial step is
+``kernels.sphere_step.sphere_rayleigh_step`` of the diagonal's descriptor,
+so on a CUDA device both stages launch ``csrc/sphere_step.cu`` for it.
+Both stages store bf16 / f32 on any device.
 Run:  python -m optimization_tpu_torch.examples.dtype_escalation [--device cpu]
 """
 
@@ -17,8 +19,10 @@ import torch
 
 from optimization_tpu_torch import RiemannianProblem
 from optimization_tpu_torch.examples import _common as C
-from optimization_tpu_torch.linalg.flat_cg import (sphere_rayleigh_flat,
-                                                   sphere_rayleigh_step)
+from optimization_tpu_torch.kernels.sphere_step import (DiagonalElem,
+                                                        sphere_rayleigh_step)
+from optimization_tpu_torch.kernels.streamed_cg import AffineDiagonal
+from optimization_tpu_torch.linalg.flat_cg import sphere_rayleigh_flat
 from optimization_tpu_torch.manifolds import sphere
 from optimization_tpu_torch.solvers import tnt
 
@@ -29,12 +33,8 @@ PARAMS = tnt.TNTParams(
 
 
 def make_problem(n, dev) -> RiemannianProblem:
-    b = 999.0 / (n - 1)
     M = sphere()
-    i = torch.arange(n, dtype=torch.float32, device=dev)
-
-    def A_elem(v):
-        return (1.0 + b * i) * v.to(torch.float32)
+    A_elem = DiagonalElem(AffineDiagonal(1.0, 999.0 / (n - 1)), n, dev)
 
     def f(x, dd):
         return torch.dot(x.to(torch.float32), A_elem(x))

@@ -26,8 +26,11 @@ P = (|2a - rq| + 1)^(-e) (e = 1/4 is the half power of the JAX package's
 ``flat_prec``, the streamed routes through the kernel's ``JacobiPower``
 descriptor; no init group is threaded then (it would be untransformed).
 
-The diagonal is regenerated from its index inside the kernel; the eager
-PyTorch paths hold it as one stored f32 vector with the same values.
+The diagonal is regenerated from its index inside the kernels; the eager
+PyTorch paths hold it as one stored f32 vector with the same values.  The
+trial step is ``kernels.sphere_step.sphere_rayleigh_step`` of a
+``DiagonalElem``, which carries the diagonal's descriptor, so on the card
+every trial step is one launch of ``csrc/sphere_step.cu``.
 """
 
 from __future__ import annotations
@@ -43,7 +46,8 @@ from .kernels.streamed_cg import (AffineDiagonal, JacobiPower,
                                   sphere_rayleigh_streamed,
                                   stpcg_flat_streamed,
                                   stpcg_flat_streamed_reference)
-from .linalg.flat_cg import sphere_rayleigh_flat, sphere_rayleigh_step
+from .kernels.sphere_step import DiagonalElem, sphere_rayleigh_step
+from .linalg.flat_cg import sphere_rayleigh_flat
 from .manifolds.sphere import sphere
 from .solvers import tnt
 
@@ -62,11 +66,8 @@ def make_problem(n: int, device, engine: str = "flat", *,
         raise ValueError(f"engine must be one of {ENGINES}")
     M = sphere()
     diag = AffineDiagonal(1.0, (kappa - 1.0) / (n - 1))
-    a = diag.values(n, device)
+    A_elem = DiagonalElem(diag, n, device)
     desc = None if jacobi_power is None else JacobiPower(1.0, jacobi_power)
-
-    def A_elem(v):
-        return a * v.to(torch.float32)
 
     def f(x, dd):
         return torch.dot(x.to(torch.float32), A_elem(x))

@@ -23,6 +23,14 @@
   measurements behind the streamed CG kernel's residency design) and
   ``benchmarks/probe_graph_stream.py`` (``mk_chunk_reader``: the chunked
   gather behind the graph operators' verdict).
+- :mod:`sphere_step` — ``sphere_step``, the sphere Rayleigh quotient's
+  TNT trial step and the flat engine's init dot group at its output
+  (``sphere_step.sphere_rayleigh_step``, the headline's ``step_eval``,
+  sends a call there when its ``A_elem`` is a ``DiagonalElem``, and every
+  other call to ``linalg.flat_cg.sphere_rayleigh_step``), CUDA C++ in
+  ``csrc/sphere_step.cu``:
+  two passes over x and h where the eager evaluator makes ~80.  It
+  replaces no Pallas kernel (the JAX package leaves the trial step to XLA).
 - :mod:`segment_sum` — ``segment_sum`` over a ``segment_plan``, CUDA C++
   in ``csrc/segment_sum.cu``: the edge->vertex sums of the graph models
   (``models/graph.py``) in an order fixed by the indices, and the pullback
@@ -47,6 +55,7 @@ from .probes import (chunk_offsets, chunk_reader, chunk_reader_reference,
                      resident_body_reference)
 from .segment_sum import (SegmentPlan, planned_gather, segment_plan,
                           segment_sum, segment_sum_reference)
+from .sphere_step import DiagonalElem, sphere_step, sphere_step_reference
 
 __all__ = ["AffineDiagonal", "ElementwiseFn", "JacobiPower", "PrecMap",
            "ScaledDiagonal", "ShiftedDiagonal", "prec_map", "stored_prec_map",
@@ -61,4 +70,5 @@ __all__ = ["AffineDiagonal", "ElementwiseFn", "JacobiPower", "PrecMap",
            "resident_body_reference", "chunk_reader",
            "chunk_reader_reference", "chunk_offsets", "SegmentPlan",
            "planned_gather", "segment_plan", "segment_sum",
-           "segment_sum_reference"]
+           "segment_sum_reference", "DiagonalElem", "sphere_step",
+           "sphere_step_reference"]

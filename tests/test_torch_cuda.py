@@ -575,6 +575,195 @@ def test_spans_once_a_launch_and_none_on_the_device(dev, jacobi_power):
     assert syncs == sum(m.startswith("host_sync/") for m in host)
 
 
+# ---- the trial step, csrc/sphere_step.cu ----
+
+def _sphere_step_module():
+    # the module (the package's ``kernels.sphere_step`` is the function)
+    import importlib
+    return importlib.import_module("optimization_tpu_torch.kernels.sphere_step")
+
+
+def _step_case(n, storage, step, dev, seed=11):
+    """A point on the sphere and a step h (zero, or |h| ~ 0.3 in random
+    directions) in ``storage``, with the headline's diagonal at n."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(n, generator=gen, device=dev)
+    x = x / torch.linalg.vector_norm(x)
+    h = (0.3 * torch.randn(n, generator=gen, device=dev) / n ** 0.5 if step
+         else torch.zeros(n, device=dev))
+    return (x.to(storage), h.to(storage),
+            T.AffineDiagonal(1.0, 999.0 / max(n - 1, 1)))
+
+
+def _f64_dots(xp, g, a, rq):
+    """The init group's ten dots, float64, of the stored x_prop and g."""
+    xs, gs, a = xp.double(), g.double(), a.double()
+    a0g = 2.0 * a * gs - float(rq) * gs
+    pairs = {"rv": (gs, gs), "ar": (a0g, gs), "nr": (a0g, a0g),
+             "m0": (xs, gs), "m1": (xs, 2.0 * a * gs), "mA0": (xs, a0g),
+             "mA1": (xs, 2.0 * a * a0g), "UU00": (xs, xs),
+             "UU01": (xs, 2.0 * a * xs), "UU11": (xs, 4.0 * a * a * xs)}
+    return {k: (float(torch.dot(u, v)), float(torch.dot(u.abs(), v.abs())))
+            for k, (u, v) in pairs.items()}
+
+
+def _init_dots(init):
+    return {"rv": init.rv, "ar": init.ar, "nr": init.nr, "m0": init.m[0],
+            "m1": init.m[1], "mA0": init.mA[0], "mA1": init.mA[1],
+            "UU00": init.UU[0, 0], "UU01": init.UU[0, 1],
+            "UU11": init.UU[1, 1]}
+
+
+@pytest.mark.parametrize("step", [False, True], ids=["h0", "step"])
+@pytest.mark.parametrize("n", [1 << 20, (1 << 20) + 3, 7])
+@pytest.mark.parametrize("storage", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_sphere_step_matches_plain_version_and_float64(dev, storage, n, step):
+    """The kernel against the plain version on the card and a float64
+    evaluation.  x_prop and g are the plain version's rounding of the same
+    f32 arithmetic (norm-relative 1e-6 in f32; in bf16 one storage
+    rounding, 4e-3); f_prop and |g| to 1e-6 / 1e-5 relative; each init dot
+    within 1e-5 of sum |u_i v_i| of its float64 value over the stored
+    x_prop and g (f32 sums of ~10^2-10^3 terms a thread, then double) and
+    of the plain version's; with_init=False its |g| from the identity."""
+    S = _sphere_step_module()
+    x, h, diag = _step_case(n, storage, step, dev)
+    elem = S.DiagonalElem(diag, n, dev)
+    before = S.sphere_step.launches
+    out = S.sphere_step(x, h, elem, True)
+    out0 = S.sphere_step(x, h, elem, False)
+    assert S.sphere_step.launches == before + 2
+    ref = S.sphere_step_reference(x, h, elem, True)
+    ref0 = S.sphere_step_reference(x, h, elem, False)
+    torch.cuda.synchronize()
+    vtol = 4e-3 if storage == torch.bfloat16 else 1e-6
+    for got, want in ((out[0], ref[0]), (out[2], ref[2])):
+        assert got.dtype == storage and got.device == x.device
+        _assert_step_close(got, want, vtol)
+    assert torch.equal(out0[0], out[0]) and torch.equal(out0[2], out[2])
+    for got, want, rtol in ((out[1], ref[1], 1e-6), (out[3], ref[3], 1e-5),
+                            (out[4].rq, ref[4].rq, 1e-6),
+                            (out0[3], ref0[3], 1e-5)):
+        assert got.dtype == torch.float32 and got.shape == ()
+        torch.testing.assert_close(got, want, rtol=rtol, atol=0)
+    assert out0[4].init is None and ref0[4].init is None
+    dots = _f64_dots(out[0], out[2], elem.a, out[4].rq)
+    plain = _init_dots(ref[4].init)
+    for k, got in _init_dots(out[4].init).items():
+        exact, scale = dots[k]
+        assert abs(float(got) - exact) <= 1e-5 * scale, (k, float(got), exact)
+        assert abs(float(got) - float(plain[k])) <= 2e-5 * scale, k
+    assert torch.equal(out[4].init.UU[0, 1], out[4].init.UU[1, 0])
+    torch.testing.assert_close(out[3] ** 2, out[4].init.rv, rtol=1e-6,
+                               atol=0)
+
+    # float64 from the same stored x and h and the f32 diagonal
+    u = x.double() + h.double()
+    a = elem.a.double()
+    n2, fu = float(torch.dot(u, u)), float(torch.dot(u, a * u))
+    c, f = n2 ** -0.5, fu / n2
+    _assert_step_close(out[0], c * u, vtol)
+    _assert_step_close(out[2], 2.0 * c * a * u - 2.0 * f * c * u, vtol)
+    assert abs(float(out[1]) - f) <= 1e-6 * abs(f)
+
+
+@pytest.mark.parametrize("storage", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_sphere_step_repeats_bitwise(dev, storage):
+    """Two calls, and a call through the routing evaluator, are bitwise
+    equal."""
+    S = _sphere_step_module()
+    n = (1 << 20) + 3
+    x, h, diag = _step_case(n, storage, True, dev)
+    elem = S.DiagonalElem(diag, n, dev)
+    runs = [S.sphere_step(x, h, elem, True), S.sphere_step(x, h, elem, True),
+            S.sphere_rayleigh_step(elem)(x, h, None)]
+    flat = [[r[0], r[1], r[2], r[3], r[4].rq, *r[4].init] for r in runs]
+    for other in flat[1:]:
+        assert all(torch.equal(p, q) for p, q in zip(flat[0], other))
+
+
+def test_sphere_step_makes_no_host_sync(dev):
+    """Neither the wrapper nor the routing evaluator's route to it
+    synchronizes with the host (after the first call, which builds the
+    library)."""
+    S = _sphere_step_module()
+    n = 1 << 16
+    x, h, diag = _step_case(n, torch.float32, True, dev)
+    elem = S.DiagonalElem(diag, n, dev)
+    step_eval = S.sphere_rayleigh_step(elem)
+    S.sphere_step(x, h, elem)
+    S.sphere_step(x.bfloat16(), h.bfloat16(), elem)
+    torch.cuda.synchronize()
+    before = S.sphere_step.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for hh in (h, torch.zeros_like(h)):
+            step_eval(x, hh, None)
+            step_eval(x.bfloat16(), hh.bfloat16(), None)
+            S.sphere_step(x, hh, elem, False)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert S.sphere_step.launches == before + 6
+
+
+@pytest.mark.parametrize("engine,storage,jacobi_power", [
+    ("streamed", torch.float32, None), ("streamed", torch.float32, 0.25),
+    ("flat", torch.bfloat16, None)], ids=["streamed", "jacobi", "flat-bf16"])
+def test_headline_solve_takes_the_step_kernel(dev, engine, storage,
+                                              jacobi_power):
+    """A headline TNT solve on the card launches the trial-step kernel once
+    a trial step and once for the seed (outer + 1), each in one
+    ``sphere_step.launch`` span, calls no ``cudaMalloc`` once warm, and
+    ends as the same solve with the plain
+    evaluator (``linalg.flat_cg``'s): same status and outer iterations, f
+    within 1e-5 (bf16: 1e-3) relative."""
+    import dataclasses
+
+    from optimization_tpu_torch import headline
+    from optimization_tpu_torch.linalg.flat_cg import sphere_rayleigh_step
+    from optimization_tpu_torch.solvers import tnt
+
+    S = _sphere_step_module()
+    n, outer = 1 << 18, 5
+    kappa = 1e5 if jacobi_power else 1e3
+    problem = headline.make_problem(n, dev, engine, kappa=kappa,
+                                    jacobi_power=jacobi_power)
+    elem = S.DiagonalElem(T.AffineDiagonal(1.0, (kappa - 1.0) / (n - 1)),
+                          n, dev)
+    plain = dataclasses.replace(problem, step_eval=sphere_rayleigh_step(elem))
+    params = headline.tier_params(0.0, max_tpcg=20, max_iterations=outer)
+    x0 = headline.initial_point(n, storage, dev, seed=5)
+    tnt.solve(problem, x0, params)          # builds, outside the trace
+    torch.cuda.synchronize()
+    before = S.sphere_step.launches
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        res = tnt.solve(problem, x0, params)
+        torch.cuda.synchronize()
+    launches = S.sphere_step.launches - before
+    iters = int(res.num_iterations)
+    assert launches == iters + 1
+    events = list(prof.profiler.kineto_results.events())
+    host = [e.name() for e in events
+            if str(e.device_type()).endswith("CPU")]
+    assert host.count("sphere_step.launch") == launches
+    assert host.count("tnt.trial_step") == iters
+    # the outputs and the scratch come from the caching allocator
+    assert not [e.name() for e in events if e.name().startswith("cudaMalloc")]
+
+    before = S.sphere_step.launches
+    ref = tnt.solve(plain, x0, params)
+    assert S.sphere_step.launches == before
+    assert int(ref.num_iterations) == iters == outer
+    assert int(ref.status) == int(res.status)
+    rtol = 1e-3 if storage == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(res.f, ref.f, rtol=rtol, atol=0)
+    assert res.x.dtype == storage
+
+
 def _lines_weights(k, n_stored):
     return (tuple(torch.zeros(1) for _ in range(n_stored))
             + tuple(T.AffineDiagonal(0.5, 1e-3) for _ in range(k - n_stored)))

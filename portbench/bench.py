@@ -1,9 +1,10 @@
 """One run of one cell: set-up, the measured window, the check, the line.
 
 The window is a closed loop with one caller, as a library user calls the
-solver: one solve after another, each from a fresh start point of the
-cell's mix, until ``--seconds`` have passed and the solve in flight has
-returned.  The host clock around each solve closes on a synchronize.
+solver: one solve after another, each on a fresh input that the
+configuration's system draws from the seed (``draw``, drawn before the
+solve's timed interval), until ``--seconds`` have passed and the solve in
+flight has returned.  The host clock around each solve closes on a synchronize.
 With ``--trace 1`` the window runs under ``torch.profiler``; the host's
 blocking reads are then counted on a few more solves after it, under the
 sync debug mode, so their warnings do not slow the traced window.
@@ -80,6 +81,19 @@ def system_module(config: dict):
     return importlib.import_module(f"portbench.systems.{config['system']}")
 
 
+def load_cell(name: str, root: Path = ROOT):
+    """(spec, cell, configuration, mix, system module) of the cell
+    ``name`` of the benchmark under ``root``, its mix checked by the
+    common rules and by the system's own."""
+    spec = load_spec(root)
+    cell, entry = find_cell(spec, name)
+    config = load_config(entry, root)
+    mix = traffic.load(cell["traffic"], root)
+    sysmod = system_module(config)
+    sysmod.check_mix(mix)
+    return spec, cell, config, mix, sysmod
+
+
 def metric_reader(name: str):
     """``metrics/<name>.py``, loaded from its file."""
     path = HERE / "metrics" / f"{name}.py"
@@ -117,9 +131,9 @@ def count_syncs(torch, fn) -> int:
     return sum("synchroniz" in str(w.message) for w in caught)
 
 
-def run_window(torch, system, mix, seed, seconds, device, sample):
-    """The closed loop.  Returns (window seconds, walls, counters, the
-    recorded solves of ``sample``)."""
+def run_window(torch, system, draw, seconds, device, sample):
+    """The closed loop, solve ``i`` on ``draw(WINDOW, i)``.  Returns
+    (window seconds, walls, counters, the recorded solves of ``sample``)."""
     sync = (lambda: torch.cuda.synchronize(device)) if device.type == "cuda" \
         else (lambda: None)
     walls, counters, kept = [], [], {}
@@ -127,15 +141,14 @@ def run_window(torch, system, mix, seed, seconds, device, sample):
     t_start = time.perf_counter()
     i = 0
     while True:
-        x0 = traffic.start_point(mix, seed, traffic.WINDOW, i, device,
-                                 system.dtype)
+        inp = draw(traffic.WINDOW, i)
         sync()
         t0 = time.perf_counter()
         if i in sample:
-            kept[i] = system.solve_recorded(x0)
+            kept[i] = system.solve_recorded(inp)
             res = kept[i][0]
         else:
-            res = system.solve(x0)
+            res = system.solve(inp)
         sync()
         t1 = time.perf_counter()
         walls.append(t1 - t0)
@@ -153,11 +166,7 @@ def measure(cell_name: str, seed: int, seconds: float, trace: bool, *,
     numbers).  ``require_card=False`` (tests only) runs on ``device``."""
     import torch
 
-    spec = load_spec(root)
-    cell, entry = find_cell(spec, cell_name)
-    config = load_config(entry, root)
-    mix = traffic.load(cell["traffic"], root)
-    sysmod = system_module(config)
+    spec, cell, config, mix, sysmod = load_cell(cell_name, root)
     if require_card:
         if not torch.cuda.is_available():
             raise NoCard("torch.cuda.is_available() is False")
@@ -169,13 +178,15 @@ def measure(cell_name: str, seed: int, seconds: float, trace: bool, *,
     cuda = device.type == "cuda"
     run = Run(cell=cell, config=config, mix=mix, kernels=sysmod.KERNELS)
 
+    def draw(stream, index):
+        return sysmod.draw(config, mix, seed, stream, index, device)
+
     # ---- set-up: the program, the kernel's build, one warm solve a shape
     stamps = [("imports", time.perf_counter())]
     system = sysmod.System(config, mix, device, engine=engine)
     stamps.append(("problem", time.perf_counter()))
     for w in range(mix["warmup_solves"]):
-        system.solve(traffic.start_point(mix, seed, traffic.WARMUP, w,
-                                         device, system.dtype))
+        system.solve(draw(traffic.WARMUP, w))
         if cuda:
             torch.cuda.synchronize(device)
         stamps.append((f"warm solve {w}", time.perf_counter()))
@@ -209,7 +220,7 @@ def measure(cell_name: str, seed: int, seconds: float, trace: bool, *,
                                          if cuda else [])
         with profile(activities=acts) as prof:
             run.window_s, run.walls, counters, kept = run_window(
-                torch, system, mix, seed, seconds, device, sample)
+                torch, system, draw, seconds, device, sample)
             t_stop = time.perf_counter()
         t_read = time.perf_counter()
         run.trace = Trace.from_profiler(prof, run.window_s)
@@ -220,13 +231,11 @@ def measure(cell_name: str, seed: int, seconds: float, trace: bool, *,
         if cuda:
             n_sync = mix["sync_solves"]
             reads = count_syncs(torch, lambda: [
-                system.solve(traffic.start_point(mix, seed, traffic.SYNCS,
-                                                 j, device, system.dtype))
-                for j in range(n_sync)])
+                system.solve(draw(traffic.SYNCS, j)) for j in range(n_sync)])
             run.syncs_per_solve = reads / n_sync
     else:
         run.window_s, run.walls, counters, kept = run_window(
-            torch, system, mix, seed, seconds, device, sample)
+            torch, system, draw, seconds, device, sample)
     run.solves = [system.read_counters(c) for c in counters]
     del counters
 
@@ -239,10 +248,8 @@ def measure(cell_name: str, seed: int, seconds: float, trace: bool, *,
     del kept, system
     if cuda:
         torch.cuda.empty_cache()
-    worst = sysmod.judge(config, mix["n"], samples,
-                         lambda i: traffic.start_point(
-                             mix, seed, traffic.WINDOW, i, device),
-                         device)
+    worst = sysmod.judge(config, mix, samples,
+                         lambda i: draw(traffic.WINDOW, i), device)
     log(f"check {time.perf_counter() - t_check:.1f} s")
     limits = config.get("limits") or {}
     failed = sum(1 for s in run.solves if not math.isfinite(s["f"]))

@@ -2,12 +2,13 @@
 
     python3 portbench/control.py --workload <cell> --seeds 11 12 13 ...
 
-For each seed, the start point of the window's first solve goes through the
-program (as the window drives it) and through the control (the reference
-in bfloat16 storage, put in the program's place), and both answers are held
-against the float64 reference by the cell's own numbers.  Prints one JSON
-line a seed, then the largest program reading and the smallest control
-reading of each number.  Not part of a benchmark run.
+For each seed, the input of the window's first solve goes through the
+program (as the window drives it) and through the control (the system's
+``control``: the reference put in the program's place, one precision
+lower), and the system's ``judge`` holds both answers against the plain
+reference by the cell's own numbers.  Prints one JSON line a seed, then the
+largest program reading and the smallest control reading of each number.
+Not part of a benchmark run.
 """
 
 from __future__ import annotations
@@ -26,25 +27,24 @@ def readings(cell_name: str, seeds, device, engine=None, root=None):
 
     from portbench import bench, traffic
 
-    root = root or bench.ROOT
-    spec = bench.load_spec(root)
-    cell, entry = bench.find_cell(spec, cell_name)
-    config = bench.load_config(entry, root)
-    mix = traffic.load(cell["traffic"], root)
-    sysmod = bench.system_module(config)
+    _, _, config, mix, sysmod = bench.load_cell(cell_name, root or bench.ROOT)
     device = torch.device(device)
+
+    def draw(seed, stream):
+        return sysmod.draw(config, mix, seed, stream, 0, device)
+
     system = sysmod.System(config, mix, device, engine=engine)
-    system.solve(traffic.start_point(mix, 0, traffic.WARMUP, 0, device))
+    system.solve(draw(0, traffic.WARMUP))
     out = []
-    prm = sysmod.reference_params(config)
-    p64 = sysmod.reference_problem(config, mix["n"], device)
     for seed in seeds:
-        x0 = traffic.start_point(mix, seed, traffic.WINDOW, 0, device)
-        trail = system.trail(system.solve_recorded(x0))
-        prog = sysmod.readings(trail, x0, p64, prm)
-        del trail
-        ctl = sysmod.readings(sysmod.control_solve(config, mix["n"], x0),
-                              x0, p64, prm)
+        x = draw(seed, traffic.WINDOW)
+
+        def judge(trail):
+            return sysmod.judge(config, mix, [(0, trail)], lambda i: x,
+                                device)
+
+        prog = judge(system.trail(system.solve_recorded(x)))
+        ctl = judge(sysmod.control(config, mix, x))
         out.append((seed, prog, ctl))
     return out
 

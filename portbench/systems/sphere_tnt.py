@@ -36,6 +36,21 @@ radius and gain-ratio traces and its status.  The float64 reference
 So every quantity the accept decision and the radius are made from is held
 against the reference or against the program's own checked values: a
 gain ratio, a stated decrease or a step that is off fails ``model``.
+
+The system's side of the harness's contract (``traffic.py``'s docstring):
+
+- the input of a solve is its start point, a uniform point on S^(n-1):
+  ``draw`` takes n normal draws in f32 on the device from their own
+  generator, seeded ``traffic.draw_seed(seed, stream, index)``, over their
+  norm;
+- ``check_mix`` holds the one key of the sphere's mixes, ``n``, the
+  problem size of every solve;
+- ``judge(config, mix, samples, input_of, device)`` reads ``model`` and
+  ``trial`` as above, with the float64 reference at the mix's n;
+- ``control`` is the reference in bfloat16 storage, put in the program's
+  place (``control.py`` judges its solve as the program's);
+- ``read_counters`` gives ``"outer"``, ``"inner"`` (CG iterations of each
+  outer iteration), ``"status"`` and ``"f"``, the TNT result's.
 """
 
 from __future__ import annotations
@@ -45,11 +60,34 @@ import math
 
 import torch
 
+from .. import traffic
 from ..reference import sphere_tnt as ref
 
 NUMBERS = ("model", "trial")
 # the program's kernels, as torch.profiler names them
 KERNELS = ("streamed_cg_kernel", "streamed_cg_any_kernel")
+# the CPU tests' size: n = 4096, six outer iterations, two solves checked
+TEST_MIX = {"n": 4096, "warmup_solves": 1, "check_solves": 2,
+            "check_within": 2, "sync_solves": 1}
+TEST_OVERRIDES = {"max_iterations": 6}
+
+
+def check_mix(mix: dict) -> None:
+    n = mix.get("n")
+    if not isinstance(n, int) or isinstance(n, bool) or n < 2:
+        raise ValueError(f"a sphere mix states its size n >= 2, not {n!r}")
+
+
+def draw(config: dict, mix: dict, seed: int, stream: int, index: int,
+         device) -> torch.Tensor:
+    """A uniform point on S^(n-1): n normal draws on ``device`` from their
+    own generator, over their norm, in f32 (the storage every sphere
+    configuration states)."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(traffic.draw_seed(seed, stream, index))
+    x = torch.randn(mix["n"], generator=gen, dtype=torch.float32,
+                    device=device)
+    return x / torch.linalg.vector_norm(x)
 
 
 def reference_params(config: dict) -> ref.SolveParams:
@@ -76,7 +114,6 @@ class System:
         if config["storage"] != "float32":
             raise ValueError("sphere_tnt runs float32 storage")
         self.n = mix["n"]
-        self.dtype = torch.float32
         self._tnt = tnt
         self.problem = headline.make_problem(
             self.n, device, engine or config["engine"],
@@ -147,11 +184,11 @@ class System:
             dm=[float(d) for d in decreases[:steps]])
 
 
-def control_solve(config: dict, n: int, x0: torch.Tensor) -> ref.Solve:
+def control(config: dict, mix: dict, x0: torch.Tensor) -> ref.Solve:
     """The control: the reference put in the program's place, its vectors
     stored in bfloat16 (the nearest type below the configuration's f32
     for a computation with no matrix product: TF32 touches nothing here)."""
-    problem = reference_problem(config, n, x0.device, torch.bfloat16)
+    problem = reference_problem(config, mix["n"], x0.device, torch.bfloat16)
     return ref.solve(problem, x0, reference_params(config))
 
 
@@ -231,12 +268,12 @@ def _stops_by_rule(trail, steps, g_end, p64, prm) -> bool:
     return False
 
 
-def judge(config: dict, n: int, samples, start, device) -> dict:
+def judge(config: dict, mix: dict, samples, input_of, device) -> dict:
     """Worst readings over ``samples`` [(index, trail)], each followed
-    from ``start(index)`` by the float64 reference."""
-    p64 = reference_problem(config, n, device)
+    from its start point ``input_of(index)`` by the float64 reference."""
+    p64 = reference_problem(config, mix["n"], device)
     prm = reference_params(config)
-    got = [readings(trail, start(index), p64, prm)
+    got = [readings(trail, input_of(index), p64, prm)
            for index, trail in samples]
     return {k: _worst([0.0] + [r[k] for r in got]) for k in NUMBERS}
 

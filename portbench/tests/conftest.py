@@ -1,7 +1,8 @@
-"""Fixtures of the benchmark's CPU tests: a copy of the benchmark's
-configuration at a size a test run holds (n = 4096, six outer iterations,
-two solves checked), driven through ``bench.measure`` on the CPU with the
-kernel's plain version."""
+"""Fixtures of the benchmark's CPU tests: a copy of the benchmark at a size a
+test run holds, driven through ``bench.measure`` on the CPU with the
+kernel's plain version.  Each configuration runs at its system's
+``TEST_OVERRIDES``, and each cell at its system's ``TEST_MIX`` (the sphere:
+n = 4096, six outer iterations, two solves checked)."""
 
 import json
 import shutil
@@ -14,28 +15,38 @@ ROOT = Path(__file__).resolve().parents[2]
 if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
-TINY = {"n": 4096, "warmup_solves": 1, "check_solves": 2, "check_within": 2,
-        "sync_solves": 1}
-OUTER = 6
+
+def write_root(root: Path, spec: dict, configs: dict, mixes: dict) -> Path:
+    """A benchmark root: ``BENCHMARK.json`` from ``spec``, each
+    configuration {file: dict} and each mix {name: dict} as a file."""
+    (root / "portbench" / "traffic").mkdir(parents=True, exist_ok=True)
+    for file, config in configs.items():
+        (root / file).parent.mkdir(parents=True, exist_ok=True)
+        (root / file).write_text(json.dumps(config))
+    for name, mix in mixes.items():
+        (root / "portbench" / "traffic" / f"{name}.json").write_text(
+            json.dumps(mix))
+    (root / "BENCHMARK.json").write_text(json.dumps(spec))
+    return root
 
 
 @pytest.fixture
 def tiny_root(tmp_path):
     """A benchmark root whose cells run the real configurations (their
-    limits too) at n = 4096 and 6 outer iterations."""
+    limits too) at their systems' test sizes."""
+    from portbench import bench
+
     spec = json.loads((ROOT / "BENCHMARK.json").read_text())
-    bench_dir = tmp_path / "portbench"
-    (bench_dir / "traffic").mkdir(parents=True)
-    (bench_dir / "configs").mkdir()
+    configs, mixes, mix_of = {}, {}, {}
     for c in spec["configs"]:
-        cfg = json.loads((ROOT / c["file"]).read_text())
-        cfg["max_iterations"] = OUTER
-        (tmp_path / c["file"]).write_text(json.dumps(cfg))
+        config = json.loads((ROOT / c["file"]).read_text())
+        sysmod = bench.system_module(config)
+        configs[c["file"]] = {**config, **sysmod.TEST_OVERRIDES}
+        mix_of[c["name"]] = f"tiny_{config['system']}"
+        mixes[mix_of[c["name"]]] = sysmod.TEST_MIX
     for w in spec["workloads"]:
-        w["traffic"] = "tiny"
-    (bench_dir / "traffic" / "tiny.json").write_text(json.dumps(TINY))
-    (tmp_path / "BENCHMARK.json").write_text(json.dumps(spec))
-    yield tmp_path
+        w["traffic"] = mix_of[w["config"]]
+    yield write_root(tmp_path, spec, configs, mixes)
     shutil.rmtree(tmp_path, ignore_errors=True)
 
 
